@@ -1,0 +1,494 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one NVIDIA card and check what comes out.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one CUDA card (sm_90a:
+H100). Imports nothing of JAX or of the JAX package. Phases, in order; any
+failed check raises and the script exits non-zero:
+
+1. Device: the card's name and power limit (``nvidia-smi``), then the build
+   of every CUDA kernel from ``src/repro_torch/kernels/csrc``.
+2. Kernels at the main path's shapes, each held against its plain PyTorch
+   version on the card: f32 with TF32 off at 2e-5, bf16 at 2e-2, aliased
+   block tables bitwise. Times the kernel, the plain version and one PyTorch
+   library call computing the same function (``library_ms``, timed here
+   only), and computes the least time the card could take (``bound_ms``).
+3. Parity at full width: ``llama3_2_3b`` widths cut to 4 layers, f32 with
+   TF32 off. Greedy tokens of a chunked, prefix-cached run equal an
+   unchunked, uncached run, and the model's logits on the card agree with
+   the same model run on the CPU through the plain versions.
+4. Serving: full ``llama3_2_3b`` (28 layers, bf16) behind a
+   ``pars_bert_base``-width ranking predictor, both seeded on the card,
+   serves a burst of 16 requests under PARS and under FCFS. Every kernel's
+   launch count is set to 0 just before each run and read just after. The
+   FCFS burst then runs once more under ``torch.profiler``: device time by
+   kernel and the device's busy share of the run's wall time. Last, the
+   command-line launcher (``repro_torch.launch.serve --full``) serves a
+   short burst.
+
+The last lines are a JSON object of per-kernel numbers and then
+``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
+where no CUDA card is visible or the package cannot be imported.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM
+# bytes/s and bf16 tensor-core FLOP/s (the main path's dtype).
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS_S = 989e12
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls
+    (CUDA events, after ``warmup`` calls)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved: float, flops: float):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and bf16
+    operations over the peak bf16 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
+    t_ops = flops / BF16_FLOPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name: str, out, ref, tol: float) -> float:
+    err = (out.float() - ref.float()).abs().max().item()
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol,
+                               msg=lambda m: f"{name}: {m}")
+    log(f"  {name}: max_abs_err={err:.3e} (tol {tol:g})")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def phase_decode_kernel(dev):
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    b, kh, g, dh, bs, mb = 8, 8, 3, 128, 16, 32
+    h, n = kh * g, b * mb + 1
+    rng = np.random.default_rng(SEED)
+    tables = np.stack([rng.permutation(n)[:mb] for _ in range(b)])
+    lengths = np.asarray([mb * bs, 1, 17, 100, 255, 256, 400, 511], np.int32)
+    q32 = torch.randn(b, h, dh, device=dev)
+    kp32 = torch.randn(n, bs, kh, dh, device=dev)
+    vp32 = torch.randn(n, bs, kh, dh, device=dev)
+    tb = torch.as_tensor(tables, dtype=torch.int32, device=dev)
+    ln = torch.as_tensor(lengths, device=dev)
+    log(f"paged decode: B={b} KH={kh} G={g} dh={dh} bs={bs} "
+        f"max_blocks={mb} lengths={lengths.tolist()}")
+    errs = {}
+    for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        args = (q32.to(getattr(torch, dt)), kp32.to(getattr(torch, dt)),
+                vp32.to(getattr(torch, dt)), tb, ln)
+        out = paged_decode_attention(*args)
+        torch.cuda.synchronize()
+        errs[dt] = check_close(f"decode {dt}", out,
+                               paged_decode_attention_plain(*args), tol)
+    # aliased tables: same query, same length, shared leading blocks
+    alias = tb.clone()
+    alias[1, :3] = alias[0, :3]
+    q2 = q32.clone()
+    q2[1] = q2[0]
+    l2 = torch.tensor([3 * bs] * b, dtype=torch.int32, device=dev)
+    out = paged_decode_attention(q2, kp32, vp32, alias, l2)
+    torch.cuda.synchronize()
+    if not torch.equal(out[0], out[1]):
+        raise AssertionError("decode: aliased tables are not bitwise equal")
+    log("  decode aliased tables: bitwise equal")
+
+    # timing in the main path's dtype
+    bf = torch.bfloat16
+    q, kp, vp = q32.to(bf), kp32.to(bf), vp32.to(bf)
+    ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, tb, ln), 200)
+    plain_ms = cuda_ms(
+        lambda: paged_decode_attention_plain(q, kp, vp, tb, ln), 20)
+    # library yardstick: SDPA over the same rows, lanes pre-gathered and
+    # heads pre-expanded outside the timed call, length mask as bool
+    lane_k = kp[tb.long()].reshape(b, mb * bs, kh, dh).permute(0, 2, 1, 3)
+    lane_v = vp[tb.long()].reshape(b, mb * bs, kh, dh).permute(0, 2, 1, 3)
+    lane_k = lane_k.repeat_interleave(g, 1).contiguous()
+    lane_v = lane_v.repeat_interleave(g, 1).contiguous()
+    mask = (torch.arange(mb * bs, device=dev)[None] < ln[:, None].long())
+    mask = mask[:, None, None, :]
+    qs = q[:, :, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(qs, lane_k, lane_v, attn_mask=mask),
+                         200)
+    rows = int(lengths.sum())
+    bytes_moved = (2 * rows * kh * dh * 2          # K and V rows read, bf16
+                   + 2 * b * h * dh * 2            # q in, out
+                   + tables.size * 4 + b * 4)      # tables, lengths
+    flops = 4 * rows * h * dh
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    log(f"  decode bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+        f"{library_ms:.4f} ms SDPA, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"name": "paged_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+            "replaces": "src/repro/kernels/flash_decode/kernel.py:193",
+            "max_abs_err": errs["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_prefill_kernel(dev):
+    from repro_torch.kernels.flash_prefill.ops import (flash_attention,
+                                                       flash_attention_plain)
+
+    b, h, kh, sq, dh = 8, 24, 8, 128, 128
+    log(f"prefill: B={b} H={h} KH={kh} Sq={sq} dh={dh}")
+    q32 = torch.randn(b, h, sq, dh, device=dev)
+    k32 = torch.randn(b, kh, sq, dh, device=dev)
+    v32 = torch.randn(b, kh, sq, dh, device=dev)
+    zero = torch.zeros(b, dtype=torch.int32, device=dev)
+    full = torch.full((b,), sq, dtype=torch.int32, device=dev)
+    # continuation chunks: 64 queries at per-row offsets over 512-row lanes
+    c, w = 64, 512
+    starts = torch.tensor([0, 16, 64, 128, 192, 256, 384, 448],
+                          dtype=torch.int32, device=dev)
+    qc32 = torch.randn(b, h, c, dh, device=dev)
+    kc32 = torch.randn(b, kh, w, dh, device=dev)
+    vc32 = torch.randn(b, kh, w, dh, device=dev)
+    errs = {}
+    for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        t = getattr(torch, dt)
+        args = (q32.to(t), k32.to(t), v32.to(t), zero, full)
+        out = flash_attention(*args)
+        torch.cuda.synchronize()
+        errs[dt] = check_close(f"prefill q_start=0 {dt}", out,
+                               flash_attention_plain(*args), tol)
+        args = (qc32.to(t), kc32.to(t), vc32.to(t), starts, starts + c)
+        out = flash_attention(*args)
+        torch.cuda.synchronize()
+        errs[dt] = max(errs[dt], check_close(
+            f"prefill offsets {dt}", out, flash_attention_plain(*args), tol))
+
+    bf = torch.bfloat16
+    q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
+    ms = cuda_ms(lambda: flash_attention(q, k, v, zero, full), 100)
+    plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, zero, full), 20)
+    ke = k.repeat_interleave(h // kh, 1).contiguous()
+    ve = v.repeat_interleave(h // kh, 1).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = cuda_ms(lambda: sdpa(q, ke, ve, is_causal=True), 100)
+    pairs = b * h * sq * (sq + 1) // 2             # unmasked (query, key)
+    flops = 4 * dh * pairs
+    bytes_moved = 2 * (2 * b * h * sq * dh + 2 * b * kh * sq * dh) + 8 * b
+    bound_ms, bound_by = bound(bytes_moved, flops)
+    log(f"  prefill bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+        f"{library_ms:.4f} ms SDPA, bound {bound_ms:.5f} ms ({bound_by})")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
+            "replaces": "src/repro/kernels/flash_prefill/kernel.py:105",
+            "max_abs_err": errs["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phases 3 and 4: the served path
+# ---------------------------------------------------------------------------
+def _words(n: int, tag: str) -> str:
+    return " ".join(f"{tag}{j}" for j in range(n))
+
+
+def burst(n: int = 16, seed: int = SEED):
+    """``n`` requests at t=0; every other one opens with a shared ~90-word
+    system prompt, and output lengths are drawn from 1..64."""
+    from repro_torch.core.scheduler.request import Request
+    from repro_torch.data.synthetic import make_corpus
+
+    rng = np.random.default_rng(seed)
+    system = "system " + _words(90, "rule")
+    corpus = make_corpus("alpaca", n, seed=seed)
+    reqs = []
+    for i, question in enumerate(corpus.prompts):
+        prompt = f"{system} {question}" if i % 2 == 0 else question
+        reqs.append(Request(req_id=i, prompt=prompt, arrival_time=0.0,
+                            prompt_len=len(prompt.split()),
+                            true_length=int(rng.integers(1, 65))))
+    return reqs
+
+
+def make_engine(cfg, params, policy, dev, *, chunk, caching, kv_blocks,
+                max_batch=8):
+    from repro_torch.core.scheduler.scheduler import Scheduler
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.kv_cache import BlockAllocator
+
+    return Engine(cfg, params, Scheduler(policy=policy, max_batch=max_batch),
+                  cache_len=512, prompt_len=128,
+                  allocator=BlockAllocator(kv_blocks, 16),
+                  prefill_chunk_tokens=chunk, prefix_caching=caching,
+                  record_tokens=True, device=dev)
+
+
+def phase_parity(dev) -> float:
+    """Full-width llama3_2_3b cut to 4 layers, f32, TF32 off."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler.policies import fcfs
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("llama3_2_3b").replace(num_layers=4, dtype="float32")
+    params = tfm.init_params(cfg, SEED, device=dev)
+    runs = {}
+    for chunk, caching in ((None, False), (64, True)):
+        eng = make_engine(cfg, params, fcfs(), dev, chunk=chunk,
+                          caching=caching, kv_blocks=64)
+        eng.submit(burst(12))
+        fin = eng.run()
+        if len(fin) != 12 or eng.allocator.used_blocks:
+            raise AssertionError(f"parity run {chunk, caching}: "
+                                 f"{len(fin)} finished, "
+                                 f"{eng.allocator.used_blocks} blocks held")
+        runs[chunk, caching] = {r.req_id: r.generated_tokens for r in fin}
+        log(f"  4-layer f32 run chunk={chunk} caching={caching}: "
+            f"{eng.backend.prefill_dispatches} prefill + "
+            f"{eng.backend.extend_dispatches} extend dispatches, "
+            f"{eng.backend.prefix_installs} prefix hits")
+        if caching and eng.backend.prefix_installs == 0:
+            raise AssertionError("parity run: no prefix-cache hit")
+    if runs[None, False] != runs[64, True]:
+        diff = [i for i in runs[None, False]
+                if runs[None, False][i] != runs[64, True].get(i)]
+        raise AssertionError(f"chunked+cached tokens differ for {diff}")
+    log("  greedy tokens: chunked + prefix-cached == unchunked + uncached")
+
+    # the same model on the CPU, through the plain versions
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 24)), device=dev)
+    cache = tfm.init_cache(cfg, 2, 64, device=dev)
+    lg, cache, _ = tfm.forward_seq(params, cfg, toks[:, :20], cache=cache)
+    lg2, _ = tfm.forward_chunk(params, cfg, toks[:, 20:], cache)
+    cpu_params = _tree_to(params, "cpu")
+    cpu_cache = tfm.init_cache(cfg, 2, 64, device="cpu")
+    ref, cpu_cache, _ = tfm.forward_seq(cpu_params, cfg, toks[:, :20].cpu(),
+                                        cache=cpu_cache)
+    ref2, _ = tfm.forward_chunk(cpu_params, cfg, toks[:, 20:].cpu(),
+                                cpu_cache)
+    err = max(check_close("4-layer logits card vs CPU, prefill", lg.cpu(),
+                          ref, 1e-3),
+              check_close("4-layer logits card vs CPU, chunk", lg2.cpu(),
+                          ref2, 1e-3))
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("non-finite logits")
+    return err
+
+
+def serve_once(cfg, params, policy, dev, reqs):
+    from repro_torch.serving.metrics import RunCounters, report
+
+    eng = make_engine(cfg, params, policy, dev, chunk=64, caching=True,
+                      kv_blocks=64)
+    eng.submit(reqs)
+    t0 = time.perf_counter()
+    fin = eng.run()
+    wall = time.perf_counter() - t0
+    rep = report(policy.name, fin, counters=RunCounters.from_core(eng.core))
+    return eng, fin, rep, wall
+
+
+def phase_serve(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
+    from repro_torch.core.predictor.train import RankingPredictor
+    from repro_torch.core.scheduler.policies import fcfs, make_policy
+    from repro_torch.kernels.flash_decode.ops import paged_decode_attention
+    from repro_torch.kernels.flash_prefill.ops import flash_attention
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("llama3_2_3b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, SEED, device=dev)
+    predictor = RankingPredictor.init(PRED_CONFIG, SEED, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"  llama3_2_3b: {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+        f"params bf16; predictor pars_bert_base "
+        f"({sum(t.numel() for t in _leaves(predictor.params)) / 1e6:.1f} M "
+        f"params); init {time.perf_counter() - t0:.1f} s")
+    # warm the CUDA libraries once, outside the measured runs
+    serve_once(cfg, params, fcfs(), dev, burst(2, seed=99))
+
+    kernels = (paged_decode_attention, flash_attention)
+    launches, walls = {}, {}
+    for name in ("pars", "fcfs"):
+        policy = (make_policy("pars", predictor) if name == "pars"
+                  else fcfs())
+        reqs = burst(16)
+        for k in kernels:
+            k.launches = 0
+        eng, fin, rep, wall = serve_once(cfg, params, policy, dev, reqs)
+        counts = {k.__name__: k.launches for k in kernels}
+        tokens = sum(r.true_length for r in fin)
+        log(f"  {rep.row()}")
+        log(f"  {name}: {len(fin)} finished, {tokens} tokens in {wall:.2f} s "
+            f"({tokens / wall:.1f} tok/s); launches {counts}; prefill "
+            f"{eng.backend.prefill_dispatches} + extend "
+            f"{eng.backend.extend_dispatches} dispatches; prefix hits "
+            f"{eng.backend.prefix_installs}, tokens copied "
+            f"{eng.backend.prefix_tokens_copied}; scorer failures "
+            f"{policy.scorer_failures}, degradations {policy.degradations}")
+        problems = []
+        if len(fin) != len(reqs):
+            problems.append(f"{len(fin)} of {len(reqs)} finished")
+        if any(v == 0 for v in counts.values()):
+            problems.append(f"a kernel was never launched: {counts}")
+        if eng.backend.prefix_installs == 0:
+            problems.append("no prefix-cache hit")
+        if eng.backend.prefix_tokens_copied != 0:
+            problems.append("prefix hits copied KV")
+        if eng.allocator.used_blocks != 0:
+            problems.append(f"{eng.allocator.used_blocks} blocks held")
+        if policy.scorer_failures or policy.degradations:
+            problems.append("the predictor failed: PARS degraded to FCFS")
+        if name == "pars" and not all(r.scored for r in fin):
+            problems.append("a request was never scored")
+        for r in fin:
+            if (len(r.generated_tokens) != r.true_length or not all(
+                    0 <= t < cfg.vocab_size for t in r.generated_tokens)):
+                problems.append(f"request {r.req_id}: bad tokens")
+        if problems:
+            raise AssertionError(f"serving under {name}: {problems}")
+        launches[name] = counts
+        walls[name] = wall
+    t0 = time.perf_counter()
+    profile_serving(cfg, params, dev, walls["fcfs"])
+    log(f"  profiling took {time.perf_counter() - t0:.1f} s")
+
+    # the command-line entry point, at published widths on the card
+    rep = launch_serve.main(["--full", "--policy", "pars", "--requests", "8",
+                             "--batch", "4", "--max-len", "16"])
+    if rep.n_requests != 8:
+        raise AssertionError(f"launcher served {rep.n_requests} of 8")
+    return launches["pars"]
+
+
+def profile_serving(cfg, params, dev, wall_unprofiled: float) -> None:
+    """Where the time goes: the FCFS burst once more under
+    ``torch.profiler``, tracing device activity only (kernels and copies,
+    so no time is counted twice); prints the device time by kernel and the
+    device's busy share of the unprofiled run's wall time (one stream, so
+    kernel times do not overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.scheduler.policies import fcfs
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = serve_once(cfg, params, fcfs(), dev, burst(16))
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    busy = sum(r[0] for r in rows)
+    log(f"  profile (fcfs burst): device busy {busy:.1f} ms; wall "
+        f"{wall * 1e3:.1f} ms profiled, {wall_unprofiled * 1e3:.1f} ms "
+        f"unprofiled; busy share of unprofiled wall "
+        f"{busy / (wall_unprofiled * 1e3):.3f}")
+    if not rows:
+        log("  profile: the profiler recorded no device time")
+    for ms, count, key in sorted(rows, reverse=True)[:15]:
+        log(f"    {ms:9.2f} ms {ms / busy:6.1%} {count:7d} calls  {key[:90]}")
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card is visible; this script runs on the "
+              "card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    log(smi.stdout.strip().splitlines()[0])
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}")
+
+    log("== phase 1: build")
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    log(f"built {len(logs)} kernel libraries in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(SEED)
+    log("== phase 2: kernels against their plain versions")
+    entries = [phase_decode_kernel(dev), phase_prefill_kernel(dev)]
+
+    log(f"== phase 3: parity at full width, 4 layers, f32 "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    phase_parity(dev)
+    torch.cuda.empty_cache()
+
+    log(f"== phase 4: serving full llama3_2_3b under PARS and FCFS "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    launches = phase_serve(dev)
+    for e in entries:
+        e["launches"] = launches[e["name"]]
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

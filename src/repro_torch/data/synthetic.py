@@ -1,0 +1,149 @@
+"""Synthetic prompt corpus + response-length oracle.
+
+Offline stand-in for Alpaca / LMSYS-Chat-1M prompts and GPT-4 / Llama-3.1 /
+DeepSeek-R1 response lengths (DESIGN.md §8). The generators are calibrated to
+the paper's observed regimes:
+
+* Prompt *complexity* z is a linear function of visible lexical features
+  (task verb + topic weights + prompt length) plus prompt-level irreducible
+  noise — so a text predictor can learn z, but not perfectly.
+* Response length  L = round(exp(base + slope·z + hidden + run_noise)):
+  - ``run_noise`` gives the ~20% (instruct) / ~25% (reasoning) max/min
+    run-to-run relative variance of paper Fig. 2 (σ=0.06 / 0.075 lognormal);
+  - ``hidden`` is per-(prompt, model) latent difficulty invisible in the
+    text — it sets the τ_b ceiling (small for the GPT-4-like generator,
+    large for the R1-like one, matching Table II's ordering);
+  - reasoning models include the CoT trace in L (paper §IV-A), hence the
+    large base and occasional multi-thousand-token outputs (Table I).
+* Datasets: "alpaca" (clean instructions) vs "lmsys" (noisier, more filler,
+  extra hidden noise) — reproducing the Alpaca > LMSYS accuracy gap.
+
+Everything is seeded and deterministic given (dataset, model, seed).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+# ---------------------------------------------------------------------------
+# Emulated target LLMs (the paper's three)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class LLMProfile:
+    name: str
+    reasoning: bool
+    base: float          # log-length intercept
+    slope: float         # complexity sensitivity
+    run_sigma: float     # run-to-run lognormal noise (Fig. 2 regime)
+    hidden_sigma: float  # per-(prompt,model) latent noise → τ ceiling
+    delta: float         # paper's min_length_difference threshold for this LLM
+
+
+MODELS: Dict[str, LLMProfile] = {
+    # instruct-class: short, highly prompt-determined outputs
+    "gpt4":  LLMProfile("gpt4",  False, base=2.9, slope=1.00, run_sigma=0.06,
+                        hidden_sigma=0.10, delta=0.20),
+    "llama": LLMProfile("llama", False, base=2.6, slope=0.90, run_sigma=0.06,
+                        hidden_sigma=0.45, delta=0.20),
+    # reasoning-class: CoT trace included in length; long + weakly predictable
+    "r1":    LLMProfile("r1",    True,  base=6.1, slope=0.75, run_sigma=0.075,
+                        hidden_sigma=0.80, delta=0.25),
+}
+
+DATASETS = ("alpaca", "lmsys")
+
+# Task verbs with complexity weights (reasoning-heavy verbs → long outputs).
+_VERBS = [
+    ("what is", -1.2), ("define", -1.0), ("name", -1.3), ("count", -0.8),
+    ("translate", -0.5), ("classify", -0.6), ("summarize", 0.1),
+    ("list", 0.2), ("describe", 0.4), ("explain", 0.8), ("compare", 0.9),
+    ("analyze", 1.1), ("write an essay about", 1.4), ("write code for", 1.2),
+    ("prove", 1.6), ("derive", 1.7), ("design a plan for", 1.3),
+    ("walk me through", 1.0), ("debate", 1.2), ("brainstorm ideas about", 0.9),
+]
+_FILLER = ("please could you kindly just quickly briefly the a an of in on "
+           "for with about regarding concerning my our this that").split()
+N_TOPICS = 240
+
+
+@dataclass
+class Corpus:
+    dataset: str
+    prompts: List[str]
+    z: np.ndarray                      # latent complexity per prompt
+    seed: int
+
+
+def _topic_weights(seed: int = 1234) -> np.ndarray:
+    return np.random.default_rng(seed).normal(0.0, 1.0, N_TOPICS)
+
+
+def make_corpus(dataset: str, n: int, seed: int = 0) -> Corpus:
+    assert dataset in DATASETS
+    rng = np.random.default_rng(seed + (0 if dataset == "alpaca" else 10_000))
+    tw = _topic_weights()
+    prompts, zs = [], []
+    messy = dataset == "lmsys"
+    for _ in range(n):
+        vi = rng.integers(len(_VERBS))
+        ti = rng.integers(N_TOPICS)
+        verb, wv = _VERBS[vi]
+        n_fill = rng.integers(0, 12 if messy else 5)
+        fillers = list(rng.choice(_FILLER, n_fill))
+        extra = []
+        extra_w = 0.0
+        if rng.random() < 0.45:                          # secondary topic
+            t2 = rng.integers(N_TOPICS)
+            extra = [f"topic{t2}"]
+            extra_w = 0.35 * tw[t2]
+        words = [verb, f"topic{ti}"] + extra + fillers
+        rng.shuffle(words)
+        # keep verb first for readability ~half the time
+        prompt = verb + " " + " ".join(w for w in words if w != verb)
+        z = (1.0 * wv + 0.6 * tw[ti] + extra_w
+             + 0.04 * len(prompt.split())
+             + rng.normal(0.0, 0.35 if messy else 0.2))  # irreducible
+        prompts.append(prompt)
+        zs.append(z)
+    return Corpus(dataset, prompts, np.asarray(zs, np.float64), seed)
+
+
+def sample_lengths(corpus: Corpus, model: str, *, run_seed: int = 0,
+                   n_runs: int = 1) -> np.ndarray:
+    """Ground-truth output lengths. (n,) if n_runs==1 else (n_runs, n).
+
+    The per-(prompt, model) hidden component is drawn from a seed independent
+    of ``run_seed`` — repeated runs share it (only run_noise varies), exactly
+    like re-querying the same LLM (paper Fig. 2).
+    """
+    prof = MODELS[model]
+    n = len(corpus.prompts)
+    hidden_rng = np.random.default_rng(
+        hash((corpus.dataset, corpus.seed, model)) % 2**32)
+    extra = 0.25 if corpus.dataset == "lmsys" else 0.0
+    hidden = hidden_rng.normal(0.0, prof.hidden_sigma + extra, n)
+    mu = prof.base + prof.slope * corpus.z + hidden
+    # reasoning models "overthink" some prompts (heavy right tail, Table I);
+    # which prompts is a latent property, stable across runs (paper Fig. 2
+    # bounds the *run-to-run* variance to ~25%)
+    if prof.reasoning:
+        spike = hidden_rng.random(n) < 0.08
+        mu = mu + spike * np.log(hidden_rng.integers(2, 5, n))
+    run_rng = np.random.default_rng(run_seed + 777)
+    noise = run_rng.normal(0.0, prof.run_sigma, (n_runs, n))
+    lengths = np.maximum(1, np.round(np.exp(mu[None] + noise))).astype(np.int64)
+    return lengths[0] if n_runs == 1 else lengths
+
+
+def prompt_lengths(prompts: Sequence[str]) -> np.ndarray:
+    """Token counts of the prompts themselves (for prefill cost models)."""
+    return np.asarray([len(p.split()) for p in prompts], np.int64)
+
+
+# Table-I style demo prompts (fixed low/high complexity)
+EXAMPLE_PROMPTS = {
+    "Q1": 'count topic7',                    # "How many r in strawberry"-like
+    "Q2": 'prove topic42 derive topic42',    # multi-step math-like
+}

@@ -1,0 +1,108 @@
+"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro/kernels/flash_decode`` (``flash_decode_paged`` and its
+wrapper ``paged_decode_attention_pallas``). The kernel lives in
+``kernels/csrc/flash_decode_paged.cu``; its source note says what bounds it
+and how. Pools are one layer of the engine's ``(L, N+1, bs, KH, dh)`` pool,
+i.e. ``(N+1, bs, KH, dh)``: block-major with the KV heads inside each row,
+so the kernel reads a table entry's rows without any lane gather.
+
+On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
+launches the kernel or raises. ``paged_decode_attention.launches`` counts
+kernel launches, and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+MAX_GROUP = 8         # query heads per KV head (kernel register tile)
+MAX_HEAD_DIM = 256
+
+
+def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                                 v_pool: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, dh); pools: (N, bs, KH, dh); block_tables: (B, max_blocks)
+    int; lengths: (B,) int -> (B, H, dh). f32 math, as the reference's
+    ``flash_decode_paged_ref``: gather each table into a lane, mask rows at
+    positions >= lengths[b] with NEG_INF, softmax, weight V."""
+    b, h, dh = q.shape
+    bs, kh = k_pool.shape[1], k_pool.shape[2]
+    w = block_tables.shape[1] * bs
+    tables = block_tables.long()
+    k = k_pool[tables].reshape(b, w, kh, dh).float()           # (B, W, KH, dh)
+    v = v_pool[tables].reshape(b, w, kh, dh).float()
+    qg = q.reshape(b, kh, h // kh, dh).float()
+    s = torch.einsum("bkgd,bwkd->bkgw", qg, k) * dh ** -0.5
+    pos = torch.arange(w, device=q.device)
+    valid = pos[None, :] < lengths.to(q.device).long()[:, None]  # (B, W)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgw,bwkd->bkgd", p, v)
+    return out.reshape(b, h, dh).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_decode_paged")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_decode.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
+                                 ctypes.c_float, p]
+    lib.paged_decode.restype = i
+    return lib
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           lengths: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, dh); pools: (N, bs, KH, dh); block_tables: (B, max_blocks)
+    int32; lengths: (B,) int32 -> (B, H, dh).
+
+    Every table entry must name a block of the pool (padding entries may
+    point at a shared null block: rows past ``lengths[b]`` are masked). A
+    sequence with ``lengths[b] == 0`` gets the uniform average of its table's
+    rows, as the reference does."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            lengths)
+    what = "paged_decode_attention"
+    build.require_cuda_operands(what, q, k_pool, v_pool, block_tables,
+                                lengths)
+    b, h, dh = q.shape
+    n, bs, kh, pdh = k_pool.shape
+    if (v_pool.shape != k_pool.shape or pdh != dh or h % kh
+            or block_tables.ndim != 2 or block_tables.shape[0] != b
+            or lengths.shape != (b,)):
+        raise ValueError(f"{what}: inconsistent shapes q={tuple(q.shape)} "
+                         f"pool={tuple(k_pool.shape)} "
+                         f"tables={tuple(block_tables.shape)} "
+                         f"lengths={tuple(lengths.shape)}")
+    if q.dtype not in build.DTYPE_CODES or k_pool.dtype != q.dtype \
+            or v_pool.dtype != q.dtype:
+        raise ValueError(f"{what}: q and pools must share one dtype of "
+                         f"{list(build.DTYPE_CODES)}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"{what}: block_tables and lengths must be int32")
+    if h // kh > MAX_GROUP or dh > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: at most {MAX_GROUP} query heads per KV "
+                         f"head and head_dim <= {MAX_HEAD_DIM}")
+    out = torch.empty_like(q)
+    lib = _lib()
+    code = lib.paged_decode(
+        build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
+        out.data_ptr(), b, kh, h // kh, dh, bs, block_tables.shape[1],
+        dh ** -0.5, build.current_stream(q.device))
+    build.check_launch(lib, code, what)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

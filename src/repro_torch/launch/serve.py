@@ -1,0 +1,92 @@
+"""Serving launcher: PARS-scheduled continuous batching on the port's engine.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --policy pars --requests 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --full            # 3B, bf16
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu      # smoke
+
+Twin of ``repro/launch/serve.py``. Builds the engine around the chosen
+architecture (its f32 smoke config, or with ``--full`` its published widths
+in bf16), with seeded random weights, serves a burst (or a Poisson stream),
+and prints the paper's latency metrics. PARS-family policies rank with a
+ranking predictor loaded from ``--predictor PATH.npz`` (a checkpoint the
+reference's ``RankingPredictor.save`` wrote), or else with a seeded,
+untrained predictor at the chosen width (``pars_bert_base``'s full BERT-base
+widths with ``--full``). Training the predictor waits for a later slice.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import pars_bert_base
+from repro_torch.core.predictor.train import RankingPredictor
+from repro_torch.core.scheduler.policies import make_policy
+from repro_torch.data.synthetic import MODELS, make_corpus, sample_lengths
+from repro_torch.data.workload import (burst_arrivals, make_requests,
+                                       poisson_arrivals)
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.serving import serve
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3_2_3b")
+    ap.add_argument("--policy", default="pars",
+                    choices=["fcfs", "pars", "pointwise", "listwise", "oracle"])
+    ap.add_argument("--workload", default="llama", choices=list(MODELS))
+    ap.add_argument("--requests", type=int, default=32)
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="poisson req/s (0 = burst)")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=120)
+    ap.add_argument("--starvation", type=float, default=120.0)
+    ap.add_argument("--kv-blocks", type=int, default=0,
+                    help="KV cache budget in 16-token blocks "
+                    "(0 = max_batch lanes of cache_len)")
+    ap.add_argument("--seq-prefill", action="store_true",
+                    help="disable bucketed prefill (one dispatch per request)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--full", action="store_true",
+                    help="published widths in bf16 instead of the f32 smoke "
+                    "config")
+    ap.add_argument("--predictor", default=None, metavar="PATH.npz",
+                    help="ranking-predictor checkpoint (default: a seeded "
+                    "untrained predictor)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    if args.full:
+        cfg = get_config(args.arch)
+        pcfg = pars_bert_base.CONFIG
+    else:
+        cfg = get_smoke_config(args.arch).replace(dtype="float32",
+                                                  vocab_size=2048)
+        pcfg = pars_bert_base.smoke_config()
+    params = tfm.init_params(cfg, 0, device=dev)
+
+    predictor = None
+    if args.policy in ("pars", "pointwise", "listwise"):
+        predictor = (RankingPredictor.load(args.predictor, device=dev)
+                     if args.predictor else
+                     RankingPredictor.init(pcfg, 0, device=dev))
+    policy = make_policy(args.policy, predictor)
+
+    c = make_corpus("alpaca", args.requests, seed=9)
+    lengths = np.clip(sample_lengths(c, args.workload), 1, args.max_len)
+    arrivals = (burst_arrivals(args.requests) if args.rate <= 0
+                else poisson_arrivals(args.requests, args.rate, seed=2))
+    reqs = make_requests(c, lengths, arrivals)
+
+    rep = serve(cfg, params, reqs, policy, max_batch=args.batch,
+                cache_len=256, starvation_threshold=args.starvation,
+                kv_blocks=args.kv_blocks or None,
+                bucketed=not args.seq_prefill, device=dev)
+    print(rep.row())
+    return rep
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,107 @@
+"""Attention: the plain reference and the LM's kernel-backed paths.
+
+Port of ``repro/models/attention.py``.
+
+* :func:`attention_naive` is the reference's plain attention (GQA, causal /
+  bidirectional / sliding-window masks from absolute positions, operands in
+  their storage dtype with f32 accumulation and f32 softmax, finite
+  ``NEG_INF``). The ranking predictor uses it, and the tests hold the kernel
+  paths against it.
+* The LM's attention runs on the two hand-written kernels:
+  :func:`prefill_attention` (first prefill chunks over their own K/V, and
+  continuation chunks at per-row offsets over a gathered lane) and the
+  paged decode kernel (``kernels.flash_decode.ops.paged_decode_attention``:
+  one token per sequence, read straight out of the block pool).
+
+The LM's KV cache is paged: one pool per layer, ``(N+1, bs, KH, dh)`` with
+the KV heads inside each row, addressed through per-sequence block tables.
+:func:`write_paged` scatters new K/V rows into a pool and
+:func:`gather_lane` lays a table's rows out as one contiguous lane.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_prefill.ops import flash_attention
+
+NEG_INF = -1e30
+
+
+def _mask(pos_q: torch.Tensor, pos_kv: torch.Tensor, *, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """Validity mask (B, S_q, S_kv) from absolute positions. Negative kv
+    positions are invalid (unwritten slots, PAD tokens)."""
+    m = (pos_kv[:, None, :] >= 0).expand(-1, pos_q.shape[1], -1)
+    if causal:
+        m = m & (pos_kv[:, None, :] <= pos_q[:, :, None])
+    if window is not None:
+        m = m & (pos_q[:, :, None] - pos_kv[:, None, :] < window)
+    return m
+
+
+def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    pos_q: torch.Tensor, pos_kv: torch.Tensor, *,
+                    causal: bool = True,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Reference attention. q: (B,Sq,H,dh), k/v: (B,Skv,KH,dh) -> (B,Sq,H,dh).
+
+    Products of storage-dtype operands accumulate in f32 (an upcast before
+    the einsum is exact for bf16 products); probabilities round to V's dtype
+    before weighting V, as the reference's ``probs.astype(v.dtype)``."""
+    b, sq, h, d = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, sq, kh, h // kh, d)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) \
+        * d ** -0.5
+    mask = _mask(pos_q, pos_kv, causal=causal, window=window)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV: pools, tables, lanes
+# ---------------------------------------------------------------------------
+def write_paged(pool: torch.Tensor, tables: torch.Tensor,
+                positions: torch.Tensor, new: torch.Tensor) -> None:
+    """Write K or V rows into one layer's pool, in place.
+
+    pool: (N+1, bs, KH, dh); tables: (B, max_blocks) int; positions: (B, S)
+    absolute token positions; new: (B, S, KH, dh). Position p of row b lands
+    in block ``tables[b, (p % W) // bs]`` at offset ``p % bs``, with
+    ``W = max_blocks * bs`` (a decode past W wraps onto the row's own oldest
+    block, the reference's ring semantics)."""
+    bs = pool.shape[1]
+    slot = positions.long() % (tables.shape[1] * bs)
+    blocks = torch.gather(tables.long(), 1, slot // bs)
+    pool[blocks.reshape(-1), (slot % bs).reshape(-1)] = \
+        new.reshape(-1, *new.shape[2:])
+
+
+def gather_lane(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """(N+1, bs, KH, dh) pool, (B, max_blocks) tables -> (B, KH, W, dh)
+    contiguous lanes (the prefill kernel's K/V layout)."""
+    b, mb = tables.shape
+    bs, kh, dh = pool.shape[1:]
+    lane = pool[tables.long()].reshape(b, mb * bs, kh, dh)
+    return lane.permute(0, 2, 1, 3).contiguous()
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_start: torch.Tensor, kv_len: torch.Tensor, *,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Causal prefill attention on the prefill kernel.
+
+    q: (B, S, H, dh) at absolute positions ``q_start[b] + i``; k/v:
+    (B, KH, Skv, dh) lanes holding positions ``0 .. Skv-1``; keys at
+    positions >= ``kv_len[b]`` are masked. Returns (B, S, H, dh)."""
+    out = flash_attention(q.transpose(1, 2).contiguous(), k, v,
+                          q_start.to(torch.int32), kv_len.to(torch.int32),
+                          causal=True, window=window)
+    return out.transpose(1, 2)
+

@@ -1,0 +1,118 @@
+"""Shared building blocks: norms, initializers, activations, positional codes.
+
+Port of ``repro/models/common.py``. Reductions (norm statistics, rope
+rotation) run in float32 regardless of the parameter dtype. Initializers draw
+from an explicit ``torch.Generator``; they follow the reference's
+distributions, not its random bits (parity tests bridge JAX parameters).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ACT_GELU, ACT_SILU, ACT_SQ_RELU
+
+
+# ---------------------------------------------------------------------------
+# Initialization
+# ---------------------------------------------------------------------------
+def dense_init(gen: torch.Generator, shape: Sequence[int],
+               in_axis_size: Optional[int] = None,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Truncated-normal (±2σ) fan-in init, drawn in f32 on ``gen``'s device."""
+    fan_in = in_axis_size if in_axis_size is not None else shape[0]
+    std = 1.0 / math.sqrt(max(fan_in, 1))
+    w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return (w * std).to(dtype)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int],
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def init_norm(d_model: int, kind: str, dtype: torch.dtype,
+              device: torch.device) -> dict:
+    p = {"scale": torch.ones(d_model, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d_model, dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p: dict, x: torch.Tensor, kind: str,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+    else:  # layernorm
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+def activate(h: torch.Tensor, gate: Optional[torch.Tensor],
+             kind: str) -> torch.Tensor:
+    if kind == ACT_SILU:
+        if gate is None:
+            raise ValueError("SwiGLU requires a gate projection")
+        return F.silu(gate) * h
+    if kind == ACT_SQ_RELU:
+        return F.relu(h).square()
+    if kind == ACT_GELU:
+        return F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    raise ValueError(f"unknown activation {kind!r}")
+
+
+def gated(kind: str) -> bool:
+    return kind == ACT_SILU
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    """(head_dim//2,) inverse frequencies, f32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate the two halves. x: (B, S, H, dh); positions: (B, S) int."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (half,)
+    ang = positions[..., None].float() * freqs                 # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]                        # (B, S, 1, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     -1).to(x.dtype)
+
+
+def positions_for(batch: int, start, seq: int,
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+    """Linear positions (B, S) int32 starting at ``start`` (int or (B,))."""
+    base = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+    start = torch.as_tensor(start, dtype=torch.int32, device=device)
+    if start.ndim == 0:
+        start = start[None]
+    return (base + start[:, None]).expand(batch, seq)

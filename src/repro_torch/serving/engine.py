@@ -1,0 +1,482 @@
+"""Real PyTorch serving backend: continuous batching over a paged KV pool.
+
+Port of ``repro/serving/engine.py``, paged mode. The backend plugs into the
+copied :class:`~repro_torch.serving.core.ServingCore` step loop (scheduler,
+PARS ranking, KV block accounting, chunk planning and prefix caching are the
+reference's code), and keeps the reference's backend contract:
+``kv_demand`` / ``prefill_total`` / ``prefix_tokens`` / ``release`` have the
+same semantics, so the core makes the same decisions.
+
+KV lives in one global pool per K and V, ``(L, total_blocks + 1,
+block_size, KH, dh)`` (the reference's ``(n+1, L, bs, KH, dh)`` with L
+moved to the front, so that one layer's pool is contiguous), indexed by each
+request's allocator block table; the trailing *null* block pads tables and
+is only ever read under the length mask.
+
+* **Prefill.** Admitted first chunks are grouped by length into one
+  ``forward_seq`` per power-of-two token bucket; its K/V rows go straight
+  into the pool through the requests' tables. Continuation chunks (chunked
+  prefill, or the suffix after a prefix-cache hit) run ``forward_chunk`` at
+  per-row offsets, grouped by chunk length. A chunk that completes a prompt
+  commits its sampled token as the request's first output.
+* **Prefix caching** is zero-copy: the allocator aliased the cached blocks
+  into the new request's table, so a hit just claims a slot and resumes at
+  the cached offset (``prefix_tokens_copied`` stays 0).
+* **Decode** runs one ``decode_step`` over the decode-ready slots, reading
+  the pool through the tables with the paged decode kernel (no lane gather).
+
+Unlike the jitted reference, dispatch batches are not padded to powers of
+two (eager PyTorch compiles nothing per shape), so there are no replayed
+padding lanes. Contiguous lanes (``paged=False``) wait for the port of the
+contiguous ``flash_decode`` kernel (ROADMAP items A5 and B3).
+
+Prompt handling and completion length follow the reference: prompts are
+hash-tokenized into their bucket, and a request finishes after its
+ground-truth ``true_length`` tokens (the forced-length protocol).
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
+from repro_torch.core.predictor.tokenizer import HashTokenizer
+from repro_torch.core.scheduler.request import Request
+from repro_torch.core.scheduler.scheduler import Scheduler
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import build
+from repro_torch.models import transformer as tfm
+from repro_torch.serving.config import ServingConfig, resolve_config
+from repro_torch.serving.core import PrefillChunk, ServingCore, WallClock
+from repro_torch.serving.kv_cache import UNBOUNDED_BLOCKS, BlockAllocator
+from repro_torch.serving.metrics import LatencyReport, RunCounters, report
+from repro_torch.serving.sampler import SamplerConfig, sample
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class RealBackend:
+    """Prefill/decode over a paged KV pool (ExecutionBackend)."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_batch: int,
+                 cache_len: int = 512, prompt_len: int = 32,
+                 tokenizer: Optional[HashTokenizer] = None,
+                 sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
+                 bucketed: bool = True, min_bucket: int = 8,
+                 record_tokens: bool = False, paged: bool = True,
+                 device: DeviceLike = "cuda"):
+        tfm.check_supported(cfg)
+        if not paged:
+            raise NotImplementedError(
+                "contiguous KV lanes (paged=False) wait for the port of the "
+                "contiguous flash_decode kernel: ROADMAP items A5 and B3")
+        self.device = resolve_device(device)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.prompt_len = prompt_len
+        self.bucketed = bucketed
+        self.min_bucket = min(min_bucket, prompt_len)
+        self.record_tokens = record_tokens
+        self.paged = paged
+        self.tok = tokenizer or HashTokenizer(
+            vocab_size=min(cfg.vocab_size, 2048), max_len=prompt_len)
+        self._sampler_cfg = sampler
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.core: Optional[ServingCore] = None
+
+        # --- slot state ------------------------------------------------------
+        self.slot_req: List[Optional[Request]] = [None] * max_batch
+        self._slot_of: Dict[int, int] = {}
+        self._ids: Dict[int, List[int]] = {}    # req_id -> encoded prompt ids
+        # each slot's pending decode input (its last sampled token)
+        self.slot_tokens = torch.zeros(max_batch, dtype=torch.int64,
+                                       device=self.device)
+
+        # --- paged KV pool (built at attach: sized by the core's allocator) --
+        self.k_pool: Optional[torch.Tensor] = None
+        self.v_pool: Optional[torch.Tensor] = None
+        self._null_block: Optional[int] = None
+        self._lane_blocks: Optional[int] = None    # cache_len // block_size
+        # req_id -> tokens resident in the request's lane: the prefill target
+        # at prompt completion, +1 per decode step (recompute re-admissions
+        # restart at the target)
+        self._pos: Dict[int, int] = {}
+
+        # --- instrumentation -------------------------------------------------
+        self.prefill_dispatches = 0   # first-chunk forward_seq dispatches
+        self.extend_dispatches = 0    # continuation-chunk dispatches
+        self.prefill_requests = 0     # requests whose prefill completed
+        self.prefill_seconds = 0.0    # wall time spent in admission/prefill
+        self.prefix_installs = 0      # slots claimed at a cached offset
+        self.prefix_tokens_copied = 0  # KV tokens copied instead of computed
+
+    # -------------------------------------------------------------- protocol
+    def attach(self, core: ServingCore) -> None:
+        self.core = core
+        if core.prefill_chunk_tokens is not None or core.prefix_caching:
+            if self.prompt_len > self.cache_len:
+                raise ValueError(
+                    "chunked prefill / prefix caching needs an append-buffer "
+                    "cache covering the whole prompt (prompt_len <= "
+                    "cache_len): continuation chunks write at absolute "
+                    "offsets")
+        if (core.prefill_chunk_tokens is not None
+                and core.prefill_chunk_tokens > self.cache_len):
+            raise ValueError(
+                f"prefill_chunk_tokens={core.prefill_chunk_tokens} "
+                f"exceeds cache_len={self.cache_len}: a continuation "
+                f"chunk must fit the cache lane it extends")
+        alloc = core.allocator
+        if alloc.total_blocks >= UNBOUNDED_BLOCKS:
+            raise ValueError("paged KV needs a bounded allocator: the "
+                             "pool is materialized at total_blocks")
+        if self.cache_len % alloc.block_size or \
+                self.cache_len < alloc.block_size:
+            raise ValueError(
+                f"paged KV needs block_size | cache_len "
+                f"(got {alloc.block_size} and {self.cache_len})")
+        self._build_paged(alloc)
+
+    def _build_paged(self, alloc: BlockAllocator) -> None:
+        """Materialize the global KV pools: ``(L, total_blocks + 1,
+        block_size, KH, dh)`` each, block N the null block."""
+        cfg = self.cfg
+        n = alloc.total_blocks
+        self._null_block = n
+        self._lane_blocks = self.cache_len // alloc.block_size
+        shape = (cfg.num_layers, n + 1, alloc.block_size, cfg.num_kv_heads,
+                 cfg.head_dim)
+        dtype = self.params["embed"].dtype
+        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+
+    def _table(self, req: Request, n: int) -> List[int]:
+        """First ``n`` entries of the request's block table, null-padded.
+        Unreserved requests (direct backend calls in unit tests) get an
+        all-null table: their KV lands in the null block, whose reads are
+        masked."""
+        tbl = (self.core.allocator.block_table(req.req_id)[:n]
+               if self.core is not None else [])
+        return tbl + [self._null_block] * (n - len(tbl))
+
+    def _cache(self, tables: np.ndarray, pos: np.ndarray) -> tfm.Cache:
+        """The model's view of the pool for one dispatch."""
+        return {"k": self.k_pool, "v": self.v_pool,
+                "tables": torch.as_tensor(tables, dtype=torch.int32,
+                                          device=self.device),
+                "pos": torch.as_tensor(pos, dtype=torch.int32,
+                                       device=self.device)}
+
+    def kv_demand(self, req: Request) -> int:
+        return self.prompt_len + min(req.true_length, self.cache_len)
+
+    def prefix_tokens(self, req: Request) -> List[int]:
+        """Prefix-sharing stream = the encoded *real* prompt ids (bucket
+        padding is excluded: pad KV depends on where padding starts, so only
+        whole blocks of real tokens are content-addressable)."""
+        return self._prompt_ids(req)
+
+    def prefill_total(self, req: Request) -> int:
+        """Prompt tokens this engine actually prefills for ``req``: its
+        hash-tokenized prompt padded up to the power-of-two bucket (or to
+        ``prompt_len`` when bucketing is off). Chunk planning, the
+        decode-ready check, and the first-output-token position all use this
+        padded length, so chunked runs process the exact token stream the
+        unchunked bucket path does."""
+        return self._bucket_len(len(self._prompt_ids(req)))
+
+    def _prompt_ids(self, req: Request) -> List[int]:
+        """Encode (and cache) a prompt's token ids, truncated to
+        ``prompt_len``; dropped on ``release``."""
+        ids = self._ids.get(req.req_id)
+        if ids is None:
+            ids = [t % self.cfg.vocab_size
+                   for t in self.tok.encode(req.prompt)[:self.prompt_len]]
+            self._ids[req.req_id] = ids
+        return ids
+
+    def _bucket_len(self, n_tokens: int) -> int:
+        """Power-of-two token bucket for an ``n_tokens``-long prompt, clamped
+        to [min_bucket, prompt_len]; unbucketed mode pads everything to
+        ``prompt_len``."""
+        if not self.bucketed:
+            return self.prompt_len
+        return min(self.prompt_len, _next_pow2(max(n_tokens, self.min_bucket)))
+
+    def bucket_lens(self) -> List[int]:
+        if not self.bucketed:
+            return [self.prompt_len]
+        lens, b = [], self.min_bucket
+        while b < self.prompt_len:
+            lens.append(b)
+            b *= 2
+        return lens + [self.prompt_len]
+
+    def warmup(self) -> float:
+        """Build the CUDA kernels ahead of serving (nothing to do on the
+        CPU: eager PyTorch compiles no per-shape programs). Returns wall
+        seconds."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            build.build_all()
+        return time.perf_counter() - t0
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _now(self, fallback: float) -> float:
+        return self.core.clock.now() if self.core is not None else fallback
+
+    def _record(self, req: Request, token, now: float) -> None:
+        if self.record_tokens:
+            req.generated_tokens.append(int(token))
+        if self.core is not None and self.core.record_token_times:
+            req.token_times.append(now)
+
+    def _tokens_snapshot(self) -> Optional[List[int]]:
+        """One host copy of ``slot_tokens`` for ``_record``; None when
+        neither recording flag is on (skip the device-to-host transfer)."""
+        if self.record_tokens or (self.core is not None
+                                  and self.core.record_token_times):
+            return self.slot_tokens.tolist()
+        return None
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        return sample(logits, self._gen, self._sampler_cfg)
+
+    def prefill(self, chunks: Sequence[PrefillChunk], now: float) -> float:
+        """Execute one step's planned prefill chunks (see ``ServingCore``).
+
+        First chunks (``start == 0``) claim a free slot and run one bucketed
+        ``forward_seq`` per chunk length. A prefix-cache hit's first chunk
+        arrives with ``start > 0``: it claims a slot (its table already
+        aliases the cached blocks) and runs as a continuation. Continuation
+        chunks run ``forward_chunk`` grouped by length; requests at
+        different offsets share a dispatch. A request whose chunk reaches
+        ``prefill_total`` gets its first output token committed (tokens_done
+        and TTFT bookkeeping preserved across preemption re-admission)."""
+        if not chunks:
+            return now
+        t0 = time.perf_counter()
+        first_groups: Dict[int, list] = {}
+        ext_groups: Dict[int, list] = {}
+        for req, start, end in chunks:
+            if req.req_id not in self._slot_of:
+                slot = self.slot_req.index(None)
+                self.slot_req[slot] = req
+                self._slot_of[req.req_id] = slot
+                if self.core is not None and self.core.prefix_caching \
+                        and self.prefill_total(req) + req.true_length - 1 \
+                        > self.cache_len:
+                    raise ValueError(
+                        f"paged KV with prefix caching cannot ring-wrap: "
+                        f"request {req.req_id} needs "
+                        f"{self.prefill_total(req) + req.true_length - 1} "
+                        f"positions > cache_len={self.cache_len} (a wrap "
+                        f"would overwrite potentially shared prefix blocks)")
+                if start > 0:
+                    # zero-copy hit: the reservation already aliased the
+                    # shared prefix blocks into this request's table
+                    self.prefix_installs += 1
+            if start == 0:
+                first_groups.setdefault(end, []).append(req)
+            else:
+                ext_groups.setdefault(end - start, []).append((req, start, end))
+
+        if self.bucketed:
+            first_batches = sorted(first_groups.items())
+        else:                          # sequential: one dispatch per request
+            first_batches = [(ln, [r]) for ln, g in sorted(first_groups.items())
+                             for r in g]
+        bs = self.k_pool.shape[2]
+        for bucket_len, group in first_batches:
+            tokens = np.zeros((len(group), bucket_len), np.int64)
+            for j, req in enumerate(group):
+                ids = self._prompt_ids(req)[:bucket_len]
+                tokens[j, :len(ids)] = ids      # tail = pad token 0
+            nb = -(-bucket_len // bs)
+            tables = np.asarray([self._table(r, nb) for r in group], np.int32)
+            cache = self._cache(tables, np.zeros(len(group), np.int32))
+            logits, _, _ = tfm.forward_seq(
+                self.params, self.cfg,
+                torch.as_tensor(tokens, device=self.device), cache=cache)
+            slots = [self._slot_of[r.req_id] for r in group]
+            self.slot_tokens[slots] = self._sample(logits[:, -1])
+            self.prefill_dispatches += 1
+
+        for chunk_len, group in sorted(ext_groups.items()):
+            tokens = np.zeros((len(group), chunk_len), np.int64)
+            starts = np.zeros((len(group),), np.int32)
+            commit = []
+            for j, (req, start, end) in enumerate(group):
+                ids = self._prompt_ids(req)[start:end]
+                tokens[j, :len(ids)] = ids      # tail past len(ids) = pad 0s
+                starts[j] = start
+                commit.append(end >= self.prefill_total(req))
+            tables = np.asarray([self._table(r, self._lane_blocks)
+                                 for r, _s, _e in group], np.int32)
+            logits, _ = tfm.forward_chunk(
+                self.params, self.cfg,
+                torch.as_tensor(tokens, device=self.device),
+                self._cache(tables, starts))
+            nxt = self._sample(logits[:, -1])
+            # mid-prompt samples are meaningless: only completing chunks
+            # commit a pending decode token
+            rows = [j for j, c in enumerate(commit) if c]
+            if rows:
+                slots = [self._slot_of[group[j][0].req_id] for j in rows]
+                self.slot_tokens[slots] = nxt[rows]
+            self.extend_dispatches += 1
+
+        self._sync()
+        self.prefill_seconds += time.perf_counter() - t0
+        now = self._now(now)
+        toks = self._tokens_snapshot()
+        for req, _start, end in chunks:
+            if end < self.prefill_total(req):
+                continue                        # still mid-prompt
+            self.prefill_requests += 1
+            # the pool blocks *are* the citable KV (the core commits their
+            # hashes); start the host mirror of the lane pos
+            self._pos[req.req_id] = self.prefill_total(req)
+            # recompute semantics on re-admission after preemption: decode
+            # progress and TTFT are preserved
+            if req.tokens_done == 0:
+                req.tokens_done = 1             # prefill emits token 1
+                if toks is not None:
+                    self._record(req, toks[self._slot_of[req.req_id]], now)
+            if req.first_token_time is None:
+                req.first_token_time = now
+        return now
+
+    def decode(self, now: float) -> float:
+        ready = (self.core.decode_ready if self.core is not None
+                 else lambda r: True)
+        active = [i for i, r in enumerate(self.slot_req)
+                  if r is not None and ready(r)]
+        if not active:
+            return now
+        reqs = [self.slot_req[i] for i in active]
+        tables = np.asarray([self._table(r, self._lane_blocks) for r in reqs],
+                            np.int32)
+        poss = np.asarray([self._pos[r.req_id] for r in reqs], np.int32)
+        logits, _ = tfm.decode_step(self.params, self.cfg,
+                                    self._cache(tables, poss),
+                                    self.slot_tokens[active][:, None])
+        self.slot_tokens[active] = self._sample(logits)
+        self._sync()
+        now = self._now(now)
+        toks = self._tokens_snapshot()
+        for i, req in zip(active, reqs):
+            req.tokens_done += 1
+            self._pos[req.req_id] += 1
+            if toks is not None:
+                self._record(req, toks[i], now)
+        return now
+
+    def release(self, req: Request) -> None:
+        self._ids.pop(req.req_id, None)
+        self._pos.pop(req.req_id, None)
+        slot = self._slot_of.pop(req.req_id, None)
+        if slot is not None:
+            self.slot_req[slot] = None
+
+
+class Engine:
+    """RealBackend + ServingCore wiring (the reference's engine interface)."""
+
+    def __init__(self, cfg: ModelConfig, params, scheduler: Scheduler, *,
+                 cache_len: int = 512, prompt_len: int = 32,
+                 tokenizer: Optional[HashTokenizer] = None,
+                 allocator: Optional[BlockAllocator] = None,
+                 sampler: SamplerConfig = SamplerConfig(), seed: int = 0,
+                 bucketed: bool = True,
+                 paged: Optional[bool] = None,
+                 record_tokens: bool = False,
+                 config: Optional[ServingConfig] = None,
+                 device: DeviceLike = "cuda",
+                 **core_kw):
+        if paged is None:
+            # auto, as the reference: block-structured KV for
+            # attention-family append caches
+            paged = (cfg.family in (DENSE, MOE, VLM) and not cfg.is_encdec
+                     and not cfg.sliding_window)
+        config = resolve_config(config, core_kw)
+        s = scheduler.max_batch
+        self.scheduler = scheduler
+        self.backend = RealBackend(
+            cfg, params, max_batch=s, cache_len=cache_len,
+            prompt_len=prompt_len, tokenizer=tokenizer, sampler=sampler,
+            seed=seed, bucketed=bucketed, record_tokens=record_tokens,
+            paged=paged, device=device)
+        self.allocator = allocator or BlockAllocator(
+            total_blocks=s * (-(-cache_len // 16)), block_size=16)
+        self.core = ServingCore(scheduler, self.backend,
+                                allocator=self.allocator, config=config)
+
+    # -------------------------------------------------------------------- api
+    @property
+    def finished(self) -> List[Request]:
+        return self.core.finished
+
+    def submit(self, requests: Sequence[Request]) -> None:
+        self.core.submit(requests)
+
+    def warmup(self) -> float:
+        return self.backend.warmup()
+
+    def run(self, *, time_scale: float = 1.0, log_every: float = 0.0,
+            log_fn=print) -> List[Request]:
+        """Serve everything submitted; returns finished requests.
+
+        ``time_scale`` multiplies trace arrival times."""
+        if time_scale != 1.0:
+            for r in self.core._pending:
+                r.arrival_time *= time_scale
+        self.core.clock = WallClock()           # origin = serving start
+        return self.core.run(log_every=log_every, log_fn=log_fn)
+
+
+def serve(cfg: ModelConfig, params, requests: Sequence[Request], policy, *,
+          max_batch: int = 8, cache_len: int = 256, prompt_len: int = 32,
+          starvation_threshold: float = 120.0, time_scale: float = 1.0,
+          log_every: float = 0.0, bucketed: bool = True,
+          kv_blocks: Optional[int] = None,
+          paged: Optional[bool] = None,
+          config: Optional[ServingConfig] = None,
+          device: DeviceLike = "cuda",
+          **core_kw) -> LatencyReport:
+    """Convenience wrapper: fresh engine + scheduler, serve, report. Core
+    behaviour comes from ``config`` or loose keywords (chunking, caching,
+    reservation mode, re-ranking, deadlines, shedding, ...); dropped
+    requests are counted in the report, never silently lost."""
+    config = resolve_config(config, core_kw)
+    sched = Scheduler(policy=policy, max_batch=max_batch,
+                      starvation_threshold=starvation_threshold)
+    allocator = BlockAllocator(kv_blocks, 16) if kv_blocks else None
+    eng = Engine(cfg, params, sched, cache_len=cache_len,
+                 prompt_len=prompt_len, allocator=allocator,
+                 bucketed=bucketed, paged=paged, config=config,
+                 device=device)
+    eng.submit(requests)
+    finished = eng.run(time_scale=time_scale, log_every=log_every)
+    dropped = eng.core.dropped
+    if len(finished) + len(dropped) != len(requests):
+        raise RuntimeError(f"requests lost: {len(finished)} finished + "
+                           f"{len(dropped)} dropped != {len(requests)}")
+    return report(policy.name, finished,
+                  counters=RunCounters(
+                      reranks=(eng.core.rerank_count
+                               if config.rerank_enabled else None),
+                      dropped=tuple(dropped) if dropped else None))
