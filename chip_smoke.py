@@ -8,24 +8,31 @@ H100). Imports nothing of JAX or of the JAX package. Phases, in order; any
 failed check raises and the script exits non-zero:
 
 1. Device: the card's name and power limit (``nvidia-smi``), then the build
-   of every CUDA kernel from ``src/repro_torch/kernels/csrc``.
-2. Kernels at the main path's shapes, each held against its plain PyTorch
-   version on the card: f32 with TF32 off at 2e-5, bf16 at 2e-2, aliased
-   block tables bitwise. Times the kernel, the plain version and one PyTorch
-   library call computing the same function (``library_ms``, timed here
-   only), and computes the least time the card could take (``bound_ms``).
-3. Parity at full width: ``llama3_2_3b`` widths cut to 4 layers, f32 with
-   TF32 off. Greedy tokens of a chunked, prefix-cached run equal an
-   unchunked, uncached run, and the model's logits on the card agree with
-   the same model run on the CPU through the plain versions.
-4. Serving: full ``llama3_2_3b`` (28 layers, bf16) behind a
-   ``pars_bert_base``-width ranking predictor, both seeded on the card,
-   serves a burst of 16 requests under PARS and under FCFS. Every kernel's
-   launch count is set to 0 just before each run and read just after. The
-   FCFS burst then runs once more under ``torch.profiler``: device time by
-   kernel and the device's busy share of the run's wall time. Last, the
-   command-line launcher (``repro_torch.launch.serve --full``) serves a
-   short burst.
+   of every CUDA kernel from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
+   per source, all at once).
+2. Kernels at the main paths' shapes, each held against its plain PyTorch
+   version on the card: attention f32 with TF32 off at 2e-5 and bf16 at
+   2e-2, aliased block tables bitwise, chunked linear attention at 5e-4
+   (its final state included, and also against a token-by-token
+   recurrence). Times the kernel, the plain version and, where one exists,
+   one PyTorch library call computing the same function (``library_ms``,
+   timed here only), and computes the least time the card could take
+   (``bound_ms``).
+3. Parity at full width, cut to 4 layers, f32 with TF32 off:
+   ``llama3_2_3b``: greedy tokens of a chunked, prefix-cached run equal an
+   unchunked, uncached run; ``hymba_1_5b``: greedy decoding across a
+   wrapped ring lane equals the CPU run's tokens. For both, the model's
+   logits on the card agree with the same model run on the CPU through the
+   plain versions.
+4. Serving full ``llama3_2_3b`` (28 layers, bf16, paged KV), then full
+   ``hymba_1_5b`` (32 layers, bf16, contiguous ring lanes), each behind a
+   ``pars_bert_base``-width ranking predictor, seeded on the card: a burst
+   of 16 requests under PARS and under FCFS. Every kernel's launch count is
+   set to 0 just before each run and read just after. Each FCFS burst then
+   runs once more under ``torch.profiler``: device time by kernel and the
+   device's busy share of the run's wall time. Last, the command-line
+   launcher (``repro_torch.launch.serve --full``) serves a short burst of
+   each architecture.
 
 The last lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -192,6 +199,20 @@ def phase_prefill_kernel(dev):
         errs[dt] = max(errs[dt], check_close(
             f"prefill offsets {dt}", out, flash_attention_plain(*args), tol))
 
+    # Hymba's prefill shape (G=5, dh=64) under a window shorter than the
+    # prompt, so that the window mask cuts keys
+    hq = torch.randn(b, 25, sq, 64, device=dev)
+    hk = torch.randn(b, 5, sq, 64, device=dev)
+    hv = torch.randn(b, 5, sq, 64, device=dev)
+    for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        t = getattr(torch, dt)
+        args = (hq.to(t), hk.to(t), hv.to(t), zero, full)
+        out = flash_attention(*args, window=48)
+        torch.cuda.synchronize()
+        errs[dt] = max(errs[dt], check_close(
+            f"prefill H=25 KH=5 dh=64 window 48 {dt}", out,
+            flash_attention_plain(*args, window=48), tol))
+
     bf = torch.bfloat16
     q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
     ms = cuda_ms(lambda: flash_attention(q, k, v, zero, full), 100)
@@ -214,8 +235,155 @@ def phase_prefill_kernel(dev):
             "library_ms": library_ms}
 
 
+def phase_ring_decode_kernel(dev):
+    from repro_torch.kernels.flash_decode.ops import (
+        ring_decode_attention, ring_decode_attention_plain)
+    from repro_torch.models.attention import ring_slot_positions
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    entry = None
+    # (label, B, KH, G, dh, W, window, per-row pos): Hymba's lanes with most
+    # rows wrapped, and a dense model's lanes (llama3_2_3b, paged=False)
+    for label, b, kh, g, dh, w, window, pos in (
+            ("hymba", 8, 5, 5, 64, 1024, 1024,
+             [3, 800, 1100, 1500, 1900, 2300, 2700, 3000]),
+            ("dense", 8, 8, 3, 128, 512, None,
+             [0, 17, 100, 255, 256, 400, 511, 700])):
+        h = kh * g
+        log(f"ring decode ({label}): B={b} KH={kh} G={g} dh={dh} W={w} "
+            f"window={window} pos={pos}")
+        q32 = torch.randn(b, h, dh, device=dev)
+        kl32 = torch.randn(b, kh, w, dh, device=dev)
+        vl32 = torch.randn(b, kh, w, dh, device=dev)
+        slots = torch.as_tensor(np.random.default_rng(SEED).permutation(b),
+                                dtype=torch.int32, device=dev)
+        ps = torch.tensor(pos, dtype=torch.int32, device=dev)
+        errs = {}
+        for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+            t = getattr(torch, dt)
+            args = (q32.to(t), kl32.to(t), vl32.to(t), slots, ps)
+            out = ring_decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            errs[dt] = check_close(
+                f"ring decode {label} {dt}", out,
+                ring_decode_attention_plain(*args, window=window), tol)
+        bf = torch.bfloat16
+        q, kl, vl = q32.to(bf), kl32.to(bf), vl32.to(bf)
+        ms = cuda_ms(lambda: ring_decode_attention(q, kl, vl, slots, ps,
+                                                   window=window), 200)
+        plain_ms = cuda_ms(lambda: ring_decode_attention_plain(
+            q, kl, vl, slots, ps, window=window), 20)
+        # library yardstick: SDPA over the rows' lanes, gathered and with
+        # heads expanded outside the timed call, the ring mask as bool
+        idx = slots.long()
+        ke = kl[idx].repeat_interleave(g, 1).contiguous()
+        ve = vl[idx].repeat_interleave(g, 1).contiguous()
+        slot_pos = ring_slot_positions(ps.long() + 1, w)
+        mask = slot_pos >= 0
+        if window is not None:
+            mask = mask & (ps.long()[:, None] - slot_pos < window)
+        mask = mask[:, None, None, :]
+        qs = q[:, :, None, :]
+        library_ms = cuda_ms(lambda: sdpa(qs, ke, ve, attn_mask=mask), 200)
+        rows = int(mask.sum())                      # keys that count
+        bytes_moved = (2 * rows * kh * dh * 2        # K and V rows, bf16
+                       + 2 * b * h * dh * 2 + 2 * b * 4)
+        flops = 4 * rows * h * dh
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        log(f"  ring decode {label} bf16: {ms:.4f} ms kernel, {plain_ms:.4f} "
+            f"ms plain, {library_ms:.4f} ms SDPA, bound {bound_ms:.5f} ms "
+            f"({bound_by})")
+        if entry is None:       # the served path's shape goes to the record
+            entry = {"name": "ring_decode_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+                     "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
+                     "max_abs_err": errs["bfloat16"], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": library_ms}
+    return entry
+
+
+def _recurrence(q, k, v, lw, bonus, mode):
+    """Token-by-token scan (the port's one-step update): the oracle the
+    chunked kernel is held against, independent of chunking."""
+    from repro_torch.models.linear_attn import linear_attention_step
+
+    b, h, t, dk = q.shape
+    state = torch.zeros(b, h, dk, v.shape[-1], device=q.device)
+    outs = []
+    for i in range(t):
+        o, state = linear_attention_step(state, q[:, :, i], k[:, :, i],
+                                         v[:, :, i], lw[:, :, i],
+                                         bonus=bonus, mode=mode)
+        outs.append(o)
+    return torch.stack(outs, 2), state
+
+
+def phase_linear_attention_kernel(dev):
+    from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
+    from repro_torch.models.linear_attn import chunked_linear_attention
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    entry = None
+    tol = 5e-4
+    # Hymba's SSD heads at a 128-token bucket, then RWKV-6 7B's heads
+    for mode, b, h, t, dk, dv in (("ssd", 8, 50, 128, 16, 64),
+                                  ("rwkv", 4, 64, 256, 64, 64)):
+        log(f"linear attention ({mode}): B={b} H={h} T={t} dk={dk} dv={dv} "
+            f"chunk 64")
+        q32 = torch.randn(b, h, t, dk, device=dev, generator=gen)
+        k32 = torch.randn(b, h, t, dk, device=dev, generator=gen)
+        v32 = torch.randn(b, h, t, dv, device=dev, generator=gen)
+        lw = -torch.rand(b, h, t, dk if mode == "rwkv" else 1, device=dev,
+                         generator=gen).clamp(min=1e-6)    # [-1, 0)
+        u = (torch.randn(h, dk, device=dev, generator=gen) * 0.1
+             if mode == "rwkv" else None)
+        out, state = linear_attention(q32, k32, v32, lw, u, mode=mode)
+        torch.cuda.synchronize()
+        ref, ref_state = chunked_linear_attention(q32, k32, v32, lw, bonus=u,
+                                                  mode=mode, chunk_size=64)
+        rec, rec_state = _recurrence(q32, k32, v32, lw, u, mode)
+        err = max(check_close(f"{mode} f32 vs plain", out, ref, tol),
+                  check_close(f"{mode} f32 final state vs plain", state,
+                              ref_state, tol),
+                  check_close(f"{mode} f32 vs recurrence", out, rec, tol),
+                  check_close(f"{mode} f32 final state vs recurrence", state,
+                              rec_state, tol))
+        bf = torch.bfloat16
+        q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
+        out, state = linear_attention(q, k, v, lw, u, mode=mode)
+        torch.cuda.synchronize()
+        ref, ref_state = chunked_linear_attention(q, k, v, lw, bonus=u,
+                                                  mode=mode, chunk_size=64)
+        check_close(f"{mode} bf16 vs plain", out, ref, 2e-2)
+        check_close(f"{mode} bf16 final state vs plain", state, ref_state,
+                    tol)
+        ms = cuda_ms(lambda: linear_attention(q, k, v, lw, u, mode=mode), 100)
+        plain_ms = cuda_ms(lambda: chunked_linear_attention(
+            q, k, v, lw, bonus=u, mode=mode, chunk_size=64), 20)
+        c = 64
+        bytes_moved = (2 * (2 * b * h * t * dk + b * h * t * dv)   # q, k, v
+                       + 4 * lw.numel() + 2 * b * h * t * dv       # lw, out
+                       + 4 * b * h * dk * dv                       # state
+                       + (4 * h * dk if u is not None else 0))
+        flops = b * h * (t // c) * (c * (c - 1) * (dk + dv)    # scores, P V
+                                    + 4 * c * dk * dv          # state in/out
+                                    + 2 * c * (dk + dv))       # diagonal
+        bound_ms, bound_by = bound(bytes_moved, flops)
+        log(f"  {mode} bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
+            f"no library call, bound {bound_ms:.5f} ms ({bound_by})")
+        if entry is None:       # the served path's mode goes to the record
+            entry = {"name": "linear_attention", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
+                     "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:75",
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None}
+    return entry
+
+
 # ---------------------------------------------------------------------------
-# Phases 3 and 4: the served path
+# Phases 3 and 4: the served paths
 # ---------------------------------------------------------------------------
 def _words(n: int, tag: str) -> str:
     return " ".join(f"{tag}{j}" for j in range(n))
@@ -239,14 +407,29 @@ def burst(n: int = 16, seed: int = SEED):
     return reqs
 
 
+# Per served architecture: the engine settings of its burst. llama3_2_3b
+# serves from a paged pool with chunked prefill and prefix caching under a
+# 64-block budget (admission comes in waves, so later requests hit the
+# committed system prompt whatever order PARS picks); hymba_1_5b, a hybrid,
+# serves from contiguous ring lanes (no chunking or caching, which its SSM
+# state forbids) 128 positions wide, so the longer outputs wrap the ring,
+# under a budget that admits all 8 slots at full demand (128 + 64 positions
+# in 16-token blocks each).
+SERVED = {
+    "llama3_2_3b": dict(cache_len=512, chunk=64, caching=True, kv_blocks=64),
+    "hymba_1_5b": dict(cache_len=128, chunk=None, caching=False,
+                       kv_blocks=8 * 12),
+}
+
+
 def make_engine(cfg, params, policy, dev, *, chunk, caching, kv_blocks,
-                max_batch=8):
+                cache_len, max_batch=8):
     from repro_torch.core.scheduler.scheduler import Scheduler
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kv_cache import BlockAllocator
 
     return Engine(cfg, params, Scheduler(policy=policy, max_batch=max_batch),
-                  cache_len=512, prompt_len=128,
+                  cache_len=cache_len, prompt_len=128,
                   allocator=BlockAllocator(kv_blocks, 16),
                   prefill_chunk_tokens=chunk, prefix_caching=caching,
                   record_tokens=True, device=dev)
@@ -263,7 +446,7 @@ def phase_parity(dev) -> float:
     runs = {}
     for chunk, caching in ((None, False), (64, True)):
         eng = make_engine(cfg, params, fcfs(), dev, chunk=chunk,
-                          caching=caching, kv_blocks=64)
+                          caching=caching, kv_blocks=64, cache_len=512)
         eng.submit(burst(12))
         fin = eng.run()
         if len(fin) != 12 or eng.allocator.used_blocks:
@@ -285,30 +468,71 @@ def phase_parity(dev) -> float:
 
     # the same model on the CPU, through the plain versions
     toks = torch.as_tensor(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (2, 24)), device=dev)
-    cache = tfm.init_cache(cfg, 2, 64, device=dev)
-    lg, cache, _ = tfm.forward_seq(params, cfg, toks[:, :20], cache=cache)
-    lg2, _ = tfm.forward_chunk(params, cfg, toks[:, 20:], cache)
-    cpu_params = _tree_to(params, "cpu")
-    cpu_cache = tfm.init_cache(cfg, 2, 64, device="cpu")
-    ref, cpu_cache, _ = tfm.forward_seq(cpu_params, cfg, toks[:, :20].cpu(),
-                                        cache=cpu_cache)
-    ref2, _ = tfm.forward_chunk(cpu_params, cfg, toks[:, 20:].cpu(),
-                                cpu_cache)
-    err = max(check_close("4-layer logits card vs CPU, prefill", lg.cpu(),
-                          ref, 1e-3),
-              check_close("4-layer logits card vs CPU, chunk", lg2.cpu(),
-                          ref2, 1e-3))
+        0, cfg.vocab_size, (2, 24)))
+
+    def run(tree, device):
+        cache = tfm.init_cache(cfg, 2, 64, device=device)
+        lg, cache, _ = tfm.forward_seq(tree, cfg, toks[:, :20].to(device),
+                                       cache=cache)
+        lg2, _ = tfm.forward_chunk(tree, cfg, toks[:, 20:].to(device), cache)
+        return lg.cpu(), lg2.cpu()
+
+    lg, lg2 = run(params, dev)
+    ref, ref2 = run(_tree_to(params, "cpu"), torch.device("cpu"))
+    err = max(check_close("4-layer logits card vs CPU, prefill", lg, ref,
+                          1e-3),
+              check_close("4-layer logits card vs CPU, chunk", lg2, ref2,
+                          1e-3))
     if not bool(torch.isfinite(lg).all()):
         raise AssertionError("non-finite logits")
     return err
 
 
-def serve_once(cfg, params, policy, dev, reqs):
+def phase_hymba_parity(dev) -> float:
+    """Full-width hymba_1_5b cut to 4 layers, f32, TF32 off: a 32-token
+    prefill into 64-row lanes, then 48 greedy decode steps, which wrap the
+    ring; every step's logits on the card agree with the CPU's, and the
+    greedy tokens are equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("hymba_1_5b").replace(num_layers=4, dtype="float32")
+    params = tfm.init_params(cfg, SEED, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 32)))
+    steps, width = 48, 64
+
+    def run(tree, device):
+        cache = tfm.init_cache(cfg, 2, width, device=device)
+        lg, cache, _ = tfm.forward_seq(tree, cfg, prompt.to(device),
+                                       cache=cache)
+        logits, toks = [lg[:, -1].cpu()], []
+        nxt = lg[:, -1].argmax(-1)
+        for _ in range(steps):
+            toks.append(nxt.cpu())
+            lg1, cache = tfm.decode_step(tree, cfg, cache, nxt[:, None])
+            logits.append(lg1.cpu())
+            nxt = lg1.argmax(-1)
+        return torch.stack(logits, 1), torch.stack(toks, 1)
+
+    lg, toks = run(params, dev)
+    ref, ref_toks = run(_tree_to(params, "cpu"), torch.device("cpu"))
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("non-finite hymba logits")
+    err = check_close("hymba 4-layer logits card vs CPU, prefill and 48 "
+                      "decode steps", lg, ref, 1e-3)
+    if not torch.equal(toks, ref_toks):
+        raise AssertionError("hymba greedy tokens across the ring wrap "
+                             "differ between the card and the CPU")
+    log(f"  hymba greedy tokens equal the CPU's over {steps} steps "
+        f"(positions 32..{32 + steps - 1} in {width}-row lanes)")
+    return err
+
+
+def serve_once(cfg, params, policy, dev, reqs, arch):
     from repro_torch.serving.metrics import RunCounters, report
 
-    eng = make_engine(cfg, params, policy, dev, chunk=64, caching=True,
-                      kv_blocks=64)
+    eng = make_engine(cfg, params, policy, dev, **SERVED[arch])
     eng.submit(reqs)
     t0 = time.perf_counter()
     fin = eng.run()
@@ -317,30 +541,30 @@ def serve_once(cfg, params, policy, dev, reqs):
     return eng, fin, rep, wall
 
 
-def phase_serve(dev) -> dict:
+def phase_serve(dev, arch: str, kernels) -> dict:
+    """Serve full ``arch`` in bf16 under PARS and FCFS, profile the FCFS
+    burst, then run the launcher. Returns the PARS run's launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
     from repro_torch.core.predictor.train import RankingPredictor
     from repro_torch.core.scheduler.policies import fcfs, make_policy
-    from repro_torch.kernels.flash_decode.ops import paged_decode_attention
-    from repro_torch.kernels.flash_prefill.ops import flash_attention
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models import transformer as tfm
 
-    cfg = get_config("llama3_2_3b")
+    cfg = get_config(arch)
+    caching = SERVED[arch]["caching"]
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, SEED, device=dev)
     predictor = RankingPredictor.init(PRED_CONFIG, SEED, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    log(f"  llama3_2_3b: {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+    log(f"  {arch}: {cfg.num_layers} layers, {n_params / 1e9:.3f} B "
         f"params bf16; predictor pars_bert_base "
         f"({sum(t.numel() for t in _leaves(predictor.params)) / 1e6:.1f} M "
         f"params); init {time.perf_counter() - t0:.1f} s")
     # warm the CUDA libraries once, outside the measured runs
-    serve_once(cfg, params, fcfs(), dev, burst(2, seed=99))
+    serve_once(cfg, params, fcfs(), dev, burst(2, seed=99), arch)
 
-    kernels = (paged_decode_attention, flash_attention)
     launches, walls = {}, {}
     for name in ("pars", "fcfs"):
         policy = (make_policy("pars", predictor) if name == "pars"
@@ -348,7 +572,7 @@ def phase_serve(dev) -> dict:
         reqs = burst(16)
         for k in kernels:
             k.launches = 0
-        eng, fin, rep, wall = serve_once(cfg, params, policy, dev, reqs)
+        eng, fin, rep, wall = serve_once(cfg, params, policy, dev, reqs, arch)
         counts = {k.__name__: k.launches for k in kernels}
         tokens = sum(r.true_length for r in fin)
         log(f"  {rep.row()}")
@@ -364,7 +588,7 @@ def phase_serve(dev) -> dict:
             problems.append(f"{len(fin)} of {len(reqs)} finished")
         if any(v == 0 for v in counts.values()):
             problems.append(f"a kernel was never launched: {counts}")
-        if eng.backend.prefix_installs == 0:
+        if caching and eng.backend.prefix_installs == 0:
             problems.append("no prefix-cache hit")
         if eng.backend.prefix_tokens_copied != 0:
             problems.append("prefix hits copied KV")
@@ -379,22 +603,27 @@ def phase_serve(dev) -> dict:
                     0 <= t < cfg.vocab_size for t in r.generated_tokens)):
                 problems.append(f"request {r.req_id}: bad tokens")
         if problems:
-            raise AssertionError(f"serving under {name}: {problems}")
+            raise AssertionError(f"serving {arch} under {name}: {problems}")
         launches[name] = counts
         walls[name] = wall
     t0 = time.perf_counter()
-    profile_serving(cfg, params, dev, walls["fcfs"])
+    profile_serving(cfg, params, dev, walls["fcfs"], arch)
     log(f"  profiling took {time.perf_counter() - t0:.1f} s")
+    del params, predictor
+    torch.cuda.empty_cache()
 
     # the command-line entry point, at published widths on the card
-    rep = launch_serve.main(["--full", "--policy", "pars", "--requests", "8",
-                             "--batch", "4", "--max-len", "16"])
+    rep = launch_serve.main(["--arch", arch, "--full", "--policy", "pars",
+                             "--requests", "8", "--batch", "4",
+                             "--max-len", "16"])
     if rep.n_requests != 8:
         raise AssertionError(f"launcher served {rep.n_requests} of 8")
+    torch.cuda.empty_cache()
     return launches["pars"]
 
 
-def profile_serving(cfg, params, dev, wall_unprofiled: float) -> None:
+def profile_serving(cfg, params, dev, wall_unprofiled: float,
+                    arch: str) -> None:
     """Where the time goes: the FCFS burst once more under
     ``torch.profiler``, tracing device activity only (kernels and copies,
     so no time is counted twice); prints the device time by kernel and the
@@ -405,7 +634,7 @@ def profile_serving(cfg, params, dev, wall_unprofiled: float) -> None:
     from repro_torch.core.scheduler.policies import fcfs
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = serve_once(cfg, params, fcfs(), dev, burst(16))
+        _, _, _, wall = serve_once(cfg, params, fcfs(), dev, burst(16), arch)
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -414,7 +643,7 @@ def profile_serving(cfg, params, dev, wall_unprofiled: float) -> None:
         if t > 0:
             rows.append((t / 1e3, e.count, e.key))
     busy = sum(r[0] for r in rows)
-    log(f"  profile (fcfs burst): device busy {busy:.1f} ms; wall "
+    log(f"  profile ({arch} fcfs burst): device busy {busy:.1f} ms; wall "
         f"{wall * 1e3:.1f} ms profiled, {wall_unprofiled * 1e3:.1f} ms "
         f"unprofiled; busy share of unprofiled wall "
         f"{busy / (wall_unprofiled * 1e3):.3f}")
@@ -468,18 +697,34 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(SEED)
     log("== phase 2: kernels against their plain versions")
-    entries = [phase_decode_kernel(dev), phase_prefill_kernel(dev)]
+    entries = [phase_decode_kernel(dev), phase_prefill_kernel(dev),
+               phase_ring_decode_kernel(dev),
+               phase_linear_attention_kernel(dev)]
 
     log(f"== phase 3: parity at full width, 4 layers, f32 "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     phase_parity(dev)
     torch.cuda.empty_cache()
+    phase_hymba_parity(dev)
+    torch.cuda.empty_cache()
 
-    log(f"== phase 4: serving full llama3_2_3b under PARS and FCFS "
-        f"(at {time.perf_counter() - t_start:.1f} s)")
-    launches = phase_serve(dev)
+    from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
+                                                      ring_decode_attention)
+    from repro_torch.kernels.flash_prefill.ops import flash_attention
+    from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
+    served = []
+    for arch, kernels in (
+            ("llama3_2_3b", (paged_decode_attention, flash_attention)),
+            ("hymba_1_5b", (ring_decode_attention, linear_attention,
+                            flash_attention))):
+        log(f"== phase 4: serving full {arch} under PARS and FCFS "
+            f"(at {time.perf_counter() - t_start:.1f} s)")
+        served.append(phase_serve(dev, arch, kernels))
+    # each kernel's launches in the PARS bursts of the paths that run it
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches"] = sum(run.get(e["name"], 0) for run in served)
+        if e["launches"] == 0:
+            raise AssertionError(f"{e['name']} never launched while serving")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,1 +1,2 @@
-"""Paged decode attention (port of the Pallas ``flash_decode_paged``)."""
+"""Decode attention, paged and ring (ports of the Pallas ``flash_decode_paged``
+and ``flash_decode``)."""

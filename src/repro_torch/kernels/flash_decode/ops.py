@@ -1,28 +1,39 @@
-"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+"""Decode attention: the two CUDA kernels' wrappers and their plain versions.
 
-Port of ``repro/kernels/flash_decode`` (``flash_decode_paged`` and its
-wrapper ``paged_decode_attention_pallas``). The kernel lives in
-``kernels/csrc/flash_decode_paged.cu``; its source note says what bounds it
-and how. Pools are one layer of the engine's ``(L, N+1, bs, KH, dh)`` pool,
-i.e. ``(N+1, bs, KH, dh)``: block-major with the KV heads inside each row,
-so the kernel reads a table entry's rows without any lane gather.
+Port of ``repro/kernels/flash_decode``:
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises. ``paged_decode_attention.launches`` counts
-kernel launches, and nothing else.
+* :func:`paged_decode_attention` replaces ``flash_decode_paged`` (wrapper
+  ``paged_decode_attention_pallas``); kernel ``kernels/csrc/
+  flash_decode_paged.cu``. Pools are one layer of the engine's ``(L, N+1,
+  bs, KH, dh)`` pool, i.e. ``(N+1, bs, KH, dh)``: block-major with the KV
+  heads inside each row, so the kernel reads a table entry's rows without
+  any lane gather.
+* :func:`ring_decode_attention` replaces ``flash_decode`` (wrapper
+  ``decode_attention_pallas``); kernel ``kernels/csrc/flash_decode.cu``.
+  Lanes are one layer of the engine's heads-first ``(L, S, KH, W, dh)``
+  lanes, addressed by slot, so decode reads each sequence's lane in place;
+  the ring and window mask is computed in the kernel from per-row ``pos``
+  instead of arriving as a (B, W) bias.
+
+Each source note says what bounds its kernel and how. On a CPU tensor a
+wrapper computes its plain version; on a CUDA tensor it launches its kernel
+or raises. ``<wrapper>.launches`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.models.attention import decode_attention
 
 NEG_INF = -1e30
 MAX_GROUP = 8         # query heads per KV head (kernel register tile)
 MAX_HEAD_DIM = 256
+RING_HEAD_DIMS = (32, 64, 128)   # the ring kernel's compiled head_dims
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -106,3 +117,75 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Contiguous / ring lanes
+# ---------------------------------------------------------------------------
+def ring_decode_attention_plain(q: torch.Tensor, k_lanes: torch.Tensor,
+                                v_lanes: torch.Tensor, slots: torch.Tensor,
+                                pos: torch.Tensor, *,
+                                window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, dh); lanes: (S, KH, W, dh); slots, pos: (B,) int ->
+    (B, H, dh): the port's ``decode_attention`` over each row's lane."""
+    idx = slots.long()
+    return decode_attention(q, k_lanes[idx].transpose(1, 2),
+                            v_lanes[idx].transpose(1, 2), pos, window=window)
+
+
+@functools.lru_cache(maxsize=None)
+def _ring_lib() -> ctypes.CDLL:
+    lib = build.load("flash_decode")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ring_decode.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
+                                ctypes.c_float, p]
+    lib.ring_decode.restype = i
+    return lib
+
+
+def ring_decode_attention(q: torch.Tensor, k_lanes: torch.Tensor,
+                          v_lanes: torch.Tensor, slots: torch.Tensor,
+                          pos: torch.Tensor, *,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, dh); lanes: (S, KH, W, dh); slots: (B,) int32 lane of each
+    row (each must name a lane); pos: (B,) int32 >= 0, the position of each
+    row's current token, already written at ``pos % W`` -> (B, H, dh).
+
+    Lane row j holds position ``pos - ((pos - j) mod W)``; it counts when
+    that is >= 0 and, with a window, within ``window`` of pos."""
+    if q.device.type == "cpu":
+        return ring_decode_attention_plain(q, k_lanes, v_lanes, slots, pos,
+                                           window=window)
+    what = "ring_decode_attention"
+    build.require_cuda_operands(what, q, k_lanes, v_lanes, slots, pos)
+    b, h, dh = q.shape
+    _s, kh, w, ldh = k_lanes.shape
+    if (v_lanes.shape != k_lanes.shape or ldh != dh or h % kh
+            or slots.shape != (b,) or pos.shape != (b,)):
+        raise ValueError(f"{what}: inconsistent shapes q={tuple(q.shape)} "
+                         f"lanes={tuple(k_lanes.shape)} "
+                         f"slots={tuple(slots.shape)} pos={tuple(pos.shape)}")
+    if q.dtype not in build.DTYPE_CODES or k_lanes.dtype != q.dtype \
+            or v_lanes.dtype != q.dtype:
+        raise ValueError(f"{what}: q and lanes must share one dtype of "
+                         f"{list(build.DTYPE_CODES)}")
+    if slots.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError(f"{what}: slots and pos must be int32")
+    if h // kh > MAX_GROUP or dh not in RING_HEAD_DIMS:
+        raise ValueError(f"{what}: at most {MAX_GROUP} query heads per KV "
+                         f"head and head_dim one of {RING_HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window must be positive")
+    out = torch.empty_like(q)
+    lib = _ring_lib()
+    code = lib.ring_decode(
+        build.DTYPE_CODES[q.dtype], q.data_ptr(), k_lanes.data_ptr(),
+        v_lanes.data_ptr(), slots.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, kh, h // kh, dh, w, window or 0, dh ** -0.5,
+        build.current_stream(q.device))
+    build.check_launch(lib, code, what)
+    ring_decode_attention.launches += 1
+    return out
+
+
+ring_decode_attention.launches = 0

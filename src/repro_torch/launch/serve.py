@@ -3,11 +3,15 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --policy pars --requests 32
     PYTHONPATH=src python -m repro_torch.launch.serve --full            # 3B, bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu      # smoke
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b --full
 
 Twin of ``repro/launch/serve.py``. Builds the engine around the chosen
-architecture (its f32 smoke config, or with ``--full`` its published widths
-in bf16), with seeded random weights, serves a burst (or a Poisson stream),
-and prints the paper's latency metrics. PARS-family policies rank with a
+architecture (``llama3_2_3b`` or ``hymba_1_5b``: its f32 smoke config, or
+with ``--full`` its published widths in bf16), with seeded random weights,
+serves a burst (or a Poisson stream), and prints the paper's latency
+metrics. The KV mode follows the architecture, as in the reference: a paged
+pool for ``llama3_2_3b``, contiguous ring lanes for the sliding-window
+hybrid ``hymba_1_5b``. PARS-family policies rank with a
 ranking predictor loaded from ``--predictor PATH.npz`` (a checkpoint the
 reference's ``RankingPredictor.save`` wrote), or else with a seeded,
 untrained predictor at the chosen width (``pars_bert_base``'s full BERT-base

@@ -7,16 +7,24 @@ Port of ``repro/models/attention.py``.
   their storage dtype with f32 accumulation and f32 softmax, finite
   ``NEG_INF``). The ranking predictor uses it, and the tests hold the kernel
   paths against it.
-* The LM's attention runs on the two hand-written kernels:
+* The LM's attention runs on the hand-written kernels:
   :func:`prefill_attention` (first prefill chunks over their own K/V, and
-  continuation chunks at per-row offsets over a gathered lane) and the
-  paged decode kernel (``kernels.flash_decode.ops.paged_decode_attention``:
-  one token per sequence, read straight out of the block pool).
+  continuation chunks at per-row offsets over a gathered lane), and one
+  token per sequence through the paged decode kernel
+  (``kernels.flash_decode.ops.paged_decode_attention``, read straight out
+  of the block pool) or the ring decode kernel
+  (``kernels.flash_decode.ops.ring_decode_attention``, read straight out of
+  the sequence's lane). :func:`decode_attention` is the ring kernel's plain
+  version.
 
-The LM's KV cache is paged: one pool per layer, ``(N+1, bs, KH, dh)`` with
-the KV heads inside each row, addressed through per-sequence block tables.
-:func:`write_paged` scatters new K/V rows into a pool and
-:func:`gather_lane` lays a table's rows out as one contiguous lane.
+The LM's KV cache is paged or contiguous. Paged: one pool per layer,
+``(N+1, bs, KH, dh)`` with the KV heads inside each row, addressed through
+per-sequence block tables; :func:`write_paged` scatters new K/V rows into a
+pool and :func:`gather_lane` lays a table's rows out as one contiguous lane.
+Contiguous: one lane per slot and layer, ``(S, KH, W, dh)`` heads first, an
+append buffer until it wraps as a ring; :func:`prefill_cache` and
+:func:`update_cache` write prompt and decode rows at their ring slots, in
+place (the reference's functions return new arrays).
 """
 from __future__ import annotations
 
@@ -90,6 +98,63 @@ def gather_lane(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     bs, kh, dh = pool.shape[1:]
     lane = pool[tables.long()].reshape(b, mb * bs, kh, dh)
     return lane.permute(0, 2, 1, 3).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Contiguous KV: per-slot lanes, append buffers or rings
+# ---------------------------------------------------------------------------
+def ring_slot_positions(pos: torch.Tensor, cache_len: int) -> torch.Tensor:
+    """Absolute position held by each slot of a ring of ``cache_len``
+    slots, -1 where unwritten. ``pos`` (B,) is the position of the token
+    being decoded *now*; slots hold positions < pos (slot j holds the
+    largest p < pos with p % cache_len == j). Returns (B, cache_len)."""
+    j = torch.arange(cache_len, dtype=torch.int64, device=pos.device)
+    p = pos.long()[:, None] - 1 - torch.remainder(
+        pos.long()[:, None] - 1 - j[None, :], cache_len)
+    return torch.where(p >= 0, p, torch.full_like(p, -1))
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token attention: the plain version of the ring decode kernel.
+
+    q: (B, H, dh); caches: (B, W, KH, dh); pos: (B,) int, the position of
+    each row's current token, whose K/V the caller has already written at
+    slot ``pos % W``. The caches are append buffers while pos < W and rings
+    after; a window masks keys at ``pos - p >= window``."""
+    w = k_cache.shape[1]
+    slot_pos = ring_slot_positions(pos.long() + 1, w)   # includes current
+    pos_q = pos.long()[:, None]
+    out = attention_naive(q[:, None], k_cache, v_cache, pos_q, slot_pos,
+                          causal=True, window=window)
+    return out[:, 0]
+
+
+def update_cache(lanes: torch.Tensor, slots: torch.Tensor, new: torch.Tensor,
+                 pos: torch.Tensor) -> None:
+    """Write one token's K or V per row into its ring slot, in place.
+
+    lanes: (S, KH, W, dh), one layer of the heads-first lanes; slots: (B,)
+    lane of each row; new: (B, KH, dh); pos: (B,) absolute positions (slot
+    ``pos % W``)."""
+    w = lanes.shape[2]
+    lanes[slots.long(), :, pos.long() % w] = new
+
+
+def prefill_cache(lanes: torch.Tensor, slots: torch.Tensor,
+                  new: torch.Tensor) -> None:
+    """Write a prompt's K or V (positions ``0 .. S-1``) into the lanes of
+    ``slots``, in place. new: (B, S, KH, dh). A prompt longer than the lane
+    keeps its last W positions, each at slot ``position % W``, so that
+    decode continues the ring seamlessly (the reference's
+    ``prefill_cache``); lane rows past S keep whatever they held, which
+    decode masks as unwritten."""
+    s, w = new.shape[1], lanes.shape[2]
+    first = max(0, s - w)
+    ring = torch.arange(first, s, device=new.device) % w
+    rows = slots.long()[:, None]
+    lanes[rows, :, ring[None, :]] = new[:, first:]
 
 
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1,31 +1,45 @@
-"""Decoder-only transformer, dense family: parameters, prefill, chunked
-continuation and decode over a paged KV cache.
+"""Decoder-only transformer, dense and hybrid families: parameters, prefill,
+chunked continuation and decode over a paged or a contiguous KV cache.
 
-Port of ``repro/models/transformer.py`` for the DENSE family. Parameters
-keep the reference's pytree layout as nested dicts of tensors, with every
-layer leaf stacked on a leading ``num_layers`` axis, so bridged JAX
-parameters drop in unchanged; the layer loop is a Python loop where JAX used
-``lax.scan``.
+Port of ``repro/models/transformer.py`` for the DENSE family and the HYBRID
+family (attention and a Mamba-2/SSD head bank in every layer, their outputs
+averaged). Parameters keep the reference's pytree layout as nested dicts of
+tensors, with every layer leaf stacked on a leading ``num_layers`` axis, so
+bridged JAX parameters drop in unchanged; the layer loop is a Python loop
+where JAX used ``lax.scan``.
 
-The decode cache is paged (the reference's contiguous lanes are the special
-case of an identity table)::
+Two decode caches, one per engine mode:
 
-    {"k", "v": (L, N+1, bs, KH, dh) pools, block N a null block,
-     "tables": (B, max_blocks) int32 block table per sequence,
-     "pos": (B,) int32 tokens resident per sequence}
+* **paged** (dense family without a window)::
 
-:func:`init_cache` builds one with identity tables; the serving engine
-passes its global pool with the dispatched requests' tables. The lane width
-is ``W = max_blocks * bs``. Every function that takes a cache writes the new
-K/V rows into its pools **in place** (the pools are the serving engine's
-memory, too large to copy per step) and returns a dict with the advanced
-``pos``. Per-row ``pos`` lets one call serve sequences at different offsets
-(the reference ran one row per ``vmap`` lane with a scalar ``pos``).
+      {"k", "v": (L, N+1, bs, KH, dh) pools, block N a null block,
+       "tables": (B, max_blocks) int32 block table per sequence,
+       "pos": (B,) int32 tokens resident per sequence}
 
-Attention runs on the port's two kernels: prefill attention for
+  The lane width is ``W = max_blocks * bs``.
+* **contiguous** (the reference's per-slot lanes, stored heads first)::
+
+      {"k", "v": (L, S, KH, W, dh) lanes, W = min(max_len, window),
+       "slots": (B,) int32 lane of each sequence,
+       "pos": (B,) int32 tokens resident per sequence,
+       HYBRID: "conv_tail": (L, S, conv_width - 1, d_inner),
+               "ssm_state": (L, S, nheads, state, head_dim) f32}
+
+  A lane is an append buffer while ``pos < W`` and a ring after.
+
+:func:`init_cache` builds either with identity tables or slots; the serving
+engine passes its own pool or lanes with the dispatched requests' tables or
+slots. Every function that takes a cache writes the new state into it **in
+place** (the pools and lanes are the serving engine's memory, too large to
+copy per step) and returns a dict with the advanced ``pos``. Per-row ``pos``
+lets one call serve sequences at different offsets (the reference ran one
+row per ``vmap`` lane with a scalar ``pos``).
+
+Attention runs on the port's kernels: prefill attention for
 :func:`forward_seq` (``q_start = 0`` over the prompt's own K/V) and
-:func:`forward_chunk` (per-row offsets over lanes gathered from the pool),
-paged decode attention for :func:`decode_step` (no gather).
+:func:`forward_chunk` (per-row offsets over lanes gathered from the cache),
+paged or ring decode attention for :func:`decode_step` (no gather). The
+HYBRID family's SSM runs the chunked linear-attention kernel in prefill.
 """
 from __future__ import annotations
 
@@ -33,10 +47,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_decode.ops import paged_decode_attention
+from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
+                                                  ring_decode_attention)
+from repro_torch.models import ssm as ssd
 from repro_torch.models.attention import (gather_lane, prefill_attention,
+                                          prefill_cache, update_cache,
                                           write_paged)
 from repro_torch.models.common import (activate, apply_norm, apply_rope,
                                        dense_init, embed_init, gated,
@@ -47,26 +64,27 @@ Cache = Dict[str, torch.Tensor]
 
 # The ROADMAP item (section A) that ports each family this module rejects.
 _ROADMAP_ITEM = {"moe": "A9 (MoE and VLM)", "vlm": "A9 (MoE and VLM)",
-                 "ssm": "A10 (recurrent families)",
-                 "hybrid": "A10 (recurrent families)",
+                 "ssm": "A10 (the RWKV-6 family)",
                  "audio": "A11 (encoder-decoder)"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this slice does not port."""
-    if cfg.family != DENSE or cfg.is_encdec:
-        item = _ROADMAP_ITEM.get(cfg.family, "A11")
+    """Raise ``NotImplementedError`` for what the port does not run yet."""
+    if cfg.family not in (DENSE, HYBRID) or cfg.is_encdec:
+        item = _ROADMAP_ITEM.get(cfg.family, "A11 (encoder-decoder)")
         raise NotImplementedError(
-            f"the port runs the dense family only; {cfg.family} waits for "
-            f"ROADMAP item {item}")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window lanes need the ring decode kernel: ROADMAP items "
-            "A5 and B3 (flash_decode)")
+            f"the port runs the dense and hybrid families; {cfg.family} "
+            f"waits for ROADMAP item {item}")
     if cfg.pos_emb != "rope":
         raise NotImplementedError(
-            f"pos_emb={cfg.pos_emb!r}: the port's dense family uses rope; "
+            f"pos_emb={cfg.pos_emb!r}: the port's decoders use rope; "
             f"learned positions wait for ROADMAP item A11")
+
+
+def default_paged(cfg: ModelConfig) -> bool:
+    """The reference engine's choice: block-structured KV for attention-only
+    append caches; hybrid and sliding-window models keep per-slot lanes."""
+    return cfg.family == DENSE and not cfg.is_encdec and not cfg.sliding_window
 
 
 # ===========================================================================
@@ -105,11 +123,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
         attn.update(bq=zeros(h * dh), bk=zeros(kh * dh), bv=zeros(kh * dh),
                     bo=zeros(d))
         mlp.update(b_up=zeros(f), b_down=zeros(d))
+    layers = {"ln1": stacked_norm(), "ln2": stacked_norm(), "attn": attn,
+              "mlp": mlp}
+    if cfg.family == HYBRID:
+        layers["ssm"] = ssd.init_ssm(gen, cfg, dtype, L)
     params: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, d), dtype),
         "final_norm": init_norm(d, cfg.norm, dtype, dev),
-        "layers": {"ln1": stacked_norm(), "ln2": stacked_norm(),
-                   "attn": attn, "mlp": mlp},
+        "layers": layers,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
@@ -128,26 +149,54 @@ def layer_params(params: Params, layer: int) -> Params:
 # Cache construction
 # ===========================================================================
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               block_size: int = 16, dtype: Optional[torch.dtype] = None,
+               paged: Optional[bool] = None, block_size: int = 16,
+               dtype: Optional[torch.dtype] = None,
                device: DeviceLike = "cuda") -> Cache:
-    """An empty paged cache with identity tables: row b owns blocks
-    ``b*mb .. b*mb + mb - 1`` of an ``N = batch*mb`` block pool (plus the
-    null block), ``mb = max_len / block_size``."""
+    """An empty decode cache for ``batch`` sequences of up to ``max_len``
+    positions (``paged`` defaults to :func:`default_paged`).
+
+    Paged: row b owns blocks ``b*mb .. b*mb + mb - 1`` of an
+    ``N = batch*mb`` block pool (plus the null block),
+    ``mb = max_len / block_size``. Contiguous: row b owns lane b, of width
+    ``W = min(max_len, sliding_window)`` (the ring a window needs, never
+    wider than the window)."""
     check_supported(cfg)
-    if max_len % block_size:
-        raise ValueError(f"max_len={max_len} must be a multiple of "
-                         f"block_size={block_size}")
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
-    mb = max_len // block_size
-    n = batch * mb
-    shape = (cfg.num_layers, n + 1, block_size, cfg.num_kv_heads,
-             cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dt, device=dev),
-            "v": torch.zeros(shape, dtype=dt, device=dev),
-            "tables": torch.arange(n, dtype=torch.int32,
-                                   device=dev).reshape(batch, mb),
-            "pos": torch.zeros(batch, dtype=torch.int32, device=dev)}
+    L, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    pos = torch.zeros(batch, dtype=torch.int32, device=dev)
+    if paged is None:
+        paged = default_paged(cfg)
+    if paged:
+        if not default_paged(cfg):
+            raise ValueError(
+                "paged KV needs an attention-only model without a sliding "
+                "window: hybrid state is not block-structured and window "
+                "lanes are shorter than the positions they cover")
+        if max_len % block_size:
+            raise ValueError(f"max_len={max_len} must be a multiple of "
+                             f"block_size={block_size}")
+        mb = max_len // block_size
+        n = batch * mb
+        shape = (L, n + 1, block_size, kh, dh)
+        return {"k": torch.zeros(shape, dtype=dt, device=dev),
+                "v": torch.zeros(shape, dtype=dt, device=dev),
+                "tables": torch.arange(n, dtype=torch.int32,
+                                       device=dev).reshape(batch, mb),
+                "pos": pos}
+    w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+    cache = {"k": torch.zeros(L, batch, kh, w, dh, dtype=dt, device=dev),
+             "v": torch.zeros(L, batch, kh, w, dh, dtype=dt, device=dev),
+             "slots": torch.arange(batch, dtype=torch.int32, device=dev),
+             "pos": pos}
+    if cfg.family == HYBRID:
+        s = cfg.ssm
+        d_inner, nh, n = ssd._dims(cfg)
+        cache["conv_tail"] = torch.zeros(L, batch, s.conv_width - 1, d_inner,
+                                         dtype=dt, device=dev)
+        cache["ssm_state"] = torch.zeros(L, batch, nh, n, s.head_dim,
+                                         dtype=torch.float32, device=dev)
+    return cache
 
 
 # ===========================================================================
@@ -177,9 +226,9 @@ def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _linear(activate(up, gate, cfg.activation), p, "w_down", "b_down")
 
 
-def _attn_out(lp: Params, x, out):
+def _attn_proj(lp: Params, out: torch.Tensor) -> torch.Tensor:
     b, s = out.shape[:2]
-    return x + _linear(out.reshape(b, s, -1), lp["attn"], "wo", "bo")
+    return _linear(out.reshape(b, s, -1), lp["attn"], "wo", "bo")
 
 
 def _ffn_residual(lp: Params, x, cfg: ModelConfig):
@@ -214,8 +263,10 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     """Full-sequence forward from position 0. tokens: (B, S) int.
 
     Returns ``(logits (B, S, V), cache-or-None, aux)``. With ``cache`` the
-    prompt's K/V rows ``[0, S)`` are written into its pools through its
-    tables and its ``pos`` becomes S (the serving engine's first-chunk
+    prompt's K/V rows ``[0, S)`` are written into it through its tables or
+    into its slots' lanes (a prompt longer than a lane keeps its last W
+    rows at their ring slots), HYBRID's conv tail and SSM state land in the
+    slots, and ``pos`` becomes S (the serving engine's first-chunk
     prefill); ``build_cache=True`` does the same into a fresh
     ``init_cache(cfg, B, cache_len)``."""
     check_supported(cfg)
@@ -229,14 +280,26 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
     for layer in range(cfg.num_layers):
         lp = layer_params(params, layer)
-        q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
+        xn = apply_norm(lp["ln1"], x, cfg.norm)
+        q, k, v = _qkv(lp["attn"], xn, cfg)
         q, k = _rope_qk(q, k, cfg, positions)
-        if cache is not None:
+        if cache is not None and "tables" in cache:
             write_paged(cache["k"][layer], cache["tables"], positions, k)
             write_paged(cache["v"][layer], cache["tables"], positions, v)
+        elif cache is not None:
+            prefill_cache(cache["k"][layer], cache["slots"], k)
+            prefill_cache(cache["v"][layer], cache["slots"], v)
         out = prefill_attention(q, _heads_first(k), _heads_first(v), q_start,
-                                kv_len)
-        x = _ffn_residual(lp, _attn_out(lp, x, out), cfg)
+                                kv_len, window=cfg.sliding_window)
+        mix = _attn_proj(lp, out)
+        if cfg.family == HYBRID:
+            ssm_out, tail, state = ssd.apply_ssm(lp["ssm"], xn, cfg)
+            mix = 0.5 * (mix + ssm_out)
+            if cache is not None:
+                slots = cache["slots"].long()
+                cache["conv_tail"][layer][slots] = tail
+                cache["ssm_state"][layer][slots] = state
+        x = _ffn_residual(lp, x + mix, cfg)
     logits = _final(params, cfg, x)
     if cache is not None:
         cache = {**cache, "pos": kv_len}
@@ -248,30 +311,45 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """Continue a partial prefill: row b's chunk ``tokens[b]`` (B, C) sits
     at absolute positions ``pos[b] .. pos[b]+C-1``.
 
-    Per layer the chunk's K/V are written into the pools first, then the
+    Per layer the chunk's K/V are written into the cache first, then the
     chunk's queries attend the row's lane (gathered from the pool through
-    its table) causally, keys ``[0, pos[b]+C)``: exactly the resident prefix
-    plus the chunk, so chunked prefill equals one :func:`forward_seq`. The
-    caller guarantees ``pos + C <= W`` (no wrap). Returns
+    its table, or from its slot) causally, keys ``[0, pos[b]+C)``: exactly
+    the resident prefix plus the chunk, so chunked prefill equals one
+    :func:`forward_seq`. The caller guarantees ``pos + C <= W`` (no wrap).
+    Dense family only: a hybrid's SSM carries state across chunks that
+    :func:`forward_seq` does not take back in. Returns
     ``(logits (B, C, V), cache)`` with ``pos`` advanced by C."""
     check_supported(cfg)
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"forward_chunk runs the dense family; {cfg.family} carries "
+            f"recurrent cross-chunk state")
     b, c = tokens.shape
     x = params["embed"][tokens]
     pos0 = cache["pos"].to(torch.int32)
     positions = pos0[:, None] + torch.arange(c, dtype=torch.int32,
                                              device=x.device)[None, :]
     kv_len = pos0 + c
-    tables = cache["tables"]
+    paged = "tables" in cache
     for layer in range(cfg.num_layers):
         lp = layer_params(params, layer)
         q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
         q, k = _rope_qk(q, k, cfg, positions)
-        k_pool, v_pool = cache["k"][layer], cache["v"][layer]
-        write_paged(k_pool, tables, positions, k)
-        write_paged(v_pool, tables, positions, v)
-        out = prefill_attention(q, gather_lane(k_pool, tables),
-                                gather_lane(v_pool, tables), pos0, kv_len)
-        x = _ffn_residual(lp, _attn_out(lp, x, out), cfg)
+        k_all, v_all = cache["k"][layer], cache["v"][layer]
+        if paged:
+            tables = cache["tables"]
+            write_paged(k_all, tables, positions, k)
+            write_paged(v_all, tables, positions, v)
+            lane_k, lane_v = (gather_lane(k_all, tables),
+                              gather_lane(v_all, tables))
+        else:
+            rows = cache["slots"].long()
+            k_all[rows[:, None], :, positions.long()] = k
+            v_all[rows[:, None], :, positions.long()] = v
+            lane_k, lane_v = k_all[rows], v_all[rows]
+        out = prefill_attention(q, lane_k, lane_v, pos0, kv_len,
+                                window=cfg.sliding_window)
+        x = _ffn_residual(lp, x + _attn_proj(lp, out), cfg)
     return _final(params, cfg, x), {**cache, "pos": kv_len}
 
 
@@ -279,26 +357,49 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                 token: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
     """One decode step. token: (B, 1) int at per-row positions ``pos``.
 
-    Per layer the token's K/V row is written into block
-    ``tables[b, (pos % W) // bs]`` before the paged decode kernel attends
-    ``min(pos+1, W)`` rows (a wrap past W attends the whole lane, the
-    reference's ring semantics). Returns ``(logits (B, V), cache)`` with
-    ``pos`` advanced by one."""
+    Per layer the token's K/V row is written first: paged, into block
+    ``tables[b, (pos % W) // bs]``, before the paged decode kernel attends
+    ``min(pos+1, W)`` rows; contiguous, into lane slot ``pos % W``, before
+    the ring decode kernel attends the lane under the ring and window mask.
+    A wrap past W overwrites the oldest row: the reference's ring
+    semantics. HYBRID's SSM advances its conv tail and state by one token.
+    Returns ``(logits (B, V), cache)`` with ``pos`` advanced by one."""
     check_supported(cfg)
     x = params["embed"][token]
     pos = cache["pos"].to(torch.int32)
     positions = pos[:, None]
-    tables = cache["tables"]
-    w = tables.shape[1] * cache["k"].shape[2]
-    lengths = torch.clamp(pos + 1, max=w)
+    paged = "tables" in cache
+    if paged:
+        tables = cache["tables"]
+        lengths = torch.clamp(pos + 1, max=tables.shape[1]
+                              * cache["k"].shape[2])
+    else:
+        slots = cache["slots"].to(torch.int32)
+        rows = slots.long()
     for layer in range(cfg.num_layers):
         lp = layer_params(params, layer)
-        q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
+        xn = apply_norm(lp["ln1"], x, cfg.norm)
+        q, k, v = _qkv(lp["attn"], xn, cfg)
         q, k = _rope_qk(q, k, cfg, positions)
-        k_pool, v_pool = cache["k"][layer], cache["v"][layer]
-        write_paged(k_pool, tables, positions, k)
-        write_paged(v_pool, tables, positions, v)
-        out = paged_decode_attention(q[:, 0], k_pool, v_pool, tables,
-                                     lengths)
-        x = _ffn_residual(lp, _attn_out(lp, x, out[:, None]), cfg)
+        k_all, v_all = cache["k"][layer], cache["v"][layer]
+        if paged:
+            write_paged(k_all, tables, positions, k)
+            write_paged(v_all, tables, positions, v)
+            out = paged_decode_attention(q[:, 0], k_all, v_all, tables,
+                                         lengths)
+        else:
+            update_cache(k_all, slots, k[:, 0], pos)
+            update_cache(v_all, slots, v[:, 0], pos)
+            out = ring_decode_attention(q[:, 0], k_all, v_all, slots, pos,
+                                        window=cfg.sliding_window)
+        mix = _attn_proj(lp, out[:, None])
+        if cfg.family == HYBRID:
+            tails = cache["conv_tail"][layer]
+            states = cache["ssm_state"][layer]
+            ssm_out, tail, state = ssd.ssm_step(lp["ssm"], xn[:, 0], cfg,
+                                                tails[rows], states[rows])
+            tails[rows] = tail
+            states[rows] = state
+            mix = 0.5 * (mix + ssm_out[:, None])
+        x = _ffn_residual(lp, x + mix, cfg)
     return _final(params, cfg, x)[:, 0], {**cache, "pos": pos + 1}

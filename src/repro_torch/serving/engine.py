@@ -1,34 +1,46 @@
-"""Real PyTorch serving backend: continuous batching over a paged KV pool.
+"""Real PyTorch serving backend: continuous batching over paged or
+contiguous KV.
 
-Port of ``repro/serving/engine.py``, paged mode. The backend plugs into the
-copied :class:`~repro_torch.serving.core.ServingCore` step loop (scheduler,
-PARS ranking, KV block accounting, chunk planning and prefix caching are the
+Port of ``repro/serving/engine.py``. The backend plugs into the copied
+:class:`~repro_torch.serving.core.ServingCore` step loop (scheduler, PARS
+ranking, KV block accounting, chunk planning and prefix caching are the
 reference's code), and keeps the reference's backend contract:
 ``kv_demand`` / ``prefill_total`` / ``prefix_tokens`` / ``release`` have the
-same semantics, so the core makes the same decisions.
+same semantics, so the core makes the same decisions. Two KV modes, chosen
+as the reference chooses (``paged=None``: paged for attention-only models
+without a sliding window):
 
-KV lives in one global pool per K and V, ``(L, total_blocks + 1,
-block_size, KH, dh)`` (the reference's ``(n+1, L, bs, KH, dh)`` with L
-moved to the front, so that one layer's pool is contiguous), indexed by each
-request's allocator block table; the trailing *null* block pads tables and
-is only ever read under the length mask.
+* **Paged.** KV lives in one global pool per K and V, ``(L, total_blocks +
+  1, block_size, KH, dh)`` (the reference's ``(n+1, L, bs, KH, dh)`` with L
+  moved to the front, so that one layer's pool is contiguous), indexed by
+  each request's allocator block table; the trailing *null* block pads
+  tables and is only ever read under the length mask. Prefix caching is
+  zero-copy: the allocator aliased the cached blocks into the new request's
+  table, so a hit just claims a slot and resumes at the cached offset
+  (``prefix_tokens_copied`` stays 0). Decode reads the pool through the
+  tables with the paged decode kernel.
+* **Contiguous.** Each slot owns a lane per layer, stored heads first:
+  ``(L, max_batch, KH, W, dh)`` with ``W = min(cache_len,
+  sliding_window)``, plus a hybrid model's conv tail and f32 SSM state per
+  slot. Prefill writes a slot's lane in place, decode reads and writes the
+  active slots' lanes in place with the ring decode kernel (no per-step
+  gather and scatter of whole lanes, as the reference's ``_decode_active``
+  had), and a lane wraps as a ring once a sequence outgrows W. Prefix
+  caching keeps the reference's hash-keyed fragment store: per-block K/V
+  copied out of a donor lane at prompt completion and into a hit's lane at
+  admission (``prefix_tokens_copied`` counts the copied tokens), dropped
+  through the allocator's eviction listener.
 
-* **Prefill.** Admitted first chunks are grouped by length into one
-  ``forward_seq`` per power-of-two token bucket; its K/V rows go straight
-  into the pool through the requests' tables. Continuation chunks (chunked
-  prefill, or the suffix after a prefix-cache hit) run ``forward_chunk`` at
-  per-row offsets, grouped by chunk length. A chunk that completes a prompt
-  commits its sampled token as the request's first output.
-* **Prefix caching** is zero-copy: the allocator aliased the cached blocks
-  into the new request's table, so a hit just claims a slot and resumes at
-  the cached offset (``prefix_tokens_copied`` stays 0).
-* **Decode** runs one ``decode_step`` over the decode-ready slots, reading
-  the pool through the tables with the paged decode kernel (no lane gather).
+Admitted first chunks are grouped by length into one ``forward_seq`` per
+power-of-two token bucket. Continuation chunks (chunked prefill, or the
+suffix after a prefix-cache hit; attention-only models) run
+``forward_chunk`` at per-row offsets, grouped by chunk length. A chunk that
+completes a prompt commits its sampled token as the request's first output.
+Decode runs one ``decode_step`` over the decode-ready slots per step.
 
 Unlike the jitted reference, dispatch batches are not padded to powers of
 two (eager PyTorch compiles nothing per shape), so there are no replayed
-padding lanes. Contiguous lanes (``paged=False``) wait for the port of the
-contiguous ``flash_decode`` kernel (ROADMAP items A5 and B3).
+padding lanes.
 
 Prompt handling and completion length follow the reference: prompts are
 hash-tokenized into their bucket, and a request finishes after its
@@ -42,7 +54,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, MOE, VLM, ModelConfig
+from repro_torch.configs.base import DENSE, ModelConfig
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
@@ -51,7 +63,8 @@ from repro_torch.kernels import build
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.config import ServingConfig, resolve_config
 from repro_torch.serving.core import PrefillChunk, ServingCore, WallClock
-from repro_torch.serving.kv_cache import UNBOUNDED_BLOCKS, BlockAllocator
+from repro_torch.serving.kv_cache import (UNBOUNDED_BLOCKS, BlockAllocator,
+                                          prefix_chunk_hashes)
 from repro_torch.serving.metrics import LatencyReport, RunCounters, report
 from repro_torch.serving.sampler import SamplerConfig, sample
 
@@ -61,7 +74,8 @@ def _next_pow2(n: int) -> int:
 
 
 class RealBackend:
-    """Prefill/decode over a paged KV pool (ExecutionBackend)."""
+    """Prefill/decode over a paged KV pool or per-slot lanes
+    (ExecutionBackend)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_batch: int,
                  cache_len: int = 512, prompt_len: int = 32,
@@ -71,10 +85,6 @@ class RealBackend:
                  record_tokens: bool = False, paged: bool = True,
                  device: DeviceLike = "cuda"):
         tfm.check_supported(cfg)
-        if not paged:
-            raise NotImplementedError(
-                "contiguous KV lanes (paged=False) wait for the port of the "
-                "contiguous flash_decode kernel: ROADMAP items A5 and B3")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -102,6 +112,18 @@ class RealBackend:
         self.slot_tokens = torch.zeros(max_batch, dtype=torch.int64,
                                        device=self.device)
 
+        # --- contiguous lanes (paged=False): one per slot, heads first ------
+        self.lanes: Optional[tfm.Cache] = (
+            None if paged else tfm.init_cache(
+                cfg, max_batch, cache_len, paged=False,
+                dtype=params["embed"].dtype, device=self.device))
+        # chunk-chain hash -> {"k", "v": (L, KH, block, dh)} K/V of one
+        # content-named block, cloned out of a donor lane at prompt
+        # completion (a view would change with the slot's next occupant);
+        # dropped through the allocator's eviction listener. Paged mode has
+        # no store: a hit aliases pool blocks into the new table.
+        self._prefix_store: Dict[int, dict] = {}
+
         # --- paged KV pool (built at attach: sized by the core's allocator) --
         self.k_pool: Optional[torch.Tensor] = None
         self.v_pool: Optional[torch.Tensor] = None
@@ -123,19 +145,42 @@ class RealBackend:
     # -------------------------------------------------------------- protocol
     def attach(self, core: ServingCore) -> None:
         self.core = core
+        cfg = self.cfg
         if core.prefill_chunk_tokens is not None or core.prefix_caching:
-            if self.prompt_len > self.cache_len:
+            # both features continue prefill at non-zero offsets (a cache
+            # hit resumes mid-prompt even with chunking off), so both need
+            # exact attention-only continuation
+            if cfg.family != DENSE or cfg.is_encdec:
+                raise ValueError(
+                    f"chunked prefill / prefix caching needs an "
+                    f"attention-family model (got {cfg.family}): "
+                    f"recurrent families carry cross-chunk state "
+                    f"forward_seq does not externalize")
+            if cfg.sliding_window or self.prompt_len > self.cache_len:
                 raise ValueError(
                     "chunked prefill / prefix caching needs an append-buffer "
                     "cache covering the whole prompt (prompt_len <= "
-                    "cache_len): continuation chunks write at absolute "
-                    "offsets")
+                    "cache_len, no sliding window): continuation chunks "
+                    "write at absolute offsets")
         if (core.prefill_chunk_tokens is not None
                 and core.prefill_chunk_tokens > self.cache_len):
             raise ValueError(
                 f"prefill_chunk_tokens={core.prefill_chunk_tokens} "
                 f"exceeds cache_len={self.cache_len}: a continuation "
                 f"chunk must fit the cache lane it extends")
+        if not self.paged:
+            if core.prefix_caching:
+                # keep the fragment store in lockstep with the accounting:
+                # when the allocator reclaims a cached block, its KV goes too
+                core.allocator.add_evict_listener(
+                    lambda h: self._prefix_store.pop(h, None))
+            return
+        if not tfm.default_paged(cfg):
+            raise ValueError(
+                f"paged KV needs an attention-only model without a sliding "
+                f"window (got {cfg.family}, window {cfg.sliding_window}): "
+                f"recurrent state is not block-structured and window lanes "
+                f"are shorter than the positions they cover")
         alloc = core.allocator
         if alloc.total_blocks >= UNBOUNDED_BLOCKS:
             raise ValueError("paged KV needs a bounded allocator: the "
@@ -169,13 +214,23 @@ class RealBackend:
                if self.core is not None else [])
         return tbl + [self._null_block] * (n - len(tbl))
 
-    def _cache(self, tables: np.ndarray, pos: np.ndarray) -> tfm.Cache:
-        """The model's view of the pool for one dispatch."""
-        return {"k": self.k_pool, "v": self.v_pool,
+    def _cache(self, reqs: Sequence[Request], pos: np.ndarray,
+               n_blocks: Optional[int] = None) -> tfm.Cache:
+        """The model's view of the KV for one dispatch over ``reqs`` at
+        per-row positions ``pos``: the pool with the requests' first
+        ``n_blocks`` table entries (default: whole lanes), or the lanes with
+        the requests' slots."""
+        pos_t = torch.as_tensor(pos, dtype=torch.int32, device=self.device)
+        if not self.paged:
+            slots = [self._slot_of[r.req_id] for r in reqs]
+            return {**self.lanes, "pos": pos_t,
+                    "slots": torch.as_tensor(slots, dtype=torch.int32,
+                                             device=self.device)}
+        n = n_blocks or self._lane_blocks
+        tables = np.asarray([self._table(r, n) for r in reqs], np.int32)
+        return {"k": self.k_pool, "v": self.v_pool, "pos": pos_t,
                 "tables": torch.as_tensor(tables, dtype=torch.int32,
-                                          device=self.device),
-                "pos": torch.as_tensor(pos, dtype=torch.int32,
-                                       device=self.device)}
+                                          device=self.device)}
 
     def kv_demand(self, req: Request) -> int:
         return self.prompt_len + min(req.true_length, self.cache_len)
@@ -255,17 +310,54 @@ class RealBackend:
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample(logits, self._gen, self._sampler_cfg)
 
+    # ------------------------------------------------------- prefix caching
+    def _store_prefix(self, req: Request) -> None:
+        """Contiguous mode: clone the completed prompt's content-named
+        per-block K/V out of its lane into the fragment store (skipping
+        blocks already stored by an earlier identical prefix, and blocks the
+        allocator does not track, e.g. past the hit cap)."""
+        core = self.core
+        if core is None or not core.prefix_caching:
+            return
+        bs = core.allocator.block_size
+        slot = self._slot_of[req.req_id]
+        for i, h in enumerate(prefix_chunk_hashes(self._prompt_ids(req), bs)):
+            if h in self._prefix_store or not core.allocator.tracked(h):
+                continue
+            rows = slice(i * bs, (i + 1) * bs)
+            self._prefix_store[h] = {
+                "k": self.lanes["k"][:, slot, :, rows].clone(),
+                "v": self.lanes["v"][:, slot, :, rows].clone()}
+
+    def _install_prefix(self, slot: int, req: Request, n_tokens: int) -> None:
+        """Contiguous mode: seed a freshly claimed lane with a cached prefix,
+        the hit chain's fragments at positions ``[0, n_tokens)``; prefill
+        then resumes at the cached offset. The blocks are refcount-pinned by
+        this request's reservation, so every fragment is present
+        (commit-before-hit and the eviction listener)."""
+        bs = self.core.allocator.block_size
+        hashes = prefix_chunk_hashes(self._prompt_ids(req), bs)
+        frags = [self._prefix_store[h] for h in hashes[:n_tokens // bs]]
+        self.lanes["k"][:, slot, :, :n_tokens] = torch.cat(
+            [f["k"] for f in frags], dim=2)
+        self.lanes["v"][:, slot, :, :n_tokens] = torch.cat(
+            [f["v"] for f in frags], dim=2)
+        self.prefix_installs += 1
+        self.prefix_tokens_copied += n_tokens
+
     def prefill(self, chunks: Sequence[PrefillChunk], now: float) -> float:
         """Execute one step's planned prefill chunks (see ``ServingCore``).
 
         First chunks (``start == 0``) claim a free slot and run one bucketed
         ``forward_seq`` per chunk length. A prefix-cache hit's first chunk
-        arrives with ``start > 0``: it claims a slot (its table already
-        aliases the cached blocks) and runs as a continuation. Continuation
-        chunks run ``forward_chunk`` grouped by length; requests at
-        different offsets share a dispatch. A request whose chunk reaches
-        ``prefill_total`` gets its first output token committed (tokens_done
-        and TTFT bookkeeping preserved across preemption re-admission)."""
+        arrives with ``start > 0``: it claims a slot (paged: its table
+        already aliases the cached blocks; contiguous: the fragment store
+        seeds its lane) and runs as a continuation. Continuation chunks run
+        ``forward_chunk`` grouped by length; requests at different offsets
+        share a dispatch. A request whose chunk reaches ``prefill_total``
+        gets its first output token committed (tokens_done and TTFT
+        bookkeeping preserved across preemption re-admission) and, in
+        contiguous mode, its prefix blocks' KV stored for later hits."""
         if not chunks:
             return now
         t0 = time.perf_counter()
@@ -276,7 +368,8 @@ class RealBackend:
                 slot = self.slot_req.index(None)
                 self.slot_req[slot] = req
                 self._slot_of[req.req_id] = slot
-                if self.core is not None and self.core.prefix_caching \
+                if self.paged and self.core is not None \
+                        and self.core.prefix_caching \
                         and self.prefill_total(req) + req.true_length - 1 \
                         > self.cache_len:
                     raise ValueError(
@@ -285,10 +378,13 @@ class RealBackend:
                         f"{self.prefill_total(req) + req.true_length - 1} "
                         f"positions > cache_len={self.cache_len} (a wrap "
                         f"would overwrite potentially shared prefix blocks)")
-                if start > 0:
-                    # zero-copy hit: the reservation already aliased the
-                    # shared prefix blocks into this request's table
-                    self.prefix_installs += 1
+                if start > 0:               # admission at a cached offset
+                    if self.paged:
+                        # zero-copy hit: the reservation already aliased the
+                        # shared prefix blocks into this request's table
+                        self.prefix_installs += 1
+                    else:
+                        self._install_prefix(slot, req, start)
             if start == 0:
                 first_groups.setdefault(end, []).append(req)
             else:
@@ -299,18 +395,17 @@ class RealBackend:
         else:                          # sequential: one dispatch per request
             first_batches = [(ln, [r]) for ln, g in sorted(first_groups.items())
                              for r in g]
-        bs = self.k_pool.shape[2]
         for bucket_len, group in first_batches:
             tokens = np.zeros((len(group), bucket_len), np.int64)
             for j, req in enumerate(group):
                 ids = self._prompt_ids(req)[:bucket_len]
                 tokens[j, :len(ids)] = ids      # tail = pad token 0
-            nb = -(-bucket_len // bs)
-            tables = np.asarray([self._table(r, nb) for r in group], np.int32)
-            cache = self._cache(tables, np.zeros(len(group), np.int32))
+            # the pool blocks that hold the bucket
+            nb = -(-bucket_len // self.k_pool.shape[2]) if self.paged else None
             logits, _, _ = tfm.forward_seq(
                 self.params, self.cfg,
-                torch.as_tensor(tokens, device=self.device), cache=cache)
+                torch.as_tensor(tokens, device=self.device),
+                cache=self._cache(group, np.zeros(len(group), np.int32), nb))
             slots = [self._slot_of[r.req_id] for r in group]
             self.slot_tokens[slots] = self._sample(logits[:, -1])
             self.prefill_dispatches += 1
@@ -324,12 +419,10 @@ class RealBackend:
                 tokens[j, :len(ids)] = ids      # tail past len(ids) = pad 0s
                 starts[j] = start
                 commit.append(end >= self.prefill_total(req))
-            tables = np.asarray([self._table(r, self._lane_blocks)
-                                 for r, _s, _e in group], np.int32)
             logits, _ = tfm.forward_chunk(
                 self.params, self.cfg,
                 torch.as_tensor(tokens, device=self.device),
-                self._cache(tables, starts))
+                self._cache([r for r, _s, _e in group], starts))
             nxt = self._sample(logits[:, -1])
             # mid-prompt samples are meaningless: only completing chunks
             # commit a pending decode token
@@ -347,9 +440,12 @@ class RealBackend:
             if end < self.prefill_total(req):
                 continue                        # still mid-prompt
             self.prefill_requests += 1
-            # the pool blocks *are* the citable KV (the core commits their
-            # hashes); start the host mirror of the lane pos
+            # start the host mirror of the lane pos; paged, the pool blocks
+            # *are* the citable KV (the core commits their hashes),
+            # contiguous, the prompt's blocks go to the fragment store
             self._pos[req.req_id] = self.prefill_total(req)
+            if not self.paged:
+                self._store_prefix(req)
             # recompute semantics on re-admission after preemption: decode
             # progress and TTFT are preserved
             if req.tokens_done == 0:
@@ -368,11 +464,9 @@ class RealBackend:
         if not active:
             return now
         reqs = [self.slot_req[i] for i in active]
-        tables = np.asarray([self._table(r, self._lane_blocks) for r in reqs],
-                            np.int32)
         poss = np.asarray([self._pos[r.req_id] for r in reqs], np.int32)
         logits, _ = tfm.decode_step(self.params, self.cfg,
-                                    self._cache(tables, poss),
+                                    self._cache(reqs, poss),
                                     self.slot_tokens[active][:, None])
         self.slot_tokens[active] = self._sample(logits)
         self._sync()
@@ -409,9 +503,8 @@ class Engine:
                  **core_kw):
         if paged is None:
             # auto, as the reference: block-structured KV for
-            # attention-family append caches
-            paged = (cfg.family in (DENSE, MOE, VLM) and not cfg.is_encdec
-                     and not cfg.sliding_window)
+            # attention-only append caches, per-slot lanes otherwise
+            paged = tfm.default_paged(cfg)
         config = resolve_config(config, core_kw)
         s = scheduler.max_batch
         self.scheduler = scheduler

@@ -20,7 +20,7 @@ REF = ROOT / "src" / "repro"
 # modules copied whole, and modules of which a subset of definitions is copied
 WHOLE_COPIES = [
     "configs/__init__.py", "configs/base.py", "configs/llama3_2_3b.py",
-    "configs/pars_bert_base.py", "core/__init__.py",
+    "configs/hymba_1_5b.py", "configs/pars_bert_base.py", "core/__init__.py",
     "core/scheduler/__init__.py", "core/scheduler/request.py",
     "core/scheduler/policies.py", "core/scheduler/scheduler.py",
     "core/predictor/tokenizer.py", "serving/config.py", "serving/kv_cache.py",
@@ -65,6 +65,8 @@ def test_port_imports_with_jax_and_reference_unavailable():
             "import repro_torch, repro_torch.bridge\n"
             "import repro_torch.serving.engine, repro_torch.launch.serve\n"
             "import repro_torch.core.predictor\n"
+            "import repro_torch.models.ssm\n"
+            "import repro_torch.kernels.rwkv6_chunk.ops\n"
             "assert not [m for m in sys.modules\n"
             "            if m.split('.')[0] in ('jax', 'repro')\n"
             "            and sys.modules[m] is not None]\n")

@@ -7,9 +7,10 @@ it also runs on the card's machine, which has no JAX:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 (``--noconftest``: ``tests/conftest.py`` imports JAX). Each kernel is held
-against its plain PyTorch version on the same inputs: f32 with TF32 off at
-2e-5, bf16 at 2e-2; the engine on the card emits the same greedy tokens as
-on the CPU.
+against its plain PyTorch version on the same inputs: attention f32 with
+TF32 off at 2e-5 and bf16 at 2e-2, chunked linear attention at 5e-4 (its
+final state included); the engine on the card emits the same greedy tokens
+as on the CPU, and its contiguous lanes the same tokens as its paged pool.
 """
 import numpy as np
 import pytest
@@ -20,9 +21,13 @@ from repro_torch.core.scheduler.policies import fcfs
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
 from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
-                                                  paged_decode_attention_plain)
+                                                  paged_decode_attention_plain,
+                                                  ring_decode_attention,
+                                                  ring_decode_attention_plain)
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                    flash_attention_plain)
+from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
+from repro_torch.models.linear_attn import chunked_linear_attention
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.engine import Engine
 
@@ -82,6 +87,54 @@ def test_prefill_kernel_matches_plain(cuda, dtype):
         **TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kh,g,dh,w,window", [(5, 5, 64, 256, 200),
+                                              (8, 3, 128, 96, None)])
+def test_ring_decode_kernel_matches_plain(cuda, dtype, kh, g, dh, w, window):
+    """Rows fresh, part-full and wrapped many times over, in shuffled
+    slots, with and without a window."""
+    rng = np.random.default_rng(8)
+    pos = torch.tensor([0, 5, w - 1, w, 3 * w + 17], dtype=torch.int32,
+                       device=cuda)
+    slots = torch.tensor([4, 0, 2, 5, 1], dtype=torch.int32, device=cuda)
+    args = (_randn(rng, (5, kh * g, dh), dtype, cuda),
+            _randn(rng, (6, kh, w, dh), dtype, cuda),
+            _randn(rng, (6, kh, w, dh), dtype, cuda), slots, pos)
+    before = ring_decode_attention.launches
+    out = ring_decode_attention(*args, window=window)
+    assert ring_decode_attention.launches == before + 1
+    torch.testing.assert_close(
+        out.float(),
+        ring_decode_attention_plain(*args, window=window).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,dk,t", [("ssd", 16, 100), ("rwkv", 64, 128)])
+def test_linear_attention_kernel_matches_plain(cuda, dtype, mode, dk, t):
+    rng = np.random.default_rng(9)
+    b, h, dv = 2, 3, 64
+    q = _randn(rng, (b, h, t, dk), dtype, cuda)
+    k = _randn(rng, (b, h, t, dk), dtype, cuda)
+    v = _randn(rng, (b, h, t, dv), dtype, cuda)
+    lw = -torch.rand(b, h, t, dk if mode == "rwkv" else 1, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(0))
+    u = (_randn(rng, (h, dk), "float32", cuda) * 0.1 if mode == "rwkv"
+         else None)
+    before = linear_attention.launches
+    out, state = linear_attention(q, k, v, lw, u, mode=mode, chunk=64)
+    assert linear_attention.launches == before + 1
+    pad = (-t) % 64
+    ref, ref_state = chunked_linear_attention(
+        *(torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (q, k, v, lw)),
+        bonus=u, mode=mode, chunk_size=64)
+    tol = dict(atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(state, ref_state, **tol)
+    torch.testing.assert_close(out.float(), ref[:, :, :t].float(),
+                               **(tol if dtype == "float32"
+                                  else TOL["bfloat16"]))
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 4, 48, device=cuda)           # head_dim 48
     k = torch.zeros(1, 2, 8, 48, device=cuda)
@@ -126,3 +179,45 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
     assert paged_decode_attention.launches > before[0]
     assert flash_attention.launches > before[1]
     assert on_card == run("cpu", params)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def _serve(cfg, params, device, *, paged=None, cache_len=64, out_len=5):
+    reqs = [Request(i, _words(6 + 3 * i, f"r{i}"), 0.0, 32, out_len + i)
+            for i in range(5)]
+    eng = Engine(cfg, params, Scheduler(policy=fcfs(), max_batch=3),
+                 cache_len=cache_len, prompt_len=32, paged=paged,
+                 record_tokens=True, device=device)
+    eng.submit(reqs)
+    return {r.req_id: r.generated_tokens for r in eng.run()}
+
+
+def test_contiguous_engine_matches_paged_engine_on_the_card(cuda):
+    """llama smoke in f32: contiguous lanes on the ring decode kernel emit
+    the paged engine's greedy tokens, across a lane wrap (32-token prompts,
+    up to 44 outputs, 64-row lanes)."""
+    cfg = get_smoke_config("llama3_2_3b").replace(dtype="float32",
+                                                  vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device=cuda)
+    before = ring_decode_attention.launches
+    contiguous = _serve(cfg, params, cuda, paged=False, out_len=40)
+    assert ring_decode_attention.launches > before
+    assert contiguous == _serve(cfg, params, cuda, paged=True, out_len=40)
+
+
+def test_hybrid_engine_on_the_card_matches_the_cpu(cuda):
+    """hymba smoke in f32: all three kernels of its path launch, and the
+    greedy tokens equal the CPU run's."""
+    cfg = get_smoke_config("hymba_1_5b").replace(dtype="float32")
+    params = tfm.init_params(cfg, 0, device="cpu")
+    before = (ring_decode_attention.launches, linear_attention.launches,
+              flash_attention.launches)
+    on_card = _serve(cfg, _to(params, cuda), cuda, out_len=40)
+    after = (ring_decode_attention.launches, linear_attention.launches,
+             flash_attention.launches)
+    assert all(a > b for a, b in zip(after, before))
+    assert on_card == _serve(cfg, params, "cpu", out_len=40)

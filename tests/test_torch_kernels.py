@@ -1,29 +1,40 @@
-"""The port's attention kernels against the reference's Pallas kernels.
+"""The port's kernels against the reference's Pallas kernels.
 
 On the CPU the port's wrappers run their plain PyTorch versions, which are
 held here against the Pallas kernels in interpret mode and their jnp oracles
-(atol = rtol = 2e-5 in f32, 2e-2 in bf16, the tolerances of
-``tests/test_kernels.py``). The CUDA kernels themselves are held against
-the plain versions on the card, by ``tests/test_torch_cuda.py`` and by
-``chip_smoke.py``.
+(the tolerances of ``tests/test_kernels.py``: atol = rtol = 2e-5 in f32,
+2e-2 in bf16, 5e-4 for chunked linear attention). The CUDA kernels
+themselves are held against the plain versions on the card, by
+``tests/test_torch_cuda.py`` and by ``chip_smoke.py``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from repro.kernels.flash_decode.ops import paged_decode_attention_pallas
+from repro.kernels.flash_decode.ops import (decode_attention_pallas,
+                                            paged_decode_attention_pallas)
 from repro.kernels.flash_decode.ref import flash_decode_paged_ref
 from repro.kernels.flash_prefill.ops import flash_attention as flash_pallas
 from repro.kernels.flash_prefill.ref import flash_prefill_ref
+from repro.kernels.rwkv6_chunk.ops import linear_attention_pallas
+from repro.kernels.rwkv6_chunk.ref import rwkv6_recurrent_ref
 from repro.models.attention import attention_naive as jax_attention_naive
 from repro.models.attention import decode_attention as jax_decode_attention
+from repro.models.attention import update_cache as jax_update_cache
+from repro.models.linear_attn import \
+    chunked_linear_attention as jax_chunked_linear_attention
 from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
-                                                  paged_decode_attention_plain)
+                                                  paged_decode_attention_plain,
+                                                  ring_decode_attention,
+                                                  ring_decode_attention_plain)
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                    flash_attention_plain)
+from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 from repro_torch.models.attention import (attention_naive, gather_lane,
+                                          prefill_cache, update_cache,
                                           write_paged)
+from repro_torch.models.linear_attn import linear_attention_step
 
 torch.set_num_threads(1)
 
@@ -259,8 +270,130 @@ def test_write_paged_then_gather_lane_round_trips():
                                                               row[1, 0])
 
 
+# ------------------------------------------------------------ ring decode
+def _ring_rows(pos, b):
+    """Per-row positions around the case's ``pos``: the case itself and
+    rows further back (still >= 0)."""
+    return np.asarray([max(pos - 91 * i, 0) for i in range(b)], np.int32)
+
+
+@pytest.mark.parametrize("b,h,kh,w,dh,pos,win", [
+    (2, 8, 2, 512, 64, 300, None),
+    (1, 4, 4, 1024, 128, 800, None),
+    (2, 4, 2, 256, 64, 700, 128),    # ring buffer wrapped
+    (1, 8, 8, 300, 64, 150, None),   # ragged W
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_decode_plain_matches_pallas(b, h, kh, w, dh, pos, win, dtype):
+    """The ring decode wrapper's plain version over heads-first lanes, with
+    per-row ``pos`` and shuffled slots, against the Pallas ``flash_decode``
+    (interpret mode) run one row at a time (it takes a scalar ``pos``)."""
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((b, h, dh), np.float32)
+    kc = rng.standard_normal((b, w, kh, dh), np.float32)   # reference layout
+    vc = rng.standard_normal((b, w, kh, dh), np.float32)
+    rows = _ring_rows(pos, b)
+    jd = getattr(jnp, dtype)
+    ref = np.concatenate([_np(decode_attention_pallas(
+        jnp.asarray(q[i:i + 1], jd), jnp.asarray(kc[i:i + 1], jd),
+        jnp.asarray(vc[i:i + 1], jd), int(rows[i]), window=win,
+        interpret=True)) for i in range(b)])
+    slots = np.arange(b, dtype=np.int32)[::-1].copy() + 1    # lanes 1..b
+    lanes_k = np.zeros((b + 1, kh, w, dh), np.float32)
+    lanes_v = np.zeros((b + 1, kh, w, dh), np.float32)
+    lanes_k[slots] = kc.transpose(0, 2, 1, 3)
+    lanes_v[slots] = vc.transpose(0, 2, 1, 3)
+    out = ring_decode_attention(_t(q, dtype), _t(lanes_k, dtype),
+                                _t(lanes_v, dtype), torch.from_numpy(slots),
+                                torch.from_numpy(rows), window=win)
+    assert out.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(out.float().numpy(), ref, **_tol(dtype))
+
+
+def test_update_and_prefill_cache_place_rows_at_ring_slots():
+    """Decode writes land at ``pos % W`` as the reference's
+    ``update_cache``; a prompt longer than the lane keeps its last W rows
+    at their ring slots."""
+    s, kh, w, dh = 3, 2, 8, 4
+    rng = np.random.default_rng(6)
+    lanes = torch.zeros(s, kh, w, dh)
+    new = rng.standard_normal((2, kh, dh), np.float32)
+    slots, pos = torch.tensor([2, 0]), torch.tensor([13, 5])
+    update_cache(lanes, slots, torch.from_numpy(new), pos)
+    for row, (slot, p) in enumerate(zip(slots.tolist(), pos.tolist())):
+        ref = jax_update_cache(jnp.zeros((1, w, kh, dh)),
+                               jnp.asarray(new[row:row + 1]), p)
+        np.testing.assert_array_equal(lanes[slot].transpose(0, 1).numpy(),
+                                      _np(ref[0]))
+    prompt = torch.from_numpy(rng.standard_normal((1, 11, kh, dh),
+                                                  np.float32))
+    prefill_cache(lanes, torch.tensor([1]), prompt)
+    for p in range(3, 11):
+        assert torch.equal(lanes[1, :, p % w], prompt[0, p])
+
+
+# ------------------------------------------------- chunked linear attention
+def _linear_inputs(mode, b, h, t, dk, dv, seed=3):
+    rng = np.random.default_rng(seed)
+    q, k = (rng.standard_normal((b, h, t, dk), np.float32) for _ in range(2))
+    v = rng.standard_normal((b, h, t, dv), np.float32)
+    lw_dim = dk if mode == "rwkv" else 1
+    lw = -1.0 / (1.0 + np.exp(-rng.standard_normal((b, h, t, lw_dim),
+                                                   np.float32)))
+    u = (rng.standard_normal((h, dk), np.float32) * 0.1 if mode == "rwkv"
+         else None)
+    return q, k, v, lw.astype(np.float32), u
+
+
+LIN = dict(atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("mode", ["rwkv", "ssd"])
+@pytest.mark.parametrize("b,h,t,dk,dv", [
+    (2, 4, 128, 64, 64),
+    (1, 2, 200, 32, 64),             # ragged T -> padding
+    (1, 1, 64, 16, 16),
+])
+def test_linear_attention_plain_matches_pallas_and_recurrence(mode, b, h, t,
+                                                              dk, dv):
+    """Output against the Pallas kernel (interpret) and the token-by-token
+    recurrence; the final state against the reference's chunked scan and
+    against the port's one-token steps."""
+    q, k, v, lw, u = _linear_inputs(mode, b, h, t, dk, dv)
+    out, state = linear_attention(_t(q), _t(k), _t(v), _t(lw),
+                                  None if u is None else _t(u), mode=mode)
+    ju = jnp.asarray(u) if u is not None else jnp.ones((h, dk))
+    pallas = linear_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(lw),
+                                     None if u is None else ju, mode=mode)
+    rec = rwkv6_recurrent_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(lw), ju, mode=mode)
+    np.testing.assert_allclose(out.numpy(), _np(pallas), **LIN)
+    np.testing.assert_allclose(out.numpy(), _np(rec), **LIN)
+    tp = -(-t // 64) * 64                # the reference scans whole chunks
+    pad = ((0, 0), (0, 0), (0, tp - t), (0, 0))
+    _, jstate = jax_chunked_linear_attention(
+        *(jnp.asarray(np.pad(x, pad)) for x in (q, k, v, lw)),
+        bonus=None if u is None else ju, mode=mode, chunk_size=64)
+    np.testing.assert_allclose(state.numpy(), _np(jstate), **LIN)
+    st = torch.zeros(b, h, dk, dv)
+    for i in range(t):
+        _, st = linear_attention_step(
+            st, _t(q[:, :, i]), _t(k[:, :, i]), _t(v[:, :, i]),
+            _t(lw[:, :, i]), bonus=None if u is None else _t(u), mode=mode)
+    np.testing.assert_allclose(state.numpy(), st.numpy(), **LIN)
+
+
+def test_linear_attention_rejects_chunks_past_the_decay_contract():
+    q, k, v, lw, _ = _linear_inputs("ssd", 1, 1, 128, 16, 16)
+    with pytest.raises(ValueError, match="MAX_LOG_DECAY"):
+        linear_attention(_t(q), _t(k), _t(v), _t(lw), mode="ssd", chunk=128)
+
+
 def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
-    before = (paged_decode_attention.launches, flash_attention.launches)
+    wrappers = (paged_decode_attention, flash_attention,
+                ring_decode_attention, linear_attention)
+    before = [w.launches for w in wrappers]
     q, kp, vp, tables, lengths = _paged_inputs(1, 1, 2, 1, 16, 2, 32)
     a = _port_paged(q, kp, vp, tables, lengths)
     bq = torch.from_numpy(q)
@@ -268,5 +401,12 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
         bq, _t(_pools_to_port(kp)), _t(_pools_to_port(vp)),
         torch.from_numpy(tables), torch.from_numpy(lengths))
     assert torch.equal(a, b)
-    assert (paged_decode_attention.launches, flash_attention.launches) \
-        == before
+    lanes = torch.randn(3, 1, 8, 32)
+    args = (bq, lanes, lanes, torch.tensor([2], dtype=torch.int32),
+            torch.tensor([11], dtype=torch.int32))
+    assert torch.equal(ring_decode_attention(*args),
+                       ring_decode_attention_plain(*args))
+    linear_attention(torch.ones(1, 1, 8, 4), torch.ones(1, 1, 8, 4),
+                     torch.ones(1, 1, 8, 4), -torch.ones(1, 1, 8, 1) / 2,
+                     mode="ssd", chunk=32)
+    assert [w.launches for w in wrappers] == before

@@ -1,9 +1,11 @@
-"""The port's dense decoder against the JAX reference on bridged weights.
+"""The port's decoders against the JAX reference on bridged weights.
 
-The f32 ``llama3_2_3b`` smoke config, with JAX at "highest" matmul
-precision: ``forward_seq``, ``forward_chunk`` and ``decode_step`` logits are
-allclose at 1e-4, chunked prefill equals one full forward, and the bridge
-reads the reference's checkpoints (bf16 leaves included) without JAX.
+The f32 ``llama3_2_3b`` and ``hymba_1_5b`` smoke configs, with JAX at
+"highest" matmul precision: ``forward_seq``, ``forward_chunk`` and
+``decode_step`` logits are allclose at 1e-4 (Hymba's decode across a
+wrapped ring included), chunked prefill equals one full forward, Hymba's
+SSM at its full widths equals the reference's, and the bridge reads the
+reference's checkpoints (bf16 leaves included) without JAX.
 """
 import jax
 import jax.numpy as jnp
@@ -12,13 +14,16 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.configs.base import SSMConfig
 from repro.models import common as jcommon
+from repro.models import ssm as jssm
 from repro.models import transformer as jtfm
 from repro.training.checkpoint import _flatten, save_checkpoint
 from repro_torch import bridge
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
 from repro_torch.models import common
+from repro_torch.models import ssm
 from repro_torch.models import transformer as tfm
 
 torch.set_num_threads(1)
@@ -36,8 +41,17 @@ def model():
     return jcfg, jparams, cfg, params
 
 
-def _tokens(b, s, seed=0):
-    return np.random.default_rng(seed).integers(0, 2048, (b, s), np.int32)
+@pytest.fixture(scope="module")
+def hymba():
+    jcfg = jax_smoke_config("hymba_1_5b").replace(dtype="float32")
+    cfg = get_smoke_config("hymba_1_5b").replace(dtype="float32")
+    jparams = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
+    params = bridge.params_from_flat(_flatten(jparams), device="cpu")
+    return jcfg, jparams, cfg, params
+
+
+def _tokens(b, s, seed=0, vocab=2048):
+    return np.random.default_rng(seed).integers(0, vocab, (b, s), np.int32)
 
 
 def _lane_cache(cfg, jcache, b, w):
@@ -163,6 +177,75 @@ def test_decode_past_the_lane_wraps_like_the_reference_ring(model):
         np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
 
 
+def test_hymba_forward_seq_logits_match(hymba):
+    jcfg, jparams, cfg, params = hymba
+    toks = _tokens(2, 64, seed=5, vocab=cfg.vocab_size)
+    jl, _, _ = jtfm.forward_seq(jparams, jcfg, jnp.asarray(toks), remat="none")
+    lg, _, _ = tfm.forward_seq(params, cfg, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
+
+
+def test_hymba_prefill_then_decode_over_a_wrapped_ring(hymba):
+    """Prefill 32 tokens into 64-row lanes (the window), then decode 40
+    more: past position 63 the lane wraps, and every step's logits, and
+    the final conv tail and SSM state, match the reference's."""
+    jcfg, jparams, cfg, params = hymba
+    w, t_end = 64, 72
+    toks = _tokens(2, t_end, seed=6, vocab=cfg.vocab_size)
+    _, jcache, _ = jtfm.forward_seq(jparams, jcfg, jnp.asarray(toks[:, :32]),
+                                    build_cache=True, cache_len=w,
+                                    remat="none")
+    _, cache, _ = tfm.forward_seq(params, cfg,
+                                  torch.from_numpy(toks[:, :32]).long(),
+                                  build_cache=True, cache_len=w)
+    assert "slots" in cache and cache["k"].shape[3] == w
+    jstep = jax.jit(lambda c, t: jtfm.decode_step(jparams, jcfg, c, t))
+    for t in range(32, t_end):
+        jl, jcache = jstep(jcache, jnp.asarray(toks[:, t:t + 1]))
+        lg, cache = tfm.decode_step(params, cfg, cache,
+                                    torch.from_numpy(toks[:, t:t + 1]).long())
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
+    assert cache["pos"].tolist() == [t_end, t_end]
+    for leaf in ("conv_tail", "ssm_state"):
+        np.testing.assert_allclose(cache[leaf].numpy(),
+                                   np.asarray(jcache[leaf]), **TOL)
+
+
+def test_hymba_ssm_at_full_widths_matches_reference_at_chunk_64():
+    """One SSM layer at Hymba's published widths (d_inner 3200, 50 heads,
+    state 16) over T=128. The port scans in chunks of 64 (the published 128
+    breaks the scan's decay contract); the reference, run at chunk 64, gives
+    the same outputs, conv tail and state."""
+    jcfg = get_config("hymba_1_5b").replace(dtype="float32")
+    cfg64 = jcfg.replace(ssm=SSMConfig(state_size=16, conv_width=4, expand=2,
+                                       head_dim=64, chunk_size=64))
+    jp = jssm.init_ssm(jax.random.PRNGKey(3), jcfg, jnp.float32)
+    p = bridge.params_from_flat(_flatten(jp), device="cpu")
+    x = np.random.default_rng(7).standard_normal((1, 128, 1600),
+                                                 np.float32)
+    ry, rtail, rstate = jssm.apply_ssm(jp, jnp.asarray(x), cfg64)
+    y, tail, state = ssm.apply_ssm(p, torch.from_numpy(x), jcfg)
+    assert bool(torch.isfinite(y).all()) and state.shape == (1, 50, 16, 64)
+    np.testing.assert_allclose(y.numpy(), np.asarray(ry), **TOL)
+    np.testing.assert_allclose(tail.numpy(), np.asarray(rtail), **TOL)
+    np.testing.assert_allclose(state.numpy(), np.asarray(rstate), **TOL)
+
+
+def test_bridge_keeps_hymba_f32_leaves_in_a_bf16_model():
+    """The SSM's ``dt_bias`` and ``a_log`` are f32 in the reference's bf16
+    Hymba; bridged, they stay f32 beside bf16 weights."""
+    jcfg = jax_smoke_config("hymba_1_5b")
+    assert jcfg.dtype == "bfloat16"
+    params = bridge.params_from_flat(
+        _flatten(jtfm.init_params(jax.random.PRNGKey(0), jcfg)),
+        device="cpu")
+    ssm_params = params["layers"]["ssm"]
+    assert ssm_params["dt_bias"].dtype == ssm_params["a_log"].dtype \
+        == torch.float32
+    assert ssm_params["w_in"].dtype == params["embed"].dtype \
+        == torch.bfloat16
+
+
 def test_bridge_reads_bf16_checkpoint_without_ml_dtypes_dtype(tmp_path):
     """bf16 leaves saved through ml_dtypes load as ``|V2``; the bridge
     reads their bits as bf16."""
@@ -217,14 +300,27 @@ def test_rope_and_per_row_positions_match():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("family", [None, "moe", "ssm"])
+@pytest.mark.parametrize("family", [None, "hybrid", "moe", "ssm"])
 def test_only_the_dense_family_is_ported(family):
+    """The dense and hybrid families run; the others raise, naming their
+    ROADMAP item."""
     if family is None:
         cfg = get_config("llama3_2_3b")
         assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                 cfg.head_dim, cfg.d_ff, cfg.vocab_size) == (
             28, 3072, 24, 8, 128, 8192, 128256)
         tfm.check_supported(cfg)
+        return
+    if family == "hybrid":
+        cfg = get_config("hymba_1_5b")
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, cfg.sliding_window, cfg.ssm.state_size) == (
+            32, 1600, 25, 5, 64, 1024, 16)
+        tfm.check_supported(cfg)
+        params = tfm.init_params(get_smoke_config("hymba_1_5b"), device="cpu")
+        assert params["layers"]["ssm"]["a_log"].dtype == torch.float32
+        with pytest.raises(ValueError, match="paged KV needs"):
+            tfm.init_cache(cfg, 1, 64, paged=True, device="cpu")
         return
     cfg = get_smoke_config("llama3_2_3b").replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
