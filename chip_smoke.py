@@ -12,12 +12,20 @@ failed check raises and the script exits non-zero:
    per source, all at once).
 2. Kernels at the main paths' shapes, each held against its plain PyTorch
    version on the card: attention f32 with TF32 off at 2e-5 and bf16 at
-   2e-2, aliased block tables bitwise, chunked linear attention at 5e-4
-   (its final state included, and also against a token-by-token
-   recurrence). Times the kernel, the plain version and, where one exists,
-   one PyTorch library call computing the same function (``library_ms``,
-   timed here only), and computes the least time the card could take
-   (``bound_ms``).
+   2e-2 (paged decode also at the served lengths and at lengths around its
+   split boundaries, length 0 against the uniform average, aliased block
+   tables over three splits bitwise; the prefill kernel's bare wgmma tile
+   against plain matrix products), chunked linear attention at 5e-4 (its
+   final state included, and also against a token-by-token recurrence).
+   Times the kernel, the plain version and, where one exists, one PyTorch
+   library call computing the same function (``library_ms``, timed here
+   only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
+   ``library_ms``: L2-warm, and at small times partly the host's), and
+   the kernel and library call on the device alone, their launches
+   captured in a CUDA graph: with inputs in L2 (``device_ms``,
+   ``library_device_ms``) and rotating over copies that read three times
+   the 50 MB L2 between two uses (``cold_ms``, ``library_cold_ms``). Also
+   computes the least time the card could take (``bound_ms``).
 3. Parity at full width, cut to 4 layers, f32 with TF32 off:
    ``llama3_2_3b``: greedy tokens of a chunked, prefix-cached run equal an
    unchunked, uncached run; ``hymba_1_5b``: greedy decoding across a
@@ -28,11 +36,16 @@ failed check raises and the script exits non-zero:
    ``hymba_1_5b`` (32 layers, bf16, contiguous ring lanes), each behind a
    ``pars_bert_base``-width ranking predictor, seeded on the card: a burst
    of 16 requests under PARS and under FCFS. Every kernel's launch count is
-   set to 0 just before each run and read just after. Each FCFS burst then
-   runs once more under ``torch.profiler``: device time by kernel and the
-   device's busy share of the run's wall time. Last, the command-line
+   set to 0 just before each run and read just after. Then the command-line
    launcher (``repro_torch.launch.serve --full``) serves a short burst of
    each architecture.
+5. Profiles, after every unprofiled run (bursts that followed a profiler
+   session in the same process were seen to run slower): each FCFS burst
+   once more under the profiler, giving device time by kernel (the port's
+   own kernels listed wherever they rank) and the device's busy share of
+   the unprofiled run's wall time; then the device time of each kernel
+   that one call of paged decode and of prefill launches, at the record's
+   shapes.
 
 The last lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -41,6 +54,7 @@ where no CUDA card is visible or the package cannot be imported.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -78,6 +92,72 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+L2_BYTES = 50e6
+
+
+def device_ms(calls, launches: int = 200) -> float:
+    """Device milliseconds per call with the host out of the loop: rounds
+    over ``calls`` (about ``launches`` calls in all) captured in one CUDA
+    graph, replayed once warm and once timed with CUDA events. Calls that
+    rotate over copies of their inputs (``cold_copies``) find them out of
+    L2, as the served caller does; a single call finds them in L2."""
+    rounds = max(1, launches // len(calls))
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(rounds):
+            for call in calls:
+                call()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (rounds * len(calls))
+
+
+def kernel_ms(fn, calls: int = 50) -> dict:
+    """Device milliseconds per call of each CUDA kernel that ``fn``
+    launches, from ``torch.profiler`` over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name.removeprefix("void "))[0]
+            name = name.split("::")[-1].strip()
+            times[name] = times.get(name, 0.0) + t / 1e3 / calls
+    return times
+
+
+def cold_copies(bytes_read: float) -> int:
+    """Copies of a call's inputs to rotate over so that at least 3 x the
+    50 MB L2 is read between two uses of one copy."""
+    return int(np.ceil(3 * L2_BYTES / bytes_read)) + 1
+
+
+def device_times(make_call, bytes_read: float):
+    """(warm, cold) device milliseconds per call. ``make_call(i)`` makes
+    copy i of the inputs (copy 0 may be the caller's own) and returns a
+    call on it; the cold time rotates over ``cold_copies`` of them."""
+    calls = [make_call(i) for i in range(cold_copies(bytes_read))]
+    return device_ms(calls[:1]), device_ms(calls)
+
+
 def bound(bytes_moved: float, flops: float):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and bf16
     operations over the peak bf16 rate."""
@@ -97,12 +177,61 @@ def check_close(name: str, out, ref, tol: float) -> float:
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
+def _paged_sdpa_args(q, kp, vp, tb, ln, g):
+    """The SDPA yardstick's inputs for paged decode, made outside the timed
+    call: each table gathered into a lane, heads expanded, the length mask
+    as bool."""
+    b, mb = tb.shape
+    _, bs, kh, dh = kp.shape
+    lanes = [p[tb.long()].reshape(b, mb * bs, kh, dh).permute(0, 2, 1, 3)
+             .repeat_interleave(g, 1).contiguous() for p in (kp, vp)]
+    mask = torch.arange(mb * bs, device=q.device)[None] < ln[:, None].long()
+    return q[:, :, None, :].contiguous(), *lanes, mask[:, None, None, :]
+
+
+def _paged_times(label, q, kp, vp, tb, ln, g) -> dict:
+    """Device-only times (warm and L2-cold) of paged decode and of its SDPA
+    yardstick at one set of lengths, beside the bound for those lengths."""
+    from repro_torch.kernels.flash_decode.ops import paged_decode_attention
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, dh = q.shape
+    kh = kp.shape[2]
+    rows = int(ln.sum())
+    bytes_moved = (2 * rows * kh * dh * 2          # K and V rows read, bf16
+                   + 2 * b * h * dh * 2            # q in, out
+                   + tb.numel() * 4 + b * 4)       # tables, lengths
+    bound_ms, bound_by = bound(bytes_moved, 4 * rows * h * dh)
+
+    def kernel(i):
+        a = (q, kp, vp) if i == 0 else (q.clone(), kp.clone(), vp.clone())
+        return lambda: paged_decode_attention(*a, tb, ln)
+
+    lib0 = _paged_sdpa_args(q, kp, vp, tb, ln, g)
+
+    def library(i):
+        a = lib0 if i == 0 else tuple(x.clone() for x in lib0)
+        return lambda: sdpa(a[0], a[1], a[2], attn_mask=a[3])
+
+    t = {"bound_ms": bound_ms, "bound_by": bound_by}
+    t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
+    t["library_device_ms"], t["library_cold_ms"] = device_times(
+        library, sum(x.numel() * x.element_size() for x in lib0))
+    log(f"  decode bf16 {label} ({rows} rows), device-only: kernel "
+        f"{t['device_ms']:.5f} ms warm, {t['cold_ms']:.5f} ms L2-cold; SDPA "
+        f"{t['library_device_ms']:.5f} / {t['library_cold_ms']:.5f} ms; "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    return t
+
+
 def phase_decode_kernel(dev):
     from repro_torch.kernels.flash_decode.ops import (
-        paged_decode_attention, paged_decode_attention_plain)
+        paged_decode_attention, paged_decode_attention_plain, split_geometry)
 
     b, kh, g, dh, bs, mb = 8, 8, 3, 128, 16, 32
     h, n = kh * g, b * mb + 1
+    entries, splits = split_geometry(bs, mb)
+    split = entries * bs
     rng = np.random.default_rng(SEED)
     tables = np.stack([rng.permutation(n)[:mb] for _ in range(b)])
     lengths = np.asarray([mb * bs, 1, 17, 100, 255, 256, 400, 511], np.int32)
@@ -111,27 +240,46 @@ def phase_decode_kernel(dev):
     vp32 = torch.randn(n, bs, kh, dh, device=dev)
     tb = torch.as_tensor(tables, dtype=torch.int32, device=dev)
     ln = torch.as_tensor(lengths, device=dev)
+    # the served path's lengths: 128-token prompts plus up to 64 generated
+    served = torch.as_tensor(128 + rng.integers(1, 65, b), dtype=torch.int32,
+                             device=dev)
+    # empty, one row, a split boundary -1/0/+1, three splits, the full table
+    edges = torch.tensor([0, 1, split - 1, split, split + 1, 3 * split,
+                          mb * bs - 1, mb * bs], dtype=torch.int32,
+                         device=dev)
     log(f"paged decode: B={b} KH={kh} G={g} dh={dh} bs={bs} "
-        f"max_blocks={mb} lengths={lengths.tolist()}")
+        f"max_blocks={mb} ({splits} splits of {split} rows) "
+        f"lengths={lengths.tolist()}, served lengths {served.tolist()}, "
+        f"edge lengths {edges.tolist()}")
     errs = {}
     for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
-        args = (q32.to(getattr(torch, dt)), kp32.to(getattr(torch, dt)),
-                vp32.to(getattr(torch, dt)), tb, ln)
-        out = paged_decode_attention(*args)
-        torch.cuda.synchronize()
-        errs[dt] = check_close(f"decode {dt}", out,
-                               paged_decode_attention_plain(*args), tol)
-    # aliased tables: same query, same length, shared leading blocks
+        t = getattr(torch, dt)
+        pools = (q32.to(t), kp32.to(t), vp32.to(t), tb)
+        errs[dt] = max(check_close(
+            f"decode {label} {dt}", paged_decode_attention(*pools, lens),
+            paged_decode_attention_plain(*pools, lens), tol)
+            for label, lens in (("", ln), ("served lengths", served),
+                                ("edge lengths", edges)))
+    # lengths == 0: the uniform average over the table's rows
+    out = paged_decode_attention(q32, kp32, vp32, tb, edges)
+    mean = vp32[tb[0].long()].reshape(mb * bs, kh, 1, dh).mean(0)
+    check_close("decode length 0 vs uniform average (f32)", out[0],
+                mean.expand(kh, g, dh).reshape(h, dh), 2e-5)
+    # aliased tables spanning three splits: same query, same length
     alias = tb.clone()
-    alias[1, :3] = alias[0, :3]
+    alias[1, :3 * entries] = alias[0, :3 * entries]
     q2 = q32.clone()
     q2[1] = q2[0]
-    l2 = torch.tensor([3 * bs] * b, dtype=torch.int32, device=dev)
-    out = paged_decode_attention(q2, kp32, vp32, alias, l2)
-    torch.cuda.synchronize()
-    if not torch.equal(out[0], out[1]):
-        raise AssertionError("decode: aliased tables are not bitwise equal")
-    log("  decode aliased tables: bitwise equal")
+    l2 = torch.full((b,), 3 * split - 5, dtype=torch.int32, device=dev)
+    for t in (torch.float32, torch.bfloat16):
+        out = paged_decode_attention(q2.to(t), kp32.to(t), vp32.to(t), alias,
+                                     l2)
+        torch.cuda.synchronize()
+        if not torch.equal(out[0], out[1]):
+            raise AssertionError(f"decode: aliased tables over 3 splits are "
+                                 f"not bitwise equal ({t})")
+    log(f"  decode aliased tables over 3 splits ({3 * split - 5} rows): "
+        f"bitwise equal, f32 and bf16")
 
     # timing in the main path's dtype
     bf = torch.bfloat16
@@ -139,37 +287,40 @@ def phase_decode_kernel(dev):
     ms = cuda_ms(lambda: paged_decode_attention(q, kp, vp, tb, ln), 200)
     plain_ms = cuda_ms(
         lambda: paged_decode_attention_plain(q, kp, vp, tb, ln), 20)
-    # library yardstick: SDPA over the same rows, lanes pre-gathered and
-    # heads pre-expanded outside the timed call, length mask as bool
-    lane_k = kp[tb.long()].reshape(b, mb * bs, kh, dh).permute(0, 2, 1, 3)
-    lane_v = vp[tb.long()].reshape(b, mb * bs, kh, dh).permute(0, 2, 1, 3)
-    lane_k = lane_k.repeat_interleave(g, 1).contiguous()
-    lane_v = lane_v.repeat_interleave(g, 1).contiguous()
-    mask = (torch.arange(mb * bs, device=dev)[None] < ln[:, None].long())
-    mask = mask[:, None, None, :]
-    qs = q[:, :, None, :]
+    lib = _paged_sdpa_args(q, kp, vp, tb, ln, g)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qs, lane_k, lane_v, attn_mask=mask),
-                         200)
-    rows = int(lengths.sum())
-    bytes_moved = (2 * rows * kh * dh * 2          # K and V rows read, bf16
-                   + 2 * b * h * dh * 2            # q in, out
-                   + tables.size * 4 + b * 4)      # tables, lengths
-    flops = 4 * rows * h * dh
-    bound_ms, bound_by = bound(bytes_moved, flops)
-    log(f"  decode bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"{library_ms:.4f} ms SDPA, bound {bound_ms:.5f} ms ({bound_by})")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
-            "replaces": "src/repro/kernels/flash_decode/kernel.py:193",
-            "max_abs_err": errs["bfloat16"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    library_ms = cuda_ms(lambda: sdpa(lib[0], lib[1], lib[2],
+                                      attn_mask=lib[3]), 200)
+    log(f"  decode bf16, back-to-back calls (L2-warm): {ms:.4f} ms kernel, "
+        f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms SDPA")
+    entry = {"name": "paged_decode_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+             "replaces": "src/repro/kernels/flash_decode/kernel.py:193",
+             "max_abs_err": errs["bfloat16"], "ms": ms, "plain_ms": plain_ms,
+             "library_ms": library_ms,
+             **_paged_times("record lengths", q, kp, vp, tb, ln, g),
+             "call": lambda: paged_decode_attention(q, kp, vp, tb, ln)}
+    at_served = _paged_times("served lengths", q, kp, vp, tb, served, g)
+    entry.update({f"served_{k}": v for k, v in at_served.items()
+                  if k != "bound_by"})
+    return entry
 
 
 def phase_prefill_kernel(dev):
-    from repro_torch.kernels.flash_prefill.ops import (flash_attention,
-                                                       flash_attention_plain)
+    from repro_torch.kernels.flash_prefill.ops import (
+        flash_attention, flash_attention_plain, wgmma_tile_check,
+        wgmma_tile_check_plain)
+
+    # the bf16 kernel's shared-memory tiles and wgmma descriptors, bare:
+    # S = Q K^T and O = bf16(S) V on one tile against plain products
+    for tdh in (32, 64, 128):
+        tile = [torch.randn(64, tdh, device=dev).to(torch.bfloat16)
+                for _ in range(3)]
+        s_t, o_t = wgmma_tile_check(*tile)
+        torch.cuda.synchronize()
+        s_ref, o_ref = wgmma_tile_check_plain(*tile)
+        check_close(f"wgmma tile dh={tdh}: S = Q K^T", s_t, s_ref, 1e-3)
+        check_close(f"wgmma tile dh={tdh}: O = bf16(S) V", o_t, o_ref, 1e-2)
 
     b, h, kh, sq, dh = 8, 24, 8, 128, 128
     log(f"prefill: B={b} H={h} KH={kh} Sq={sq} dh={dh}")
@@ -225,14 +376,32 @@ def phase_prefill_kernel(dev):
     flops = 4 * dh * pairs
     bytes_moved = 2 * (2 * b * h * sq * dh + 2 * b * kh * sq * dh) + 8 * b
     bound_ms, bound_by = bound(bytes_moved, flops)
-    log(f"  prefill bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-        f"{library_ms:.4f} ms SDPA, bound {bound_ms:.5f} ms ({bound_by})")
+    log(f"  prefill bf16, back-to-back calls (L2-warm): {ms:.4f} ms kernel, "
+        f"{plain_ms:.4f} ms plain, {library_ms:.4f} ms SDPA, bound "
+        f"{bound_ms:.5f} ms ({bound_by})")
+
+    def kernel(i):
+        a = (q, k, v) if i == 0 else (q.clone(), k.clone(), v.clone())
+        return lambda: flash_attention(*a, zero, full)
+
+    def library(i):
+        a = (q, ke, ve) if i == 0 else (q.clone(), ke.clone(), ve.clone())
+        return lambda: sdpa(*a, is_causal=True)
+
+    t = {}
+    t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
+    t["library_device_ms"], t["library_cold_ms"] = device_times(
+        library, 2 * 4 * b * h * sq * dh)          # q, k, v, out (bf16)
+    log(f"  prefill bf16, device-only: kernel {t['device_ms']:.5f} ms warm, "
+        f"{t['cold_ms']:.5f} ms L2-cold; SDPA {t['library_device_ms']:.5f} / "
+        f"{t['library_cold_ms']:.5f} ms")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_prefill.cu",
             "replaces": "src/repro/kernels/flash_prefill/kernel.py:105",
             "max_abs_err": errs["bfloat16"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **t,
+            "call": lambda: flash_attention(q, k, v, zero, full)}
 
 
 def phase_ring_decode_kernel(dev):
@@ -294,12 +463,31 @@ def phase_ring_decode_kernel(dev):
             f"ms plain, {library_ms:.4f} ms SDPA, bound {bound_ms:.5f} ms "
             f"({bound_by})")
         if entry is None:       # the served path's shape goes to the record
+            def kernel(i):
+                a = (q, kl, vl) if i == 0 else (q.clone(), kl.clone(),
+                                                vl.clone())
+                return lambda: ring_decode_attention(*a, slots, ps,
+                                                     window=window)
+
+            def library(i):
+                a = (qs, ke, ve) if i == 0 else (qs.clone(), ke.clone(),
+                                                 ve.clone())
+                return lambda: sdpa(*a, attn_mask=mask)
+
+            t = {}
+            t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
+            t["library_device_ms"], t["library_cold_ms"] = device_times(
+                library, 2 * (ke.numel() + ve.numel()))
+            log(f"  ring decode {label} bf16, device-only: kernel "
+                f"{t['device_ms']:.5f} ms warm, {t['cold_ms']:.5f} ms "
+                f"L2-cold; SDPA {t['library_device_ms']:.5f} / "
+                f"{t['library_cold_ms']:.5f} ms")
             entry = {"name": "ring_decode_attention", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
                      "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
                      "max_abs_err": errs["bfloat16"], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms}
+                     "bound_by": bound_by, "library_ms": library_ms, **t}
     return entry
 
 
@@ -373,12 +561,21 @@ def phase_linear_attention_kernel(dev):
         log(f"  {mode} bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
             f"no library call, bound {bound_ms:.5f} ms ({bound_by})")
         if entry is None:       # the served path's mode goes to the record
+            def kernel(i, q=q, k=k, v=v, lw=lw, u=u, mode=mode):
+                a = (q, k, v, lw) if i == 0 else tuple(
+                    x.clone() for x in (q, k, v, lw))
+                return lambda: linear_attention(*a, u, mode=mode)
+
+            t = {}
+            t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
+            log(f"  {mode} bf16, device-only: kernel {t['device_ms']:.5f} ms "
+                f"warm, {t['cold_ms']:.5f} ms L2-cold")
             entry = {"name": "linear_attention", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
                      "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:75",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None}
+                     "library_ms": None, **t}
     return entry
 
 
@@ -606,9 +803,6 @@ def phase_serve(dev, arch: str, kernels) -> dict:
             raise AssertionError(f"serving {arch} under {name}: {problems}")
         launches[name] = counts
         walls[name] = wall
-    t0 = time.perf_counter()
-    profile_serving(cfg, params, dev, walls["fcfs"], arch)
-    log(f"  profiling took {time.perf_counter() - t0:.1f} s")
     del params, predictor
     torch.cuda.empty_cache()
 
@@ -619,23 +813,36 @@ def phase_serve(dev, arch: str, kernels) -> dict:
     if rep.n_requests != 8:
         raise AssertionError(f"launcher served {rep.n_requests} of 8")
     torch.cuda.empty_cache()
-    return launches["pars"]
+    return launches["pars"], walls["fcfs"]
 
 
-def profile_serving(cfg, params, dev, wall_unprofiled: float,
-                    arch: str) -> None:
-    """Where the time goes: the FCFS burst once more under
-    ``torch.profiler``, tracing device activity only (kernels and copies,
-    so no time is counted twice); prints the device time by kernel and the
-    device's busy share of the unprofiled run's wall time (one stream, so
-    kernel times do not overlap)."""
+# the kernels of src/repro_torch/kernels/csrc, as the profiler names them
+PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
+                "flash_prefill_wgmma_kernel", "flash_prefill_kernel",
+                "ring_decode_kernel", "linear_attn_chunk_kernel")
+
+
+def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
+    """Where the time goes: the FCFS burst of full ``arch`` (weights made
+    anew from the same seed) once more under ``torch.profiler``, tracing
+    device activity only (kernels and copies, so no time is counted twice);
+    prints the device time by kernel and the device's busy share of the
+    unprofiled run's wall time (one stream, so kernel times do not
+    overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.configs import get_config
     from repro_torch.core.scheduler.policies import fcfs
+    from repro_torch.models import transformer as tfm
 
+    cfg = get_config(arch)
+    params = tfm.init_params(cfg, SEED, device=dev)
+    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _, _, _, wall = serve_once(cfg, params, fcfs(), dev, burst(16), arch)
         torch.cuda.synchronize()
+    del params
+    torch.cuda.empty_cache()
     rows = []
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total",
@@ -651,6 +858,12 @@ def profile_serving(cfg, params, dev, wall_unprofiled: float,
         log("  profile: the profiler recorded no device time")
     for ms, count, key in sorted(rows, reverse=True)[:15]:
         log(f"    {ms:9.2f} ms {ms / busy:6.1%} {count:7d} calls  {key[:90]}")
+    # the port's own kernels, wherever they rank
+    for ms, count, key in sorted(rows, reverse=True):
+        if any(k in key for k in PORT_KERNELS):
+            log(f"    port kernel {ms:9.2f} ms {ms / busy:6.1%} {count:7d} "
+                f"calls, {1e3 * ms / count:.2f} us each  {key[:70]}")
+    log(f"  profiling took {time.perf_counter() - t0:.1f} s")
 
 
 def _tree_to(tree, device):
@@ -712,14 +925,24 @@ def main() -> int:
                                                       ring_decode_attention)
     from repro_torch.kernels.flash_prefill.ops import flash_attention
     from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
-    served = []
+    served, fcfs_walls = [], {}
     for arch, kernels in (
             ("llama3_2_3b", (paged_decode_attention, flash_attention)),
             ("hymba_1_5b", (ring_decode_attention, linear_attention,
                             flash_attention))):
         log(f"== phase 4: serving full {arch} under PARS and FCFS "
             f"(at {time.perf_counter() - t_start:.1f} s)")
-        served.append(phase_serve(dev, arch, kernels))
+        counts, fcfs_walls[arch] = phase_serve(dev, arch, kernels)
+        served.append(counts)
+    # torch.profiler runs only now, so that no unprofiled burst follows a
+    # profiler session (bursts that did were seen to run slower)
+    log(f"== phase 5: profiles (at {time.perf_counter() - t_start:.1f} s)")
+    for arch, wall in fcfs_walls.items():
+        profile_serving(dev, arch, wall)
+    calls = {e["name"]: e.pop("call") for e in entries if "call" in e}
+    for name, call in calls.items():
+        log(f"  {name} at the record's shape, device ms per call by kernel: "
+            f"{kernel_ms(call)}")
     # each kernel's launches in the PARS bursts of the paths that run it
     for e in entries:
         e["launches"] = sum(run.get(e["name"], 0) for run in served)
@@ -728,7 +951,10 @@ def main() -> int:
     log(f"total {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys}, **{k: v for k, v in e.items()
+                                       if k not in keys}}
+        for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

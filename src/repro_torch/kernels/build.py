@@ -100,16 +100,26 @@ def check_launch(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {msg} ({code})")
 
 
-def current_stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def current_stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``device`` (the call
+    Triton's launcher makes: a fraction of ``torch.cuda.current_stream``'s
+    host time, which counts in a host-bound decode loop)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def require_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """Kernels that move data in 16-byte copies need 16-byte-aligned
+    operands (a view at an odd offset is not)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
 
 
 def require_cuda_operands(what: str, *tensors: torch.Tensor) -> None:
     """Kernel wrappers take CUDA tensors on one device, contiguous."""
-    dev = tensors[0].device
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{what}: operands must share one CUDA device "
-                             f"(got {t.device} and {dev})")
+                             f"(got {t.device} and {tensors[0].device})")
         if not t.is_contiguous():
             raise ValueError(f"{what}: operands must be contiguous")

@@ -1,7 +1,8 @@
 // Helpers shared by the port's hand-written Hopper kernels.
 //
-// Every kernel computes in f32 whatever its storage type: loads convert to
-// f32 and stores round back, so f32 and bf16 instantiations share one body.
+// Every kernel accumulates in f32 whatever its storage type: loads convert
+// to f32 (or feed bf16 tensor-core products with f32 accumulators) and
+// stores round back.
 #pragma once
 
 #include <cuda_bf16.h>

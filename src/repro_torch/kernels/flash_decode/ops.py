@@ -7,7 +7,9 @@ Port of ``repro/kernels/flash_decode``:
   flash_decode_paged.cu``. Pools are one layer of the engine's ``(L, N+1,
   bs, KH, dh)`` pool, i.e. ``(N+1, bs, KH, dh)``: block-major with the KV
   heads inside each row, so the kernel reads a table entry's rows without
-  any lane gather.
+  any lane gather. It is split-KV: one call launches two device kernels
+  (the splits, then their fixed-order merge), or one when the whole table
+  fits a single split.
 * :func:`ring_decode_attention` replaces ``flash_decode`` (wrapper
   ``decode_attention_pallas``); kernel ``kernels/csrc/flash_decode.cu``.
   Lanes are one layer of the engine's heads-first ``(L, S, KH, W, dh)``
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -32,7 +34,8 @@ from repro_torch.models.attention import decode_attention
 
 NEG_INF = -1e30
 MAX_GROUP = 8         # query heads per KV head (kernel register tile)
-MAX_HEAD_DIM = 256
+PAGED_HEAD_DIMS = (32, 64, 128, 256)   # the paged kernel's compiled head_dims
+SPLIT_ROWS = 64       # rows per split of the paged kernel (whole entries)
 RING_HEAD_DIMS = (32, 64, 128)   # the ring kernel's compiled head_dims
 
 
@@ -60,12 +63,21 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+def split_geometry(block_size: int, max_blocks: int) -> Tuple[int, int]:
+    """(table entries per split, splits per sequence) of the paged kernel.
+    A split is ``SPLIT_ROWS`` rows of whole entries (at least one), a
+    function of the block size alone, so a row's result never depends on
+    the rest of the batch."""
+    entries = max(1, SPLIT_ROWS // block_size)
+    return entries, -(-max_blocks // entries)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_decode_paged")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.paged_decode.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
-                                 ctypes.c_float, p]
+    lib.paged_decode.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                 i, ctypes.c_float, p]
     lib.paged_decode.restype = i
     return lib
 
@@ -79,8 +91,10 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     Every table entry must name a block of the pool (padding entries may
     point at a shared null block: rows past ``lengths[b]`` are masked). A
     sequence with ``lengths[b] == 0`` gets the uniform average of its table's
-    rows, as the reference does."""
-    if q.device.type == "cpu":
+    rows, as the reference does. On the card the call launches the split
+    kernel and, when a table spans more than one split, the merge kernel;
+    ``launches`` counts calls."""
+    if q.is_cpu:
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths)
     what = "paged_decode_attention"
@@ -101,16 +115,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{list(build.DTYPE_CODES)}")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError(f"{what}: block_tables and lengths must be int32")
-    if h // kh > MAX_GROUP or dh > MAX_HEAD_DIM:
+    if h // kh > MAX_GROUP or dh not in PAGED_HEAD_DIMS:
         raise ValueError(f"{what}: at most {MAX_GROUP} query heads per KV "
-                         f"head and head_dim <= {MAX_HEAD_DIM}")
+                         f"head and head_dim one of {PAGED_HEAD_DIMS}")
+    build.require_aligned(what, q, k_pool, v_pool)
     out = torch.empty_like(q)
+    max_blocks = block_tables.shape[1]
+    entries, splits = split_geometry(bs, max_blocks)
+    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     lib = _lib()
     code = lib.paged_decode(
         build.DTYPE_CODES[q.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, kh, h // kh, dh, bs, block_tables.shape[1],
-        dh ** -0.5, build.current_stream(q.device))
+        out.data_ptr(), None if scratch is None else scratch.data_ptr(), b,
+        kh, h // kh, dh, bs, max_blocks, entries, dh ** -0.5,
+        build.current_stream(q.device))
     build.check_launch(lib, code, what)
     paged_decode_attention.launches += 1
     return out

@@ -8,8 +8,10 @@ it also runs on the card's machine, which has no JAX:
 
 (``--noconftest``: ``tests/conftest.py`` imports JAX). Each kernel is held
 against its plain PyTorch version on the same inputs: attention f32 with
-TF32 off at 2e-5 and bf16 at 2e-2, chunked linear attention at 5e-4 (its
-final state included); the engine on the card emits the same greedy tokens
+TF32 off at 2e-5 and bf16 at 2e-2 (paged decode at its split edges, with
+aliased tables bitwise; the bf16 prefill kernel's bare wgmma tile against
+``torch.matmul``), chunked linear attention at 5e-4 (its final state
+included); the engine on the card emits the same greedy tokens
 as on the CPU, and its contiguous lanes the same tokens as its paged pool.
 """
 import numpy as np
@@ -23,9 +25,11 @@ from repro_torch.core.scheduler.scheduler import Scheduler
 from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                   paged_decode_attention_plain,
                                                   ring_decode_attention,
-                                                  ring_decode_attention_plain)
+                                                  ring_decode_attention_plain,
+                                                  split_geometry)
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
-                                                   flash_attention_plain)
+                                                   flash_attention_plain,
+                                                   wgmma_tile_check)
 from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 from repro_torch.models.linear_attn import chunked_linear_attention
 from repro_torch.models import transformer as tfm
@@ -68,6 +72,93 @@ def test_paged_decode_kernel_matches_plain(cuda, dtype):
     torch.testing.assert_close(out.float(),
                                paged_decode_attention_plain(*args).float(),
                                **TOL[dtype])
+
+
+def _paged_args(rng, dtype, dev, b, kh, g, dh, bs, mb, lengths):
+    n = b * mb + 1
+    tables = torch.as_tensor(np.stack([rng.permutation(n)[:mb]
+                                       for _ in range(b)]),
+                             dtype=torch.int32, device=dev)
+    return (_randn(rng, (b, kh * g, dh), dtype, dev),
+            _randn(rng, (n, bs, kh, dh), dtype, dev),
+            _randn(rng, (n, bs, kh, dh), dtype, dev), tables,
+            torch.tensor(lengths, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mb", [32, 10])     # 10: not a multiple of a split
+def test_paged_decode_kernel_at_split_edges(cuda, dtype, mb):
+    """Lengths 0 (every split walked, fully masked), 1, one split, a split
+    boundary -1/+1, three splits and the full table."""
+    bs = 16
+    split = split_geometry(bs, mb)[0] * bs
+    lengths = [0, 1, split - 1, split, split + 1,
+               min(3 * split, mb * bs) - 3, mb * bs - 1, mb * bs]
+    args = _paged_args(np.random.default_rng(21), dtype, cuda, 8, 8, 3, 128,
+                       bs, mb, lengths)
+    torch.testing.assert_close(
+        paged_decode_attention(*args).float(),
+        paged_decode_attention_plain(*args).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_kernel_aliased_tables_over_three_splits(cuda, dtype):
+    bs, mb = 16, 16
+    entries = split_geometry(bs, mb)[0]
+    q, kp, vp, tables, _ = _paged_args(np.random.default_rng(22), dtype,
+                                       cuda, 4, 8, 3, 128, bs, mb, [0] * 4)
+    tables[1, :3 * entries] = tables[0, :3 * entries]
+    q[1] = q[0]
+    lengths = torch.full((4,), 3 * entries * bs - 5, dtype=torch.int32,
+                         device=cuda)
+    out = paged_decode_attention(q, kp, vp, tables, lengths)
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128])
+def test_wgmma_tile_matches_matmul(cuda, dh):
+    """The bf16 prefill kernel's swizzled tiles and wgmma descriptors, bare:
+    S = Q K^T and O = bf16(S) V on one 64-row tile."""
+    rng = np.random.default_rng(dh)
+    q, k, v = (_randn(rng, (64, dh), "bfloat16", cuda) for _ in range(3))
+    s, o = wgmma_tile_check(q, k, v)
+    ref = torch.matmul(q.float(), k.float().T)
+    torch.testing.assert_close(s, ref, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(o, torch.matmul(ref.to(torch.bfloat16).float(),
+                                               v.float()),
+                               atol=1e-2, rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("sq", [8, 40, 128])
+def test_prefill_kernel_shapes_and_offsets(cuda, dtype, dh, sq):
+    """First chunks (q_start 0 over their own keys) and continuation chunks
+    (per-row offsets over a longer lane)."""
+    b, h, kh = 3, 8, 2
+    rng = np.random.default_rng(sq + dh)
+    q = _randn(rng, (b, h, sq, dh), dtype, cuda)
+    for starts, skv in (([0, 0, 0], sq), ([0, 37, 131], sq + 140)):
+        k = _randn(rng, (b, kh, skv, dh), dtype, cuda)
+        v = _randn(rng, (b, kh, skv, dh), dtype, cuda)
+        st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+        torch.testing.assert_close(
+            flash_attention(q, k, v, st, st + sq).float(),
+            flash_attention_plain(q, k, v, st, st + sq).float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_prefill_kernel_hymba_group_and_window(cuda, dtype):
+    """Hymba's G=5, dh=64 under a window of 48 shorter than the prompt."""
+    rng = np.random.default_rng(23)
+    q = _randn(rng, (2, 25, 128, 64), dtype, cuda)
+    k = _randn(rng, (2, 5, 128, 64), dtype, cuda)
+    v = _randn(rng, (2, 5, 128, 64), dtype, cuda)
+    zero = torch.zeros(2, dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, zero, zero + 128, window=48).float(),
+        flash_attention_plain(q, k, v, zero, zero + 128, window=48).float(),
+        **TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

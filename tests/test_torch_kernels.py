@@ -24,10 +24,12 @@ from repro.models.attention import decode_attention as jax_decode_attention
 from repro.models.attention import update_cache as jax_update_cache
 from repro.models.linear_attn import \
     chunked_linear_attention as jax_chunked_linear_attention
-from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
+from repro_torch.kernels.flash_decode.ops import (NEG_INF,
+                                                  paged_decode_attention,
                                                   paged_decode_attention_plain,
                                                   ring_decode_attention,
-                                                  ring_decode_attention_plain)
+                                                  ring_decode_attention_plain,
+                                                  split_geometry)
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                    flash_attention_plain)
 from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
@@ -166,6 +168,94 @@ def test_paged_decode_zero_length_is_uniform_average():
     lane = _pools_to_port(vp)[tables[0]].reshape(-1, 2, 32)   # (W, KH, dh)
     np.testing.assert_allclose(out[0].reshape(2, 2, 32),
                                np.repeat(lane.mean(0)[:, None], 2, 1), **F32)
+
+
+def _split_merge_model(q, k_pool, v_pool, tables, lengths):
+    """The CUDA kernel's split-KV arithmetic, in f32 on the CPU: each split
+    of ``split_geometry`` entries yields (max, sum, acc) in the log2 domain
+    with the finite NEG_INF mask; splits past the walked entries are
+    skipped; the splits are merged in split order. Port layouts:
+    q (B, H, dh), pools (N, bs, KH, dh)."""
+    b, h, dh = q.shape
+    bs, kh = k_pool.shape[1], k_pool.shape[2]
+    g = h // kh
+    max_blocks = tables.shape[1]
+    entries, _ = split_geometry(bs, max_blocks)
+    q = q.float() * (dh ** -0.5 * np.log2(np.e))
+    out = torch.empty(b, h, dh)
+    for i in range(b):
+        ln = int(lengths[i])
+        walked = min(-(-ln // bs) if ln > 0 else max_blocks, max_blocks)
+        parts = []
+        for e0 in range(0, walked, entries):
+            ents = tables[i, e0:min(e0 + entries, walked)].long()
+            k = k_pool[ents].reshape(-1, kh, dh).float()    # (R, KH, dh)
+            v = v_pool[ents].reshape(-1, kh, dh).float()
+            s = torch.einsum("kgd,rkd->kgr", q[i].reshape(kh, g, dh), k)
+            pos = e0 * bs + torch.arange(k.shape[0])
+            s = torch.where(pos < ln, s, torch.tensor(NEG_INF))
+            m = s.max(-1, keepdim=True).values
+            p = torch.exp2(s - m)
+            parts.append((m, p.sum(-1, keepdim=True),
+                          torch.einsum("kgr,rkd->kgd", p, v)))
+        mx = torch.stack([m for m, _, _ in parts]).max(0).values
+        total = torch.zeros(kh, g, 1)
+        acc = torch.zeros(kh, g, dh)
+        for m, l, a in parts:                      # fixed split order
+            w = torch.exp2(m - mx)
+            total = total + w * l
+            acc = acc + w * a
+        out[i] = (acc / total.clamp_min(1e-30)).reshape(h, dh)
+    return out
+
+
+def test_paged_split_geometry_depends_on_block_size_alone():
+    assert split_geometry(16, 32) == (4, 8)
+    assert split_geometry(16, 10) == (4, 3)        # last split: 2 entries
+    assert split_geometry(16, 1) == (4, 1)
+    assert split_geometry(128, 4) == (1, 4)        # blocks over 64 rows
+    assert split_geometry(1, 100) == (64, 2)
+
+
+@pytest.mark.parametrize("bs,mb", [(16, 32), (16, 10), (8, 19)])
+def test_paged_split_merge_model_matches_plain_and_pallas(bs, mb):
+    """The split-and-merge arithmetic at the kernel's edge cases: empty
+    (fully masked, every split walked), one row, a split boundary -1/0/+1,
+    three splits, max_blocks not a multiple of the split, the full table."""
+    b, h, kh, dh = 8, 6, 2, 32
+    split = split_geometry(bs, mb)[0] * bs
+    q, kp, vp, tables, _ = _paged_inputs(17, b, h, kh, bs, mb, dh,
+                                         n_blocks=mb + 5)
+    lengths = np.asarray([0, 1, split - 1, split, split + 1, 3 * split - 3,
+                          mb * bs - 1, mb * bs], np.int32)
+    model = _split_merge_model(_t(q), _t(_pools_to_port(kp)),
+                               _t(_pools_to_port(vp)),
+                               torch.from_numpy(tables), lengths)
+    plain = _port_paged(q, kp, vp, tables, lengths)
+    np.testing.assert_allclose(model.numpy(), plain.numpy(), **F32)
+    pallas = paged_decode_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(tables),
+        jnp.asarray(lengths), interpret=True)
+    np.testing.assert_allclose(model.numpy(), _np(pallas), **F32)
+    lane = _pools_to_port(vp)[tables[0]].reshape(-1, kh, dh)  # length 0
+    np.testing.assert_allclose(
+        model[0].reshape(kh, h // kh, dh).numpy(),
+        np.repeat(lane.mean(0)[:, None], h // kh, 1), **F32)
+
+
+def test_paged_split_merge_model_aliased_tables_are_bitwise_equal():
+    """Tables aliasing the same 12 blocks (three 64-row splits at bs=16),
+    with the same query and length: the partition depends only on logical
+    position, so the merged outputs are bitwise equal."""
+    q, kp, vp, tables, _ = _paged_inputs(19, 2, 4, 2, 16, 14, 32,
+                                         n_blocks=40)
+    q[1] = q[0]
+    tables[1, :12] = tables[0, :12]
+    lengths = np.asarray([12 * 16 - 5] * 2, np.int32)
+    out = _split_merge_model(_t(q), _t(_pools_to_port(kp)),
+                             _t(_pools_to_port(vp)), torch.from_numpy(tables),
+                             lengths)
+    assert torch.equal(out[0], out[1])
 
 
 # ----------------------------------------------------------------- prefill
