@@ -15,8 +15,12 @@ failed check raises and the script exits non-zero:
    2e-2 (paged decode also at the served lengths and at lengths around its
    split boundaries, length 0 against the uniform average, aliased block
    tables over three splits bitwise; the prefill kernel's bare wgmma tile
-   against plain matrix products), chunked linear attention at 5e-4 (its
-   final state included, and also against a token-by-token recurrence).
+   against plain matrix products; ring decode at positions around its
+   split boundaries and the ring wrap, with a window shorter than the lane,
+   and rows on one slot and pos bitwise), chunked linear attention at 5e-4
+   (its final state included, also against a token-by-token recurrence and
+   with every step's log-decay at the contract's edge; its bare 3xTF32
+   tile against plain matrix products at 1e-5).
    Times the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (``library_ms``, timed here
    only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
@@ -44,8 +48,7 @@ failed check raises and the script exits non-zero:
    once more under the profiler, giving device time by kernel (the port's
    own kernels listed wherever they rank) and the device's busy share of
    the unprofiled run's wall time; then the device time of each kernel
-   that one call of paged decode and of prefill launches, at the record's
-   shapes.
+   that one call of each kernel launches, at the record's shapes.
 
 The last lines are a JSON object of per-kernel numbers and then
 ``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
@@ -53,6 +56,7 @@ where no CUDA card is visible or the package cannot be imported.
 """
 from __future__ import annotations
 
+import functools
 import json
 import re
 import subprocess
@@ -487,8 +491,56 @@ def phase_ring_decode_kernel(dev):
                      "replaces": "src/repro/kernels/flash_decode/kernel.py:87",
                      "max_abs_err": errs["bfloat16"], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "library_ms": library_ms, **t}
+                     "bound_by": bound_by, "library_ms": library_ms, **t,
+                     "call": functools.partial(
+                         ring_decode_attention, q, kl, vl, slots, ps,
+                         window=window)}
+    _ring_edges(dev)
     return entry
+
+
+def _ring_edges(dev):
+    """Ring decode at its split edges (pos 0, 1, 63, 64, 65 unwrapped;
+    W-1, W, W+63, 3W+64 wrapped), with and without a window shorter than
+    the lane, and two rows reading one lane at one pos bitwise equal."""
+    from repro_torch.kernels.flash_decode.ops import (
+        ring_decode_attention, ring_decode_attention_plain,
+        ring_split_geometry)
+
+    kh, g, dh = 5, 5, 64
+    for w, window in ((256, None), (256, 100), (1024, 1024), (64, 40)):
+        pos = [0, 1, 63, 64, 65, w - 1, w, w + 63, 3 * w + 64]
+        b = len(pos)
+        q32 = torch.randn(b, kh * g, dh, device=dev)
+        kl32 = torch.randn(b + 1, kh, w, dh, device=dev)
+        vl32 = torch.randn(b + 1, kh, w, dh, device=dev)
+        slots = torch.arange(b, 0, -1, dtype=torch.int32, device=dev)
+        ps = torch.tensor(pos, dtype=torch.int32, device=dev)
+        for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+            t = getattr(torch, dt)
+            args = (q32.to(t), kl32.to(t), vl32.to(t), slots, ps)
+            out = ring_decode_attention(*args, window=window)
+            torch.cuda.synchronize()
+            check_close(f"ring decode W={w} ({ring_split_geometry(w)[1]} "
+                        f"splits) window={window} pos={pos} {dt}", out,
+                        ring_decode_attention_plain(*args, window=window),
+                        tol)
+    w = 192
+    q = torch.randn(4, kh * g, dh, device=dev)
+    q[2] = q[0]
+    lanes = torch.randn(3, kh, w, dh, device=dev)
+    slots = torch.tensor([1, 0, 1, 2], dtype=torch.int32, device=dev)
+    ps = torch.tensor([2 * w + 70, 5, 2 * w + 70, 900], dtype=torch.int32,
+                      device=dev)
+    for t in (torch.float32, torch.bfloat16):
+        out = ring_decode_attention(q.to(t), lanes.to(t), lanes.to(t), slots,
+                                    ps, window=150)
+        torch.cuda.synchronize()
+        if not torch.equal(out[0], out[2]):
+            raise AssertionError(f"ring decode: rows on one slot and pos "
+                                 f"are not bitwise equal ({t})")
+    log(f"  ring decode aliased slots (W={w}, pos {2 * w + 70}, window 150, "
+        f"3 splits): bitwise equal, f32 and bf16")
 
 
 def _recurrence(q, k, v, lw, bonus, mode):
@@ -507,45 +559,78 @@ def _recurrence(q, k, v, lw, bonus, mode):
     return torch.stack(outs, 2), state
 
 
-def phase_linear_attention_kernel(dev):
+def _linear_checks(label, q32, k32, v32, lw, u, mode) -> float:
+    """The chunked kernel against its plain version and a token recurrence:
+    f32 output and final state at 5e-4, bf16 output at 2e-2 and its final
+    state at 5e-4. Returns the f32 error."""
     from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
     from repro_torch.models.linear_attn import chunked_linear_attention
 
+    tol = 5e-4
+    out, state = linear_attention(q32, k32, v32, lw, u, mode=mode)
+    torch.cuda.synchronize()
+    ref, ref_state = chunked_linear_attention(q32, k32, v32, lw, bonus=u,
+                                              mode=mode, chunk_size=64)
+    rec, rec_state = _recurrence(q32, k32, v32, lw, u, mode)
+    err = max(check_close(f"{label} f32 vs plain", out, ref, tol),
+              check_close(f"{label} f32 final state vs plain", state,
+                          ref_state, tol),
+              check_close(f"{label} f32 vs recurrence", out, rec, tol),
+              check_close(f"{label} f32 final state vs recurrence", state,
+                          rec_state, tol))
+    bf = torch.bfloat16
+    q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
+    out, state = linear_attention(q, k, v, lw, u, mode=mode)
+    torch.cuda.synchronize()
+    ref, ref_state = chunked_linear_attention(q, k, v, lw, bonus=u,
+                                              mode=mode, chunk_size=64)
+    check_close(f"{label} bf16 vs plain", out, ref, 2e-2)
+    check_close(f"{label} bf16 final state vs plain", state, ref_state, tol)
+    return err
+
+
+def phase_linear_attention_kernel(dev):
+    from repro_torch.kernels.rwkv6_chunk.ops import (
+        kernel_occupancy, linear_attention, tf32_tile_check,
+        tf32_tile_check_plain)
+    from repro_torch.models.linear_attn import (MAX_LOG_DECAY,
+                                                chunked_linear_attention)
+
+    # the 3xTF32 products and fragment layouts, bare, on one 64 x 64 tile
+    tile = [torch.randn(64, 64, device=dev) / 8 for _ in range(3)]
+    got = tf32_tile_check(*tile)
+    torch.cuda.synchronize()
+    s_ref, _, u_ref = tf32_tile_check_plain(*tile)
+    check_close("3xTF32 tile: S = A B^T", got[0], s_ref, 1e-5)
+    check_close("3xTF32 tile: O = S C", got[1], got[0] @ tile[2], 1e-5)
+    check_close("3xTF32 tile: U = A^T C", got[2], u_ref, 1e-5)
+
     gen = torch.Generator(device=dev).manual_seed(SEED)
     entry = None
-    tol = 5e-4
     # Hymba's SSD heads at a 128-token bucket, then RWKV-6 7B's heads
     for mode, b, h, t, dk, dv in (("ssd", 8, 50, 128, 16, 64),
                                   ("rwkv", 4, 64, 256, 64, 64)):
+        lw_dim = dk if mode == "rwkv" else 1
+        occ = {dt: kernel_occupancy(getattr(torch, dt), 64, dk, dv, lw_dim)
+               for dt in ("bfloat16", "float32")}
         log(f"linear attention ({mode}): B={b} H={h} T={t} dk={dk} dv={dv} "
-            f"chunk 64")
+            f"chunk 64; shared memory per block and blocks per SM (bf16, "
+            f"f32): {occ}; {b * h} blocks")
         q32 = torch.randn(b, h, t, dk, device=dev, generator=gen)
         k32 = torch.randn(b, h, t, dk, device=dev, generator=gen)
         v32 = torch.randn(b, h, t, dv, device=dev, generator=gen)
-        lw = -torch.rand(b, h, t, dk if mode == "rwkv" else 1, device=dev,
+        lw = -torch.rand(b, h, t, lw_dim, device=dev,
                          generator=gen).clamp(min=1e-6)    # [-1, 0)
         u = (torch.randn(h, dk, device=dev, generator=gen) * 0.1
              if mode == "rwkv" else None)
-        out, state = linear_attention(q32, k32, v32, lw, u, mode=mode)
-        torch.cuda.synchronize()
-        ref, ref_state = chunked_linear_attention(q32, k32, v32, lw, bonus=u,
-                                                  mode=mode, chunk_size=64)
-        rec, rec_state = _recurrence(q32, k32, v32, lw, u, mode)
-        err = max(check_close(f"{mode} f32 vs plain", out, ref, tol),
-                  check_close(f"{mode} f32 final state vs plain", state,
-                              ref_state, tol),
-                  check_close(f"{mode} f32 vs recurrence", out, rec, tol),
-                  check_close(f"{mode} f32 final state vs recurrence", state,
-                              rec_state, tol))
+        err = _linear_checks(mode, q32, k32, v32, lw, u, mode)
+        # every step's log-decay at the contract's edge: exp(+-inc) spans
+        # e^+-64 inside a chunk
+        err = max(err, _linear_checks(
+            f"{mode} log-decay -{MAX_LOG_DECAY:g}", q32, k32, v32,
+            torch.full_like(lw, -MAX_LOG_DECAY), u, mode))
         bf = torch.bfloat16
         q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
-        out, state = linear_attention(q, k, v, lw, u, mode=mode)
-        torch.cuda.synchronize()
-        ref, ref_state = chunked_linear_attention(q, k, v, lw, bonus=u,
-                                                  mode=mode, chunk_size=64)
-        check_close(f"{mode} bf16 vs plain", out, ref, 2e-2)
-        check_close(f"{mode} bf16 final state vs plain", state, ref_state,
-                    tol)
         ms = cuda_ms(lambda: linear_attention(q, k, v, lw, u, mode=mode), 100)
         plain_ms = cuda_ms(lambda: chunked_linear_attention(
             q, k, v, lw, bonus=u, mode=mode, chunk_size=64), 20)
@@ -575,7 +660,8 @@ def phase_linear_attention_kernel(dev):
                      "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:75",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None, **t}
+                     "library_ms": None, **t,
+                     "call": kernel(0)}
     return entry
 
 
@@ -819,7 +905,8 @@ def phase_serve(dev, arch: str, kernels) -> dict:
 # the kernels of src/repro_torch/kernels/csrc, as the profiler names them
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
                 "flash_prefill_wgmma_kernel", "flash_prefill_kernel",
-                "ring_decode_kernel", "linear_attn_chunk_kernel")
+                "ring_decode_split_kernel", "ring_decode_combine_kernel",
+                "linear_attn_chunk_kernel")
 
 
 def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: 16-byte
-// asynchronous copies (cp.async) and warpgroup matrix multiplies (wgmma)
-// on bf16 tiles kept in 128-byte-swizzled shared memory.
+// asynchronous copies (cp.async), warpgroup matrix multiplies (wgmma) on
+// bf16 tiles kept in 128-byte-swizzled shared memory, and warp-level TF32
+// products (mma.sync) in three passes for f32-grade results (3xTF32).
 //
 // Tile layout ("swizzled tile" below). A tile of R rows by C bf16 columns
 // (C a multiple of 64) is stored as C / 64 column blocks of R rows x 128
@@ -166,6 +167,133 @@ __device__ __forceinline__ void wgmma_rs_mn(float (&d)[64],
 
 #undef REPRO_WGMMA_D32
 #undef REPRO_WGMMA_OUT32
+
+// ------------------------------------------------------- mma.sync, 3xTF32
+// Fragments of mma.m16n8k8 with TF32 operands, for lane l of a warp, with
+// g = l / 4 and c = l % 4:
+//   A (16 x 8):  a0 (g, c), a1 (g + 8, c), a2 (g, c + 4), a3 (g + 8, c + 4)
+//   B (8 x 8):   b0 (c, g), b1 (c + 4, g)          (row = k, column = n)
+//   D (16 x 8):  d0 (g, 2c), d1 (g, 2c + 1), d2 (g + 8, 2c), d3 (g + 8,
+//                2c + 1)
+// 3xTF32: an f32 operand x splits into hi = tf32(x) and lo = tf32(x - hi),
+// both rounded to nearest (as cvt.rna), and a b ~ a_lo b_hi + a_hi b_lo +
+// a_hi b_hi; the dropped a_lo b_lo and the rounding of lo leave about 2^-21
+// of the product, against 2^-11 for one TF32 product.
+// cvt.rna.tf32.f32 on the bits, in two integer operations: add half of the
+// 13 dropped mantissa bits to the magnitude, then clear them (round to
+// nearest, ties away from zero; the same result for every finite value
+// below the overflow edge).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D(16x8) += A(16x8) B(8x8), TF32 in, f32 accumulate. Not volatile: the
+// compiler may interleave independent products to hide their latency.
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An f32 A fragment (a[0..3]) and B fragment (b[0..1]) as split operands.
+struct Tf32A {
+  uint32_t hi[4], lo[4];
+  Tf32A() = default;
+  __device__ __forceinline__ explicit Tf32A(const float (&a)[4]) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) tf32_split(a[i], hi[i], lo[i]);
+  }
+};
+struct Tf32B {
+  uint32_t hi[2], lo[2];
+  Tf32B() = default;
+  __device__ __forceinline__ Tf32B(float b0, float b1) {
+    tf32_split(b0, hi[0], lo[0]);
+    tf32_split(b1, hi[1], lo[1]);
+  }
+  // Values that TF32 holds exactly (bf16 ones): hi is the value, lo is 0.
+  __device__ __forceinline__ static Tf32B exact(float b0, float b1) {
+    Tf32B b;
+    b.hi[0] = __float_as_uint(b0);
+    b.hi[1] = __float_as_uint(b1);
+    b.lo[0] = b.lo[1] = 0u;
+    return b;
+  }
+};
+
+// D += A B in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Tf32A& a,
+                                           const Tf32B& b) {
+  mma_tf32(d, a.lo, b.hi);
+  mma_tf32(d, a.hi, b.lo);
+  mma_tf32(d, a.hi, b.hi);
+}
+
+// D[i] += A[i] B[i] in 3xTF32 for N independent tiles, pass by pass, so
+// that each pass's N products are in flight together (each D[i] still
+// sums its terms in mma_3xtf32's order). kExactB: every B is exact in TF32
+// (lo == 0), so the a_hi b_lo pass, which adds exact zeros, is skipped.
+template <bool kExactB = false, int N>
+__device__ __forceinline__ void mma_3xtf32_n(float (&d)[N][4],
+                                             const Tf32A (&a)[N],
+                                             const Tf32B (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].lo, b[i].hi);
+  if (!kExactB) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].hi, b[i].lo);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a[i].hi, b[i].hi);
+}
+
+// The same with one A for every tile.
+template <bool kExactB = false, int N>
+__device__ __forceinline__ void mma_3xtf32_n(float (&d)[N][4],
+                                             const Tf32A& a,
+                                             const Tf32B (&b)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a.lo, b[i].hi);
+  if (!kExactB) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) mma_tf32(d[i], a.hi, b[i].lo);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(d[i], a.hi, b[i].hi);
+}
+
+// The D fragment of one 16x8 tile, re-laid out as the A fragment of the
+// same 16x8 tile (for a product that consumes it along k), by shuffles
+// inside each group of four lanes.
+__device__ __forceinline__ void d_to_a(const float (&d)[4], float (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  const int c = lane & 3;
+  const int src0 = (lane & ~3) | (c >> 1);  // holds columns 2(c/2), +1
+  const int src4 = src0 + 2;                // holds column c + 4
+  const bool odd = c & 1;
+  float x0 = __shfl_sync(0xffffffffu, d[0], src0);
+  float x1 = __shfl_sync(0xffffffffu, d[1], src0);
+  float y0 = __shfl_sync(0xffffffffu, d[2], src0);
+  float y1 = __shfl_sync(0xffffffffu, d[3], src0);
+  a[0] = odd ? x1 : x0;
+  a[1] = odd ? y1 : y0;
+  x0 = __shfl_sync(0xffffffffu, d[0], src4);
+  x1 = __shfl_sync(0xffffffffu, d[1], src4);
+  y0 = __shfl_sync(0xffffffffu, d[2], src4);
+  y1 = __shfl_sync(0xffffffffu, d[3], src4);
+  a[2] = odd ? x1 : x0;
+  a[3] = odd ? y1 : y0;
+}
 
 // Two floats as one b32 of two bf16 (lo in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -15,7 +15,9 @@ Port of ``repro/kernels/flash_decode``:
   Lanes are one layer of the engine's heads-first ``(L, S, KH, W, dh)``
   lanes, addressed by slot, so decode reads each sequence's lane in place;
   the ring and window mask is computed in the kernel from per-row ``pos``
-  instead of arriving as a (B, W) bias.
+  instead of arriving as a (B, W) bias. It is split-KV over fixed runs of
+  lane rows, like paged decode: two device kernels a call, or one when the
+  lane fits a single split.
 
 Each source note says what bounds its kernel and how. On a CPU tensor a
 wrapper computes its plain version; on a CUDA tensor it launches its kernel
@@ -37,6 +39,7 @@ MAX_GROUP = 8         # query heads per KV head (kernel register tile)
 PAGED_HEAD_DIMS = (32, 64, 128, 256)   # the paged kernel's compiled head_dims
 SPLIT_ROWS = 64       # rows per split of the paged kernel (whole entries)
 RING_HEAD_DIMS = (32, 64, 128)   # the ring kernel's compiled head_dims
+RING_SPLIT_ROWS = 64  # lane rows per split of the ring kernel
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
@@ -153,11 +156,18 @@ def ring_decode_attention_plain(q: torch.Tensor, k_lanes: torch.Tensor,
                             v_lanes[idx].transpose(1, 2), pos, window=window)
 
 
+def ring_split_geometry(width: int) -> Tuple[int, int]:
+    """(lane rows per split, splits per sequence) of the ring kernel: runs
+    of ``RING_SPLIT_ROWS`` rows, a function of the lane width alone, so a
+    row's result never depends on the rest of the batch."""
+    return RING_SPLIT_ROWS, -(-width // RING_SPLIT_ROWS)
+
+
 @functools.lru_cache(maxsize=None)
 def _ring_lib() -> ctypes.CDLL:
     lib = build.load("flash_decode")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ring_decode.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i,
+    lib.ring_decode.argtypes = [i, p, p, p, p, p, p, p, i, i, i, i, i, i, i,
                                 ctypes.c_float, p]
     lib.ring_decode.restype = i
     return lib
@@ -172,7 +182,9 @@ def ring_decode_attention(q: torch.Tensor, k_lanes: torch.Tensor,
     row's current token, already written at ``pos % W`` -> (B, H, dh).
 
     Lane row j holds position ``pos - ((pos - j) mod W)``; it counts when
-    that is >= 0 and, with a window, within ``window`` of pos."""
+    that is >= 0 and, with a window, within ``window`` of pos. On the card
+    the call launches the split kernel and, when the lane spans more than
+    one split, the merge kernel; ``launches`` counts calls."""
     if q.device.type == "cpu":
         return ring_decode_attention_plain(q, k_lanes, v_lanes, slots, pos,
                                            window=window)
@@ -196,12 +208,17 @@ def ring_decode_attention(q: torch.Tensor, k_lanes: torch.Tensor,
                          f"head and head_dim one of {RING_HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be positive")
+    build.require_aligned(what, q, k_lanes, v_lanes)
     out = torch.empty_like(q)
+    split_rows, splits = ring_split_geometry(w)
+    scratch = (torch.empty(b * h * splits * (dh + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
     lib = _ring_lib()
     code = lib.ring_decode(
         build.DTYPE_CODES[q.dtype], q.data_ptr(), k_lanes.data_ptr(),
         v_lanes.data_ptr(), slots.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, kh, h // kh, dh, w, window or 0, dh ** -0.5,
+        None if scratch is None else scratch.data_ptr(), b, kh, h // kh, dh,
+        w, window or 0, split_rows, dh ** -0.5,
         build.current_stream(q.device))
     build.check_launch(lib, code, what)
     ring_decode_attention.launches += 1

@@ -28,6 +28,8 @@ from repro_torch.models.linear_attn import (MAX_LOG_DECAY,
 
 CHUNKS = (32, 64)   # the kernel's compiled chunk lengths
 MAX_DIM = 64        # dk and dv
+KERNEL_DKS = (16, 32, 64)   # the kernel's compiled dk
+DV_STEP = 8                 # dv is a multiple of this (mma tiles)
 
 
 @functools.lru_cache(maxsize=None)
@@ -37,7 +39,53 @@ def _lib() -> ctypes.CDLL:
     lib.linear_attn_chunk.argtypes = [i, i, i, p, p, p, p, i, p, p, p, i, i,
                                       i, i, i, p]
     lib.linear_attn_chunk.restype = i
+    lib.linear_attn_tile_check.argtypes = [p] * 7
+    lib.linear_attn_tile_check.restype = i
+    lib.linear_attn_occupancy.argtypes = [i] * 5 + [p, p]
+    lib.linear_attn_occupancy.restype = i
     return lib
+
+
+def kernel_occupancy(dtype: torch.dtype, chunk: int, dk: int, dv: int,
+                     lw_dim: int) -> Tuple[int, int]:
+    """(dynamic shared memory in bytes, blocks per SM) of the kernel at
+    these dimensions, from the CUDA occupancy calculator (card only)."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    lib = _lib()
+    code = lib.linear_attn_occupancy(build.DTYPE_CODES[dtype], chunk, dk, dv,
+                                     lw_dim, ctypes.byref(smem),
+                                     ctypes.byref(blocks))
+    build.check_launch(lib, code, "kernel_occupancy")
+    return smem.value, blocks.value
+
+
+def tf32_tile_check_plain(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """a, b, c: (64, 64) f32 -> (s, o, u): ``s = a b^T``, ``o = s c`` and
+    ``u = a^T c``, the kernel's three kinds of chunk product on one tile."""
+    s = a @ b.T
+    return s, s @ c, a.T @ c
+
+
+def tf32_tile_check(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """The kernel's 3xTF32 tensor-core products and fragment layouts on one
+    bare tile (Q_dec K_dec^T, att V from the score accumulators, and
+    K_tail^T V): a check of them against plain f32 matrix products. Not on
+    any served path. Same arguments and results as the plain version, except
+    that ``o`` multiplies the kernel's own ``s``."""
+    if a.is_cpu:
+        return tf32_tile_check_plain(a, b, c)
+    what = "tf32_tile_check"
+    build.require_cuda_operands(what, a, b, c)
+    if any(x.shape != (64, 64) or x.dtype != torch.float32
+           for x in (a, b, c)):
+        raise ValueError(f"{what}: a, b, c must be (64, 64) f32")
+    s, o, u = (torch.empty(64, 64, device=a.device) for _ in range(3))
+    lib = _lib()
+    code = lib.linear_attn_tile_check(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), s.data_ptr(), o.data_ptr(),
+        u.data_ptr(), build.current_stream(a.device))
+    build.check_launch(lib, code, what)
+    return s, o, u
 
 
 def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,7 +101,8 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chunk`` with zero k, v and log-decay, which leaves the state as it
     was. ``chunk`` is at most 64: the log-decay contract
     (``chunk * MAX_LOG_DECAY <= 80`` keeps ``exp`` of the in-chunk sums in
-    f32 range) and the kernel's shared-memory tiles both bound it."""
+    f32 range) and the kernel's shared-memory tiles both bound it. On the
+    card dk is 16, 32 or 64 and dv a multiple of 8 up to 64."""
     what = "linear_attention"
     if mode not in ("rwkv", "ssd"):
         raise ValueError(f"{what}: mode must be 'rwkv' or 'ssd'")
@@ -93,8 +142,10 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or v.dtype != q.dtype:
         raise ValueError(f"{what}: q, k and v must share one dtype of "
                          f"{list(build.DTYPE_CODES)}")
-    if dk > MAX_DIM or dv > MAX_DIM:
-        raise ValueError(f"{what}: dk and dv must be <= {MAX_DIM}")
+    if dk not in KERNEL_DKS or dv > MAX_DIM or dv % DV_STEP:
+        raise ValueError(f"{what}: dk must be one of {KERNEL_DKS} and dv a "
+                         f"multiple of {DV_STEP} up to {MAX_DIM}")
+    build.require_aligned(what, q, k, v, lw)
     if u is not None and u.shape != (h, dk):
         raise ValueError(f"{what}: bonus must be (H, dk)")
     tp = t + pad

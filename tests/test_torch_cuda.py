@@ -8,10 +8,11 @@ it also runs on the card's machine, which has no JAX:
 
 (``--noconftest``: ``tests/conftest.py`` imports JAX). Each kernel is held
 against its plain PyTorch version on the same inputs: attention f32 with
-TF32 off at 2e-5 and bf16 at 2e-2 (paged decode at its split edges, with
-aliased tables bitwise; the bf16 prefill kernel's bare wgmma tile against
-``torch.matmul``), chunked linear attention at 5e-4 (its final state
-included); the engine on the card emits the same greedy tokens
+TF32 off at 2e-5 and bf16 at 2e-2 (paged and ring decode at their split edges, with
+aliased tables and slots bitwise; the bf16 prefill kernel's bare wgmma tile
+against ``torch.matmul``), chunked linear attention at 5e-4 (its final state
+included, at the log-decay contract's edge too; its bare 3xTF32 tile against
+``torch.matmul`` at 1e-5); the engine on the card emits the same greedy tokens
 as on the CPU, and its contiguous lanes the same tokens as its paged pool.
 """
 import numpy as np
@@ -26,11 +27,13 @@ from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                   paged_decode_attention_plain,
                                                   ring_decode_attention,
                                                   ring_decode_attention_plain,
+                                                  ring_split_geometry,
                                                   split_geometry)
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                    flash_attention_plain,
                                                    wgmma_tile_check)
-from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
+from repro_torch.kernels.rwkv6_chunk.ops import (linear_attention,
+                                                 tf32_tile_check)
 from repro_torch.models.linear_attn import chunked_linear_attention
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.engine import Engine
@@ -198,6 +201,90 @@ def test_ring_decode_kernel_matches_plain(cuda, dtype, kh, g, dh, w, window):
         out.float(),
         ring_decode_attention_plain(*args, window=window).float(),
         **TOL[dtype])
+
+
+def _ring_args(rng, dtype, dev, kh, g, dh, w, pos):
+    b = len(pos)
+    return (_randn(rng, (b, kh * g, dh), dtype, dev),
+            _randn(rng, (b + 1, kh, w, dh), dtype, dev),
+            _randn(rng, (b + 1, kh, w, dh), dtype, dev),
+            torch.arange(b, 0, -1, dtype=torch.int32, device=dev),
+            torch.tensor(pos, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w,window", [(256, None), (256, 100), (1024, 1024),
+                                      (64, 40)])
+def test_ring_decode_kernel_at_split_edges(cuda, dtype, w, window):
+    """pos 0, 1, 63, 64, 65 (unwrapped), W-1, W, W+63, 3W+64 (wrapped),
+    with a window shorter than the lane and without one."""
+    pos = [0, 1, 63, 64, 65, w - 1, w, w + 63, 3 * w + 64]
+    args = _ring_args(np.random.default_rng(w), dtype, cuda, 5, 5, 64, w,
+                      pos)
+    assert ring_split_geometry(w)[1] == -(-w // 64)
+    torch.testing.assert_close(
+        ring_decode_attention(*args, window=window).float(),
+        ring_decode_attention_plain(*args, window=window).float(),
+        **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ring_decode_kernel_aliased_slots_are_bitwise_equal(cuda, dtype):
+    """Two rows reading one lane at one pos with one query (three splits,
+    wrapped, under a window) give bitwise-equal outputs."""
+    q, kl, vl, slots, pos = _ring_args(np.random.default_rng(24), dtype,
+                                       cuda, 5, 5, 64, 192,
+                                       [454, 5, 454, 900])
+    q[2] = q[0]
+    slots[2] = slots[0]
+    out = ring_decode_attention(q, kl, vl, slots, pos, window=150)
+    assert torch.equal(out[0], out[2])
+
+
+def test_ring_decode_rejects_a_misaligned_lane(cuda):
+    q, kl, vl, slots, pos = _ring_args(np.random.default_rng(25), "bfloat16",
+                                       cuda, 2, 2, 64, 64, [3, 4])
+    flat = torch.zeros(kl.numel() + 1, dtype=kl.dtype, device=cuda)
+    odd = flat[1:].view(kl.shape)                  # 2 bytes off 16
+    with pytest.raises(ValueError, match="aligned"):
+        ring_decode_attention(q, odd, vl, slots, pos)
+
+
+def test_tf32_tile_matches_matmul(cuda):
+    """The chunked kernel's 3xTF32 products and fragment layouts, bare:
+    S = A B^T, O = S C (S re-laid out from the accumulators) and
+    U = A^T C on one 64 x 64 tile, against f32 torch.matmul."""
+    rng = np.random.default_rng(26)
+    a, b, c = (_randn(rng, (64, 64), "float32", cuda) / 8 for _ in range(3))
+    s, o, u = tf32_tile_check(a, b, c)
+    tol = dict(atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(s, torch.matmul(a, b.T), **tol)
+    torch.testing.assert_close(o, torch.matmul(s, c), **tol)
+    torch.testing.assert_close(u, torch.matmul(a.T, c), **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode,dk", [("ssd", 16), ("rwkv", 64)])
+def test_linear_attention_kernel_at_the_decay_edge(cuda, dtype, mode, dk):
+    """Every step's log-decay at -1, the contract's edge: the decayed
+    operands span e^+-64 within a chunk."""
+    rng = np.random.default_rng(27)
+    b, h, t, dv = 2, 3, 128, 64
+    q = _randn(rng, (b, h, t, dk), dtype, cuda)
+    k = _randn(rng, (b, h, t, dk), dtype, cuda)
+    v = _randn(rng, (b, h, t, dv), dtype, cuda)
+    lw = torch.full((b, h, t, dk if mode == "rwkv" else 1), -1.0,
+                    device=cuda)
+    u = (_randn(rng, (h, dk), "float32", cuda) * 0.1 if mode == "rwkv"
+         else None)
+    out, state = linear_attention(q, k, v, lw, u, mode=mode, chunk=64)
+    ref, ref_state = chunked_linear_attention(q, k, v, lw, bonus=u,
+                                              mode=mode, chunk_size=64)
+    tol = dict(atol=5e-4, rtol=5e-4)
+    torch.testing.assert_close(state, ref_state, **tol)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               **(tol if dtype == "float32"
+                                  else TOL["bfloat16"]))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -29,6 +29,7 @@ from repro_torch.kernels.flash_decode.ops import (NEG_INF,
                                                   paged_decode_attention_plain,
                                                   ring_decode_attention,
                                                   ring_decode_attention_plain,
+                                                  ring_split_geometry,
                                                   split_geometry)
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                    flash_attention_plain)
@@ -36,7 +37,8 @@ from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 from repro_torch.models.attention import (attention_naive, gather_lane,
                                           prefill_cache, update_cache,
                                           write_paged)
-from repro_torch.models.linear_attn import linear_attention_step
+from repro_torch.models.linear_attn import (MAX_LOG_DECAY,
+                                            linear_attention_step)
 
 torch.set_num_threads(1)
 
@@ -400,6 +402,111 @@ def test_ring_decode_plain_matches_pallas(b, h, kh, w, dh, pos, win, dtype):
     np.testing.assert_allclose(out.float().numpy(), ref, **_tol(dtype))
 
 
+def _ring_split_merge_model(q, k_lanes, v_lanes, slots, pos, window):
+    """The ring CUDA kernel's split-KV arithmetic, in f32 on the CPU: lane
+    rows walked (``min(pos + 1, W)``) in runs of ``ring_split_geometry``
+    rows; a row lies ``back = r - j`` (j <= r) or ``r - j + W`` positions
+    before pos, r = pos % W, and with a window counts when back < window
+    (else the finite NEG_INF); a split with no row in the window is skipped
+    (its merge weight would be exactly 0); each split yields (max, sum, acc)
+    in the log2 domain, merged in split order. Port layouts: q (B, H, dh),
+    lanes (S, KH, W, dh)."""
+    b, h, dh = q.shape
+    kh, w = k_lanes.shape[1], k_lanes.shape[2]
+    g = h // kh
+    rows_per_split, _ = ring_split_geometry(w)
+    qs = q.float() * (dh ** -0.5 * np.log2(np.e))
+    out = torch.empty(b, h, dh)
+    for i in range(b):
+        p = int(pos[i])
+        walked, r = min(p + 1, w), p % w
+        lk = k_lanes[int(slots[i])].float()             # (KH, W, dh)
+        lv = v_lanes[int(slots[i])].float()
+        parts = []
+        for j0 in range(0, walked, rows_per_split):
+            j = torch.arange(j0, min(j0 + rows_per_split, walked))
+            back = torch.where(j <= r, r - j, r - j + w)
+            valid = (back < window if window is not None
+                     else torch.ones_like(j, dtype=torch.bool))
+            if not bool(valid.any()):
+                continue
+            s = torch.einsum("kgd,krd->kgr", qs[i].reshape(kh, g, dh),
+                             lk[:, j])
+            s = torch.where(valid, s, torch.tensor(NEG_INF))
+            m = s.max(-1, keepdim=True).values
+            pr = torch.exp2(s - m)
+            parts.append((m, pr.sum(-1, keepdim=True),
+                          torch.einsum("kgr,krd->kgd", pr, lv[:, j])))
+        mx = torch.stack([m for m, _, _ in parts]).max(0).values
+        total = torch.zeros(kh, g, 1)
+        acc = torch.zeros(kh, g, dh)
+        for m, l, a in parts:                      # fixed split order
+            wgt = torch.exp2(m - mx)
+            total = total + wgt * l
+            acc = acc + wgt * a
+        out[i] = (acc / total.clamp_min(1e-30)).reshape(h, dh)
+    return out
+
+
+def test_ring_split_geometry_depends_on_width_alone():
+    import inspect
+    assert list(inspect.signature(ring_split_geometry).parameters) == [
+        "width"]
+    assert ring_split_geometry(1024) == (64, 16)
+    assert ring_split_geometry(128) == (64, 2)
+    assert ring_split_geometry(64) == (64, 1)
+    assert ring_split_geometry(65) == (64, 2)
+    assert ring_split_geometry(300) == (64, 5)
+    assert ring_split_geometry(1) == (64, 1)
+
+
+@pytest.mark.parametrize("w,win", [(256, None), (256, 100), (200, 70),
+                                   (64, 40)])
+def test_ring_split_merge_model_matches_plain_and_pallas(w, win):
+    """The split-and-merge arithmetic at the split edges: pos 0, 1, 63, 64,
+    65 (unwrapped), W-1, W, W+63 and 3W+64 (wrapped), with a window shorter
+    than the lane and without one."""
+    kh, g, dh = 2, 3, 32
+    pos = np.asarray([0, 1, 63, 64, 65, w - 1, w, w + 63, 3 * w + 64],
+                     np.int32)
+    b = len(pos)
+    rng = np.random.default_rng(31)
+    q = rng.standard_normal((b, kh * g, dh), np.float32)
+    kc = rng.standard_normal((b, w, kh, dh), np.float32)  # reference layout
+    vc = rng.standard_normal((b, w, kh, dh), np.float32)
+    slots = np.arange(b, dtype=np.int32)[::-1].copy()
+    lanes_k = np.zeros((b, kh, w, dh), np.float32)
+    lanes_v = np.zeros((b, kh, w, dh), np.float32)
+    lanes_k[slots] = kc.transpose(0, 2, 1, 3)
+    lanes_v[slots] = vc.transpose(0, 2, 1, 3)
+    args = (_t(q), _t(lanes_k), _t(lanes_v), torch.from_numpy(slots),
+            torch.from_numpy(pos))
+    model = _ring_split_merge_model(*args, win)
+    plain = ring_decode_attention(*args, window=win)
+    np.testing.assert_allclose(model.numpy(), plain.numpy(), **F32)
+    ref = np.concatenate([_np(decode_attention_pallas(
+        jnp.asarray(q[i:i + 1]), jnp.asarray(kc[i:i + 1]),
+        jnp.asarray(vc[i:i + 1]), int(pos[i]), window=win, interpret=True))
+        for i in range(b)])
+    np.testing.assert_allclose(model.numpy(), ref, **F32)
+
+
+def test_ring_split_merge_model_same_slot_and_pos_are_bitwise_equal():
+    """Two rows reading the same lane at the same pos with the same query
+    (three splits, wrapped, under a window) get bitwise-equal outputs,
+    whatever the other rows of the batch hold."""
+    kh, g, dh, w = 2, 2, 32, 192
+    rng = np.random.default_rng(37)
+    q = rng.standard_normal((4, kh * g, dh), np.float32)
+    q[2] = q[0]
+    lanes = rng.standard_normal((3, kh, w, dh), np.float32)
+    slots = torch.tensor([1, 0, 1, 2], dtype=torch.int32)
+    pos = torch.tensor([2 * w + 70, 5, 2 * w + 70, 900], dtype=torch.int32)
+    out = _ring_split_merge_model(_t(q), _t(lanes), _t(lanes), slots, pos,
+                                  150)
+    assert torch.equal(out[0], out[2])
+
+
 def test_update_and_prefill_cache_place_rows_at_ring_slots():
     """Decode writes land at ``pos % W`` as the reference's
     ``update_cache``; a prompt longer than the lane keeps its last W rows
@@ -472,6 +579,118 @@ def test_linear_attention_plain_matches_pallas_and_recurrence(mode, b, h, t,
             st, _t(q[:, :, i]), _t(k[:, :, i]), _t(v[:, :, i]),
             _t(lw[:, :, i]), bonus=None if u is None else _t(u), mode=mode)
     np.testing.assert_allclose(state.numpy(), st.numpy(), **LIN)
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as ``cvt.rna.tf32.f32``: add half of the dropped 13 bits to the
+    magnitude, then clear them."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, d=None):
+    """d + a @ b as the kernel's mma.sync 3xTF32: over k-steps of 8 in
+    order, each operand split into hi = tf32(x) and lo = tf32(x - hi), and
+    d += a_lo b_hi, then a_hi b_lo, then a_hi b_hi."""
+    out = torch.zeros(*a.shape[:-1], b.shape[-1]) if d is None else d
+    for k0 in range(0, a.shape[-1], 8):
+        a8, b8 = a[..., k0:k0 + 8], b[..., k0:k0 + 8, :]
+        ah, bh = _tf32(a8), _tf32(b8)
+        al, bl = _tf32(a8 - ah), _tf32(b8 - bh)
+        out = out + al @ bh
+        out = out + ah @ bl
+        out = out + ah @ bh
+    return out
+
+
+def _warp_scan_model(x):
+    """Inclusive sum over dim -2 (the chunk's rows) in the kernel's order:
+    rounds of 32 rows, each a Hillis-Steele scan over the 32 lanes plus the
+    carry of the rounds before."""
+    outs, carry = [], torch.zeros_like(x[..., :1, :])
+    for r0 in range(0, x.shape[-2], 32):
+        y = x[..., r0:r0 + 32, :]
+        for off in (1, 2, 4, 8, 16):
+            y = torch.cat([y[..., :off, :], y[..., off:, :] + y[..., :-off, :]],
+                          -2)
+        y = carry + y
+        carry = y[..., -1:, :]
+        outs.append(y)
+    return torch.cat(outs, -2)
+
+
+def _chunk_kernel_model(q, k, v, lw, u, mode, chunk):
+    """The chunked CUDA kernel's arithmetic in f32 on the CPU: the warp
+    scan of the log-decay, the decayed operands, the scores masked strictly
+    lower with the diagonal term on the diagonal, att V + Q_dec S into one
+    accumulator, then S * exp(total) + K_tail^T V, every product in
+    3xTF32. Returns (out, final state)."""
+    b, h, t, dk = q.shape
+    state = torch.zeros(b, h, dk, v.shape[-1])
+    row = torch.arange(chunk)
+    outs = []
+    for c0 in range(0, t, chunk):
+        qc, kc, vc, lc = (x[:, :, c0:c0 + chunk] for x in (q, k, v, lw))
+        inc = _warp_scan_model(lc)
+        tot = inc[:, :, -1:]
+        if mode == "rwkv":
+            qd = qc * torch.exp(inc - lc)
+            dg = (qc * u[None, :, None] * kc).sum(-1)
+        else:
+            qd = qc * torch.exp(inc)
+            dg = (qc * kc).sum(-1)
+        kd, kt = kc * torch.exp(-inc), kc * torch.exp(tot - inc)
+        att = _mm_3xtf32(qd, kd.transpose(-1, -2))
+        att = torch.where(row[:, None] > row[None], att,
+                          torch.zeros(()))
+        att = att + torch.diag_embed(dg)
+        o = _mm_3xtf32(att, vc)
+        outs.append(_mm_3xtf32(qd, state, o))
+        state = (state * torch.exp(tot).transpose(-1, -2)
+                 + _mm_3xtf32(kt.transpose(-1, -2), vc))
+    return torch.cat(outs, 2), state
+
+
+@pytest.mark.parametrize("mode,dk,dv", [("ssd", 16, 16), ("rwkv", 32, 16)])
+@pytest.mark.parametrize("edge", [False, True])
+def test_3xtf32_chunk_model_matches_pallas_and_recurrence(mode, dk, dv,
+                                                         edge):
+    """The kernel's 3xTF32 chunk products hold the reference's 5e-4, also
+    with every step's log-decay at the contract's edge (-MAX_LOG_DECAY,
+    where exp(+-inc) spreads the decayed operands over e^+-64)."""
+    b, h, t = 1, 2, 128
+    q, k, v, lw, u = _linear_inputs(mode, b, h, t, dk, dv, seed=41)
+    if edge:
+        lw = np.full_like(lw, -MAX_LOG_DECAY)
+    out, state = _chunk_kernel_model(
+        _t(q), _t(k), _t(v), _t(lw), None if u is None else _t(u), mode, 64)
+    ju = jnp.asarray(u) if u is not None else jnp.ones((h, dk))
+    pallas = linear_attention_pallas(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(lw),
+                                     None if u is None else ju, mode=mode)
+    rec = rwkv6_recurrent_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              jnp.asarray(lw), ju, mode=mode)
+    np.testing.assert_allclose(out.numpy(), _np(pallas), **LIN)
+    np.testing.assert_allclose(out.numpy(), _np(rec), **LIN)
+    _, jstate = jax_chunked_linear_attention(
+        *(jnp.asarray(x) for x in (q, k, v, lw)),
+        bonus=None if u is None else ju, mode=mode, chunk_size=64)
+    np.testing.assert_allclose(state.numpy(), _np(jstate), **LIN)
+
+
+def test_tf32_rounding_model_is_round_to_nearest_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10                       # TF32 spacing at 1
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2**-23,
+                      one + 3 * ulp / 2, 3.0e27, 0.0])
+    np.testing.assert_array_equal(
+        _tf32(x).numpy(),
+        np.asarray([one + ulp, -(one + ulp), one, one + 2 * ulp,
+                    _tf32(torch.tensor([3.0e27])).item(), 0.0], np.float32))
+    assert (_tf32(torch.randn(1000)).view(torch.int32) & 0x1FFF).eq(0).all()
 
 
 def test_linear_attention_rejects_chunks_past_the_decay_contract():
