@@ -41,18 +41,36 @@ failed check raises and the script exits non-zero:
    ``pars_bert_base``-width ranking predictor, seeded on the card: a burst
    of 16 requests under PARS and under FCFS. Every kernel's launch count is
    set to 0 just before each run and read just after. Then the command-line
-   launcher (``repro_torch.launch.serve --full``) serves a short burst of
-   each architecture.
+   launcher (``repro_torch.launch.serve --full``) trains its full-width
+   predictor and serves a short burst, for each architecture.
 5. Profiles, after every unprofiled run (bursts that followed a profiler
    session in the same process were seen to run slower): each FCFS burst
    once more under the profiler, giving device time by kernel (the port's
    own kernels listed wherever they rank) and the device's busy share of
    the unprofiled run's wall time; then the device time of each kernel
    that one call of each kernel launches, at the record's shapes.
+6. Training the ranking predictor on the card: the mini predictor to the
+   reference's bar (pairwise, held-out Kendall tau_b >= 0.45), one epoch
+   each of the pointwise and listwise baselines, and the serve launcher's
+   full-width ``pars_bert_base`` predictor (loss, ms per step and held-out
+   tau_b per epoch). A non-finite loss fails.
+7. Trained PARS on the served path: a 32-request burst on full
+   ``llama3_2_3b`` (phase 4's paged engine) under FCFS, PARS with the
+   phase-6 predictor and oracle SJF; every request finishes, the scorer
+   never fails, the predictor's tau_b on the burst is above 0. Latencies
+   are logged, not asserted.
+8. Training the LM: full-width ``llama3_2_3b`` cut to 4 layers, f32, TF32
+   off: the training forward (chunked attention) within 1e-3 of the kernel
+   path's logits, one train step's loss and grad norm on the card within
+   1e-3 relative of the CPU's; then the full model in bf16 with remat, ten
+   steps on one batch of 4 x 64 (the loss falls, grad norms are finite;
+   ms per step, tokens/s, peak memory, share of the bf16 peak), and the
+   train launcher (``repro_torch.launch.train --full``) for two steps.
 
-The last lines are a JSON object of per-kernel numbers and then
-``{"ok": true, "device": {...}}``. It exits non-zero, printing no result,
-where no CUDA card is visible or the package cannot be imported.
+The last lines are a JSON object of training numbers, one of per-kernel
+numbers and then ``{"ok": true, "device": {...}}``. It exits non-zero,
+printing no result, where no CUDA card is visible or the package cannot be
+imported.
 """
 from __future__ import annotations
 
@@ -146,6 +164,18 @@ def kernel_ms(fn, calls: int = 50) -> dict:
             name = name.split("::")[-1].strip()
             times[name] = times.get(name, 0.0) + t / 1e3 / calls
     return times
+
+
+def device_rows(prof) -> list:
+    """``[(device ms, calls, name)]`` of a ``torch.profiler`` session, one
+    row per kernel or copy that ran on the device."""
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0.0))
+        if t > 0:
+            rows.append((t / 1e3, e.count, e.key))
+    return rows
 
 
 def cold_copies(bytes_read: float) -> int:
@@ -902,6 +932,253 @@ def phase_serve(dev, arch: str, kernels) -> dict:
     return launches["pars"], walls["fcfs"]
 
 
+# ---------------------------------------------------------------------------
+# Phases 6 to 8: training
+# ---------------------------------------------------------------------------
+EPOCH_LINE = re.compile(r"epoch (\d+): loss ([-\d.naif]+) \((\d+) steps, "
+                        r"([\d.]+) ms/step\)")
+
+
+def _epochs(lines) -> list:
+    """``[{"epoch", "loss", "steps", "ms_per_step"}]`` from the training
+    log lines of ``train_predictor``; fails on a non-finite loss."""
+    out = []
+    for line in lines:
+        m = EPOCH_LINE.search(line)
+        if m is None:
+            raise AssertionError(f"unexpected training log line: {line!r}")
+        rec = {"epoch": int(m[1]), "loss": float(m[2]), "steps": int(m[3]),
+               "ms_per_step": float(m[4])}
+        if not np.isfinite(rec["loss"]) or rec["steps"] == 0:
+            raise AssertionError(f"predictor training failed: {line!r}")
+        out.append(rec)
+    return out
+
+
+def phase_train_predictor(dev):
+    """The mini predictor to the reference's bar (``tests/test_system.py``:
+    800 alpaca prompts, gpt4 lengths, pairwise, 2 epochs of 2560 pairs,
+    held-out tau_b >= 0.45 on 300 prompts), one epoch each of the pointwise
+    and listwise baselines, then the launcher's full-width pars_bert_base
+    predictor, its held-out tau after each epoch from runs of 1 and 2
+    epochs (the same batches from the same seed). Returns (the full
+    predictor, the numbers)."""
+    from repro_torch.core.predictor import (TrainSettings, evaluate_tau,
+                                            train_predictor)
+    from repro_torch.data.synthetic import make_corpus, sample_lengths
+    from repro_torch.launch import serve as launch_serve
+
+    c_train = make_corpus("alpaca", 800, seed=0)
+    c_test = make_corpus("alpaca", 300, seed=42)
+    l_train = sample_lengths(c_train, "gpt4")
+    l_test = sample_lengths(c_test, "gpt4", run_seed=9)
+    mini = {}
+    for method, epochs in (("pairwise", 2), ("pointwise", 1),
+                           ("listwise", 1)):
+        lines = []
+        st = TrainSettings(method=method, epochs=epochs, pairs_per_epoch=2560,
+                           delta=0.2)
+        pred = train_predictor(c_train.prompts, l_train, settings=st,
+                               log_fn=lines.append, device=dev)
+        tau = evaluate_tau(pred, c_test.prompts, l_test)
+        mini[method] = {"tau": tau, "epochs": _epochs(lines)}
+        log(f"  mini {method}: {lines}; held-out tau_b {tau:.4f}")
+    if not mini["pairwise"]["tau"] >= 0.45:
+        raise AssertionError(f"mini pairwise predictor tau_b "
+                             f"{mini['pairwise']['tau']:.4f} < 0.45")
+
+    max_len = 120                       # the serve launcher's --max-len
+    l_test = np.clip(sample_lengths(c_test, "llama", run_seed=9), 1, max_len)
+    taus = []
+    for epochs in (1, 2):
+        lines = []
+        t0 = time.perf_counter()
+        pred = launch_serve.train_ranker("pars", "llama", max_len, full=True,
+                                         device=dev, epochs=epochs,
+                                         log_fn=lines.append)
+        wall = time.perf_counter() - t0
+        tau = evaluate_tau(pred, c_test.prompts, l_test)
+        log(f"  pars_bert_base, {epochs} epoch(s) in {wall:.1f} s: {lines}; "
+            f"held-out tau_b {tau:.4f}")
+        taus.append(tau)
+    per_epoch = _epochs(lines)
+    for rec, tau in zip(per_epoch, taus):
+        rec["tau"] = tau
+    full = {"params": sum(t.numel() for t in _leaves(pred.params)),
+            "epochs": per_epoch}
+    return pred, {"mini": mini, "pars_bert_base": full}
+
+
+def phase_trained_pars(dev, predictor) -> dict:
+    """A 32-request burst (alpaca seed 9, llama lengths clipped to 1..64) on
+    full llama3_2_3b with phase 4's paged engine, under FCFS, PARS with the
+    phase-6 predictor and oracle SJF. Checks are deterministic only; the
+    latencies are logged."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.predictor import kendall_tau_b
+    from repro_torch.core.scheduler.policies import (fcfs, make_policy,
+                                                     oracle_sjf)
+    from repro_torch.data.synthetic import make_corpus, sample_lengths
+    from repro_torch.data.workload import burst_arrivals, make_requests
+    from repro_torch.models import transformer as tfm
+
+    arch = "llama3_2_3b"
+    cfg = get_config(arch)
+    params = tfm.init_params(cfg, SEED, device=dev)
+    corpus = make_corpus("alpaca", 32, seed=9)
+    lengths = np.clip(sample_lengths(corpus, "llama"), 1, 64)
+    tau = kendall_tau_b(predictor.score(corpus.prompts), lengths)
+    log(f"  trained predictor's tau_b on the burst's lengths: {tau:.4f}")
+    if not tau > 0:
+        raise AssertionError(f"trained predictor tau_b {tau:.4f} <= 0 on "
+                             f"the burst")
+    serve_once(cfg, params, fcfs(), dev, burst(2, seed=99), arch)   # warm
+    out = {"burst_tau": tau}
+    for name, policy in (("fcfs", fcfs()),
+                         ("pars", make_policy("pars", predictor)),
+                         ("oracle_sjf", oracle_sjf())):
+        reqs = make_requests(corpus, lengths, burst_arrivals(32))
+        _, fin, rep, wall = serve_once(cfg, params, policy, dev, reqs, arch)
+        log(f"  {rep.row()} (wall {wall:.2f} s)")
+        if len(fin) != 32 or any(len(r.generated_tokens) != r.true_length
+                                 for r in fin):
+            raise AssertionError(f"trained-PARS burst under {name}: "
+                                 f"{len(fin)} of 32 finished whole")
+        if policy.scorer_failures or policy.degradations:
+            raise AssertionError(f"{name}: the predictor failed")
+        out[name] = {"avg_per_token_s": rep.avg_per_token_latency,
+                     "p90_per_token_s": rep.p90_per_token_latency,
+                     "ttft_s": rep.avg_ttft, "wall_s": wall}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_lm(dev) -> dict:
+    """Full-width llama3_2_3b cut to 4 layers, f32, TF32 off: the training
+    forward (chunked attention) against the kernel path's logits at 1e-3,
+    and one train step's loss and grad norm on the card against the CPU at
+    1e-3 relative. Then the full model in bf16 with remat: ten steps of the
+    launcher's optimizer on one repeated batch of 4 x 64 (the loss must
+    fall, every grad norm be finite), and the launcher itself for two."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import example_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import Adam, cosine_schedule
+    from repro_torch.training.train_loop import make_train_step
+
+    def optimizer(steps):                # launch/train.py's
+        return Adam(learning_rate=cosine_schedule(3e-4, 5, steps),
+                    clip_norm=1.0)
+
+    cfg = get_config("llama3_2_3b").replace(num_layers=4, dtype="float32")
+    params = tfm.init_params(cfg, SEED, device=dev)
+    batch = example_batch(cfg, 2, 32, 1, device=dev)
+    with torch.no_grad():
+        train_logits, _, _ = tfm.forward_seq(params, cfg, batch["tokens"],
+                                             attn_impl="chunked")
+        kernel_logits, _, _ = tfm.forward_seq(params, cfg, batch["tokens"])
+    err = check_close("4-layer f32 training forward (chunked attention) vs "
+                      "kernel path", train_logits, kernel_logits, 1e-3)
+    del train_logits, kernel_logits
+    metrics = {}
+    cpu = torch.device("cpu")
+    copies = {"card": params, "cpu": _tree_to(params, cpu)}  # before a step
+    for where, device in (("card", dev), ("cpu", cpu)):
+        p = copies.pop(where)
+        b = {k: v.to(device) for k, v in batch.items()}
+        opt = optimizer(10)
+        t0 = time.perf_counter()
+        _, _, m = make_train_step(cfg, opt, remat="full")(p, opt.init(p), b)
+        metrics[where] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        log(f"  4-layer f32 train step on the {where}: {metrics[where]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del p
+    for k in ("loss", "grad_norm"):
+        a, b = metrics["card"][k], metrics["cpu"][k]
+        if not abs(a - b) <= 1e-3 * abs(b):
+            raise AssertionError(f"train step {k}: card {a} vs CPU {b}")
+    del params
+    torch.cuda.empty_cache()
+
+    cfg = get_config("llama3_2_3b")
+    steps, b, s = 10, 4, 64
+    params = tfm.init_params(cfg, SEED, device=dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    opt = optimizer(steps)
+    state = opt.init(params)
+    step = make_train_step(cfg, opt, remat="full")
+    batch = example_batch(cfg, b, s, 1, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, secs = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))          # waits for the step
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    ms = 1e3 * float(np.mean(secs[1:]))
+    tokens_s = b * s / (ms / 1e3)
+    share = 6 * n_params * b * s / (ms / 1e3) / BF16_FLOPS_S
+    log(f"  full llama3_2_3b bf16 remat=full, batch {b} x {s}: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 3) for x in norms]}; {ms:.1f} ms/step after the first "
+        f"({1e3 * secs[0]:.1f} ms), {tokens_s:.0f} tokens/s, peak "
+        f"{peak / 1e9:.2f} GB, {share:.4f} of the bf16 peak (6 N tokens)")
+    if not all(np.isfinite(norms)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"full-width training: losses {losses}, grad "
+                             f"norms {norms}")
+    # where a step's time goes: one more step under the profiler (after the
+    # timed ones), device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = sorted(device_rows(prof), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"  profiled step: device busy {busy:.1f} ms of {wall_ms:.1f} ms wall")
+    for t, count, key in rows[:12]:
+        log(f"    {t:9.2f} ms {t / max(busy, 1e-9):6.1%} {count:6d} calls  "
+            f"{key[:90]}")
+    # and the host's side of one more step: operators and CUDA runtime
+    # calls (traced with the device activity) by their own host time
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        params, state, m = step(params, state, batch)
+        float(m["loss"])
+    host = sorted(((e.self_cpu_time_total / 1e3, e.count, e.key)
+                   for e in prof.key_averages()), reverse=True)
+    log("  profiled step, host time by operator or runtime call:")
+    for t, count, key in host[:10]:
+        log(f"    {t:9.2f} ms {count:6d} calls  {key[:90]}")
+    del params, state
+    torch.cuda.empty_cache()
+    _, history = launch_train.main(["--full", "--steps", "2", "--batch", "2",
+                                    "--seq", "32", "--device", str(dev)])
+    if not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"train launcher: {history}")
+    torch.cuda.empty_cache()
+    return {"f32_4_layers": {"logits_max_abs_err": err, **{
+                f"{k}_{d}": v for d, m in metrics.items()
+                for k, v in m.items()}},
+            "llama3_2_3b_bf16": {
+                "params": n_params, "batch": b, "seq": s, "losses": losses,
+                "grad_norms": norms, "first_step_ms": 1e3 * secs[0],
+                "ms_per_step": ms, "tokens_per_s": tokens_s,
+                "peak_memory_bytes": peak, "bf16_peak_share": share,
+                "profiled_step": {
+                    "wall_ms": wall_ms, "device_busy_ms": busy,
+                    "top": [{"ms": t, "calls": c, "kernel": k[:90]}
+                            for t, c, k in rows[:8]],
+                    "host_top": [{"ms": t, "calls": c, "op": k[:90]}
+                                 for t, c, k in host[:6]]}}}
+
+
 # the kernels of src/repro_torch/kernels/csrc, as the profiler names them
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
                 "flash_prefill_wgmma_kernel", "flash_prefill_kernel",
@@ -930,12 +1207,7 @@ def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
         torch.cuda.synchronize()
     del params
     torch.cuda.empty_cache()
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     log(f"  profile ({arch} fcfs burst): device busy {busy:.1f} ms; wall "
         f"{wall * 1e3:.1f} ms profiled, {wall_unprofiled * 1e3:.1f} ms "
@@ -954,8 +1226,9 @@ def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
 
 
 def _tree_to(tree, device):
-    return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    """A copy of ``tree`` on ``device``."""
+    return {k: _tree_to(v, device) if isinstance(v, dict)
+            else v.to(device, copy=True) for k, v in tree.items()}
 
 
 def _leaves(tree):
@@ -1035,7 +1308,19 @@ def main() -> int:
         e["launches"] = sum(run.get(e["name"], 0) for run in served)
         if e["launches"] == 0:
             raise AssertionError(f"{e['name']} never launched while serving")
+
+    log(f"== phase 6: training the ranking predictor "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    predictor, training = phase_train_predictor(dev)
+    log(f"== phase 7: trained PARS on the served path "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    training["trained_pars_burst"] = phase_trained_pars(dev, predictor)
+    del predictor
+    log(f"== phase 8: training the LM (at {time.perf_counter() - t_start:.1f}"
+        f" s)")
+    training["lm"] = phase_train_lm(dev)
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"training": training}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -37,6 +37,20 @@ def to_tensor(arr: np.ndarray, device: DeviceLike = "cuda") -> torch.Tensor:
     return t.to(resolve_device(device))
 
 
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """``{"a": {"b": leaf}}`` -> ``{"a/b": leaf}``, keys in sorted order at
+    every level: the reference's leaf order (``jax.tree_util`` sorts dict
+    keys), so sums over leaves add in the same order."""
+    flat: Dict[str, Any] = {}
+    for key in sorted(tree):
+        node = tree[key]
+        if isinstance(node, Mapping):
+            flat.update(flatten(node, f"{prefix}{key}/"))
+        else:
+            flat[f"{prefix}{key}"] = node
+    return flat
+
+
 def unflatten(flat: Mapping[str, Any]) -> Tree:
     """``{"a/b/c": leaf}`` -> ``{"a": {"b": {"c": leaf}}}``."""
     tree: Tree = {}

@@ -114,6 +114,20 @@ def require_aligned(what: str, *tensors: torch.Tensor) -> None:
         raise ValueError(f"{what}: operands must be 16-byte aligned")
 
 
+def refuse_grad(what: str, *tensors) -> None:
+    """The kernels have no backward: their wrappers return fresh tensors
+    filled outside autograd, so a gradient through one would be dropped
+    without a word. Raise instead, on the CPU too, when grad mode is on
+    and a float operand requires grad."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.is_floating_point() and t.requires_grad
+            for t in tensors):
+        raise RuntimeError(
+            f"{what}: the kernel has no backward, and an operand requires "
+            f"grad; call it under torch.no_grad(), or train through the "
+            f"plain attention (forward_seq(..., attn_impl='chunked'))")
+
+
 def require_cuda_operands(what: str, *tensors: torch.Tensor) -> None:
     """Kernel wrappers take CUDA tensors on one device, contiguous."""
     index = tensors[0].get_device()

@@ -96,7 +96,9 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     sequence with ``lengths[b] == 0`` gets the uniform average of its table's
     rows, as the reference does. On the card the call launches the split
     kernel and, when a table spans more than one split, the merge kernel;
-    ``launches`` counts calls."""
+    ``launches`` counts calls. Refuses operands that require grad (no
+    backward)."""
+    build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
     if q.is_cpu:
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths)
@@ -184,7 +186,9 @@ def ring_decode_attention(q: torch.Tensor, k_lanes: torch.Tensor,
     Lane row j holds position ``pos - ((pos - j) mod W)``; it counts when
     that is >= 0 and, with a window, within ``window`` of pos. On the card
     the call launches the split kernel and, when the lane spans more than
-    one split, the merge kernel; ``launches`` counts calls."""
+    one split, the merge kernel; ``launches`` counts calls. Refuses operands
+    that require grad (no backward)."""
+    build.refuse_grad("ring_decode_attention", q, k_lanes, v_lanes)
     if q.device.type == "cpu":
         return ring_decode_attention_plain(q, k_lanes, v_lanes, slots, pos,
                                            window=window)

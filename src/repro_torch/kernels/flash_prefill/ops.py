@@ -112,7 +112,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: (B, H, Sq, dh); k/v: (B, KH, Skv, dh); q_start, kv_len: (B,) int32
-    -> (B, H, Sq, dh). KV head of query head h is ``h // (H // KH)``."""
+    -> (B, H, Sq, dh). KV head of query head h is ``h // (H // KH)``.
+    Refuses operands that require grad (no backward)."""
+    build.refuse_grad("flash_attention", q, k, v)
     if q.is_cpu:
         return flash_attention_plain(q, k, v, q_start, kv_len, causal=causal,
                                      window=window)

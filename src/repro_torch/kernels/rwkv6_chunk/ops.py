@@ -102,8 +102,10 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     was. ``chunk`` is at most 64: the log-decay contract
     (``chunk * MAX_LOG_DECAY <= 80`` keeps ``exp`` of the in-chunk sums in
     f32 range) and the kernel's shared-memory tiles both bound it. On the
-    card dk is 16, 32 or 64 and dv a multiple of 8 up to 64."""
+    card dk is 16, 32 or 64 and dv a multiple of 8 up to 64. Refuses
+    operands that require grad (no backward)."""
     what = "linear_attention"
+    build.refuse_grad(what, q, k, v, log_decay, bonus)
     if mode not in ("rwkv", "ssd"):
         raise ValueError(f"{what}: mode must be 'rwkv' or 'ssd'")
     if chunk not in CHUNKS:

@@ -11,11 +11,13 @@ with ``--full`` its published widths in bf16), with seeded random weights,
 serves a burst (or a Poisson stream), and prints the paper's latency
 metrics. The KV mode follows the architecture, as in the reference: a paged
 pool for ``llama3_2_3b``, contiguous ring lanes for the sliding-window
-hybrid ``hymba_1_5b``. PARS-family policies rank with a
-ranking predictor loaded from ``--predictor PATH.npz`` (a checkpoint the
-reference's ``RankingPredictor.save`` wrote), or else with a seeded,
-untrained predictor at the chosen width (``pars_bert_base``'s full BERT-base
-widths with ``--full``). Training the predictor waits for a later slice.
+hybrid ``hymba_1_5b``. PARS-family policies rank with a predictor
+trained here as the reference's launcher trains it (:func:`train_ranker`:
+1000 alpaca prompts, the workload's lengths clipped to ``--max-len``, two
+epochs of 2048 δ-filtered pairs, at the mini width or, with ``--full``, at
+``pars_bert_base``'s BERT-base width), or loaded from ``--predictor
+PATH.npz`` (a checkpoint of ``RankingPredictor.save``, the port's or the
+reference's).
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ import numpy as np
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs import pars_bert_base
-from repro_torch.core.predictor.train import RankingPredictor
+from repro_torch.core.predictor.tokenizer import HashTokenizer
+from repro_torch.core.predictor.train import (RankingPredictor, TrainSettings,
+                                              train_predictor)
 from repro_torch.core.scheduler.policies import make_policy
 from repro_torch.data.synthetic import MODELS, make_corpus, sample_lengths
 from repro_torch.data.workload import (burst_arrivals, make_requests,
@@ -33,6 +37,29 @@ from repro_torch.data.workload import (burst_arrivals, make_requests,
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import serve
+
+
+def train_ranker(policy: str, workload: str, max_len: int, *, full: bool,
+                 device, epochs: int = 2, log_fn=print) -> RankingPredictor:
+    """The ranking predictor of a PARS-family ``policy`` (``pars``,
+    ``pointwise`` or ``listwise``), trained as the reference's launcher
+    trains it (two epochs), at the mini width or (``full``) at
+    ``pars_bert_base``'s. Runs of fewer ``epochs`` see the same first
+    batches from the same seed."""
+    method = {"pars": "pairwise"}.get(policy, policy)
+    c_train = make_corpus("alpaca", 1000, seed=1)
+    lengths = np.clip(sample_lengths(c_train, workload), 1, max_len)
+    tokenizer, pcfg = None, None
+    if full:
+        pcfg = pars_bert_base.CONFIG
+        tokenizer = HashTokenizer(vocab_size=pcfg.vocab_size,
+                                  max_len=pcfg.max_len)
+    return train_predictor(
+        c_train.prompts, lengths,
+        settings=TrainSettings(method=method, epochs=epochs,
+                               pairs_per_epoch=2048,
+                               delta=MODELS[workload].delta),
+        tokenizer=tokenizer, pcfg=pcfg, log_fn=log_fn, device=device)
 
 
 def main(argv=None):
@@ -57,26 +84,22 @@ def main(argv=None):
                     help="published widths in bf16 instead of the f32 smoke "
                     "config")
     ap.add_argument("--predictor", default=None, metavar="PATH.npz",
-                    help="ranking-predictor checkpoint (default: a seeded "
-                    "untrained predictor)")
+                    help="ranking-predictor checkpoint (default: train one)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    if args.full:
-        cfg = get_config(args.arch)
-        pcfg = pars_bert_base.CONFIG
-    else:
-        cfg = get_smoke_config(args.arch).replace(dtype="float32",
-                                                  vocab_size=2048)
-        pcfg = pars_bert_base.smoke_config()
-    params = tfm.init_params(cfg, 0, device=dev)
+    cfg = (get_config(args.arch) if args.full else
+           get_smoke_config(args.arch).replace(dtype="float32",
+                                               vocab_size=2048))
 
     predictor = None
     if args.policy in ("pars", "pointwise", "listwise"):
         predictor = (RankingPredictor.load(args.predictor, device=dev)
                      if args.predictor else
-                     RankingPredictor.init(pcfg, 0, device=dev))
+                     train_ranker(args.policy, args.workload, args.max_len,
+                                  full=args.full, device=dev))
     policy = make_policy(args.policy, predictor)
+    params = tfm.init_params(cfg, 0, device=dev)
 
     c = make_corpus("alpaca", args.requests, seed=9)
     lengths = np.clip(sample_lengths(c, args.workload), 1, args.max_len)

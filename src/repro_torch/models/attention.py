@@ -6,7 +6,10 @@ Port of ``repro/models/attention.py``.
   bidirectional / sliding-window masks from absolute positions, operands in
   their storage dtype with f32 accumulation and f32 softmax, finite
   ``NEG_INF``). The ranking predictor uses it, and the tests hold the kernel
-  paths against it.
+  paths against it. :func:`attention_chunked` (online softmax over KV
+  chunks) and the dispatcher :func:`attention` are the reference's other
+  XLA path; with the naive form they carry the LM's training forward,
+  which needs gradients the kernels do not have.
 * The LM's attention runs on the hand-written kernels:
   :func:`prefill_attention` (first prefill chunks over their own K/V, and
   continuation chunks at per-row offsets over a gathered lane), and one
@@ -70,6 +73,59 @@ def attention_naive(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      pos_q: torch.Tensor, pos_kv: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV in chunks of ``kv_chunk`` (the
+    reference's flash-style XLA path, a Python loop where it scans).
+
+    Peak live memory: (B,KH,G,Sq,kv_chunk) scores instead of (...,S_kv);
+    running max and sum in f32. Ragged sizes take :func:`attention_naive`,
+    as the reference does. Plain and differentiable: the LM's training
+    path."""
+    b, sq, h, d = q.shape
+    skv, kh = k.shape[1], k.shape[2]
+    if skv % kv_chunk != 0:
+        return attention_naive(q, k, v, pos_q, pos_kv, causal=causal,
+                               window=window)
+    g = h // kh
+    qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4).float()
+    scale = d ** -0.5
+    m = torch.full((b, kh, g, sq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, kh, g, sq, 1), device=q.device)
+    acc = torch.zeros((b, kh, g, sq, d), device=q.device)
+    for c0 in range(0, skv, kv_chunk):
+        kc, vc = k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk]
+        s = torch.einsum("bkgqd,bckd->bkgqc", qg, kc.float()) * scale
+        mask = _mask(pos_q, pos_kv[:, c0:c0 + kv_chunk], causal=causal,
+                     window=window)
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + torch.einsum("bkgqc,bckd->bkgqd",
+                                        p.to(vc.dtype).float(), vc.float())
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, d).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              pos_q: torch.Tensor, pos_kv: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              impl: str = "chunked", kv_chunk: int = 1024) -> torch.Tensor:
+    """The reference's dispatcher: :func:`attention_naive` when
+    ``impl == "naive"`` or the keys fit one chunk, else
+    :func:`attention_chunked`."""
+    if impl == "naive" or k.shape[1] <= kv_chunk:
+        return attention_naive(q, k, v, pos_q, pos_kv, causal=causal,
+                               window=window)
+    return attention_chunked(q, k, v, pos_q, pos_kv, causal=causal,
+                             window=window, kv_chunk=kv_chunk)
 
 
 # ---------------------------------------------------------------------------

@@ -40,21 +40,26 @@ Attention runs on the port's kernels: prefill attention for
 :func:`forward_chunk` (per-row offsets over lanes gathered from the cache),
 paged or ring decode attention for :func:`decode_step` (no gather). The
 HYBRID family's SSM runs the chunked linear-attention kernel in prefill.
+The kernels have no backward (their wrappers refuse operands that require
+grad): training runs :func:`forward_seq` with ``attn_impl="naive"`` or
+``"chunked"``, the reference's plain attention, for the dense family.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import DENSE, HYBRID, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                   ring_decode_attention)
 from repro_torch.models import ssm as ssd
-from repro_torch.models.attention import (gather_lane, prefill_attention,
-                                          prefill_cache, update_cache,
-                                          write_paged)
+from repro_torch.models.attention import (attention, gather_lane,
+                                          prefill_attention, prefill_cache,
+                                          update_cache, write_paged)
 from repro_torch.models.common import (activate, apply_norm, apply_rope,
                                        dense_init, embed_init, gated,
                                        init_norm, positions_for)
@@ -137,12 +142,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return params
 
 
-def layer_params(params: Params, layer: int) -> Params:
-    """Layer ``layer``'s slice of the stacked ``params["layers"]`` tree."""
-    def pick(tree):
-        return ({k: pick(v) for k, v in tree.items()}
-                if isinstance(tree, dict) else tree[layer])
-    return pick(params["layers"])
+def unstack_layers(params: Params) -> List[Params]:
+    """The stacked ``params["layers"]`` tree as one tree per layer, each
+    leaf unbound once along its ``num_layers`` axis. Under autograd the
+    backward of one ``unbind`` stacks the layers' gradients into one
+    (L, ...) tensor, where indexing each layer would write a zero-filled
+    full-size gradient per layer."""
+    flat = flatten(params["layers"])
+    per_leaf = {key: torch.unbind(leaf, 0) for key, leaf in flat.items()}
+    return [unflatten({key: views[i] for key, views in per_leaf.items()})
+            for i in range(len(next(iter(per_leaf.values()))))]
 
 
 # ===========================================================================
@@ -256,20 +265,74 @@ _NO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0}
 # ===========================================================================
 # Top level
 # ===========================================================================
+def _plain_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, attn_impl: str,
+                 kv_chunk: int) -> torch.Tensor:
+    """One dense layer on the plain, differentiable attention."""
+    q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
+    q, k = _rope_qk(q, k, cfg, positions)
+    out = attention(q, k, v, positions, positions, causal=True,
+                    window=cfg.sliding_window, impl=attn_impl,
+                    kv_chunk=kv_chunk)
+    return _ffn_residual(lp, x + _attn_proj(lp, out), cfg)
+
+
+def _forward_plain(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                   attn_impl: str, kv_chunk: int, remat: str):
+    """The training forward: dense layers on the plain attention, each
+    layer recomputed in backward under ``remat="full"``."""
+    if cfg.family != DENSE:
+        raise NotImplementedError(
+            f"attn_impl={attn_impl!r} runs the dense family; training the "
+            f"{cfg.family} family (through the plain SSD scan) waits for "
+            f"ROADMAP item A8 (hybrid training)")
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    positions = positions_for(b, 0, s, x.device)
+    for lp in unstack_layers(params):
+        args = (lp, x, cfg, positions, attn_impl, kv_chunk)
+        x = (checkpoint(_plain_layer, *args, use_reentrant=False)
+             if remat == "full" and torch.is_grad_enabled()
+             else _plain_layer(*args))
+    return _final(params, cfg, x), None, dict(_NO_AUX)
+
+
 def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 build_cache: bool = False, cache_len: int = 0,
-                cache: Optional[Cache] = None
+                cache: Optional[Cache] = None, attn_impl: str = "kernel",
+                kv_chunk: int = 1024, remat: str = "none"
                 ) -> Tuple[torch.Tensor, Optional[Cache], dict]:
     """Full-sequence forward from position 0. tokens: (B, S) int.
 
-    Returns ``(logits (B, S, V), cache-or-None, aux)``. With ``cache`` the
-    prompt's K/V rows ``[0, S)`` are written into it through its tables or
-    into its slots' lanes (a prompt longer than a lane keeps its last W
-    rows at their ring slots), HYBRID's conv tail and SSM state land in the
-    slots, and ``pos`` becomes S (the serving engine's first-chunk
-    prefill); ``build_cache=True`` does the same into a fresh
-    ``init_cache(cfg, B, cache_len)``."""
+    Returns ``(logits (B, S, V), cache-or-None, aux)``.
+
+    ``attn_impl="kernel"`` (serving) runs the prefill kernel, which has no
+    backward. With ``cache`` the prompt's K/V rows ``[0, S)`` are written
+    into it through its tables or into its slots' lanes (a prompt longer
+    than a lane keeps its last W rows at their ring slots), HYBRID's conv
+    tail and SSM state land in the slots, and ``pos`` becomes S (the
+    serving engine's first-chunk prefill); ``build_cache=True`` does the
+    same into a fresh ``init_cache(cfg, B, cache_len)``.
+
+    ``attn_impl="naive"`` or ``"chunked"`` (training) runs the reference's
+    plain, differentiable attention (:func:`models.attention.attention`,
+    chunks of ``kv_chunk`` keys) for the dense family, and builds no cache.
+    ``remat="full"`` recomputes each layer's activations in backward
+    (``torch.utils.checkpoint``); the reference's ``"dots"`` policy is not
+    ported."""
     check_supported(cfg)
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat={remat!r}: the port takes 'none' or 'full'")
+    if attn_impl != "kernel":
+        if attn_impl not in ("naive", "chunked"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}")
+        if cache is not None or build_cache:
+            raise ValueError(f"attn_impl={attn_impl!r} builds no cache; "
+                             f"prefill into a cache runs the kernel path")
+        return _forward_plain(params, cfg, tokens, attn_impl, kv_chunk, remat)
+    if remat != "none":
+        raise ValueError("remat needs the plain attention: the kernel path "
+                         "has no backward")
     b, s = tokens.shape
     x = params["embed"][tokens]
     dev = x.device
@@ -278,8 +341,7 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     positions = positions_for(b, 0, s, dev)
     q_start = torch.zeros(b, dtype=torch.int32, device=dev)
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
-    for layer in range(cfg.num_layers):
-        lp = layer_params(params, layer)
+    for layer, lp in enumerate(unstack_layers(params)):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
         q, k, v = _qkv(lp["attn"], xn, cfg)
         q, k = _rope_qk(q, k, cfg, positions)
@@ -331,8 +393,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                              device=x.device)[None, :]
     kv_len = pos0 + c
     paged = "tables" in cache
-    for layer in range(cfg.num_layers):
-        lp = layer_params(params, layer)
+    for layer, lp in enumerate(unstack_layers(params)):
         q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
         q, k = _rope_qk(q, k, cfg, positions)
         k_all, v_all = cache["k"][layer], cache["v"][layer]
@@ -376,8 +437,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     else:
         slots = cache["slots"].to(torch.int32)
         rows = slots.long()
-    for layer in range(cfg.num_layers):
-        lp = layer_params(params, layer)
+    for layer, lp in enumerate(unstack_layers(params)):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
         q, k, v = _qkv(lp["attn"], xn, cfg)
         q, k = _rope_qk(q, k, cfg, positions)

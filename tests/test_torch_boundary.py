@@ -23,7 +23,8 @@ WHOLE_COPIES = [
     "configs/hymba_1_5b.py", "configs/pars_bert_base.py", "core/__init__.py",
     "core/scheduler/__init__.py", "core/scheduler/request.py",
     "core/scheduler/policies.py", "core/scheduler/scheduler.py",
-    "core/predictor/tokenizer.py", "serving/config.py", "serving/kv_cache.py",
+    "core/predictor/tokenizer.py", "core/predictor/pairing.py",
+    "core/predictor/metrics.py", "serving/config.py", "serving/kv_cache.py",
     "serving/core.py", "data/__init__.py", "data/synthetic.py",
     "data/workload.py",
 ]
@@ -67,6 +68,8 @@ def test_port_imports_with_jax_and_reference_unavailable():
             "import repro_torch.core.predictor\n"
             "import repro_torch.models.ssm\n"
             "import repro_torch.kernels.rwkv6_chunk.ops\n"
+            "import repro_torch.training, repro_torch.launch.train\n"
+            "from repro_torch.models import lm_loss\n"
             "assert not [m for m in sys.modules\n"
             "            if m.split('.')[0] in ('jax', 'repro')\n"
             "            and sys.modules[m] is not None]\n")

@@ -719,3 +719,48 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
                      torch.ones(1, 1, 8, 4), -torch.ones(1, 1, 8, 1) / 2,
                      mode="ssd", chunk=32)
     assert [w.launches for w in wrappers] == before
+
+
+# The kernels have no backward: a wrapper given an operand that requires
+# grad under grad mode raises, on the CPU too (where its plain version would
+# otherwise differentiate, and the card would silently drop the gradient).
+def _grad_operand(shape):
+    return torch.randn(*shape).requires_grad_(True)
+
+
+def _refuses_grad(call):
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    with torch.no_grad():          # the same call without grad mode runs
+        call()
+
+
+def test_paged_decode_refuses_grad():
+    pool = torch.randn(3, 16, 1, 32)
+    tables = torch.tensor([[0, 1]], dtype=torch.int32)
+    lengths = torch.tensor([20], dtype=torch.int32)
+    _refuses_grad(lambda: paged_decode_attention(
+        _grad_operand((1, 2, 32)), pool, pool, tables, lengths))
+
+
+def test_prefill_refuses_grad():
+    kv = torch.randn(1, 1, 8, 32)
+    zero = torch.zeros(1, dtype=torch.int32)
+    full = torch.full((1,), 8, dtype=torch.int32)
+    _refuses_grad(lambda: flash_attention(
+        torch.randn(1, 2, 8, 32), _grad_operand((1, 1, 8, 32)), kv, zero,
+        full))
+
+
+def test_ring_decode_refuses_grad():
+    lanes = torch.randn(2, 1, 8, 32)
+    _refuses_grad(lambda: ring_decode_attention(
+        torch.randn(1, 2, 32), lanes, _grad_operand((2, 1, 8, 32)),
+        torch.tensor([1], dtype=torch.int32),
+        torch.tensor([5], dtype=torch.int32)))
+
+
+def test_linear_attention_refuses_grad():
+    x = torch.ones(1, 1, 8, 4)
+    _refuses_grad(lambda: linear_attention(
+        x, x, x, -_grad_operand((1, 1, 8, 1)).abs(), mode="ssd", chunk=32))
