@@ -20,7 +20,9 @@ failed check raises and the script exits non-zero:
    and rows on one slot and pos bitwise), chunked linear attention at 5e-4
    (its final state included, also against a token-by-token recurrence and
    with every step's log-decay at the contract's edge; its bare 3xTF32
-   tile against plain matrix products at 1e-5).
+   tile against plain matrix products at 1e-5), in ``ssd`` mode at
+   Hymba's heads and in ``rwkv`` mode at RWKV-6 7B's served prefill shape
+   (8 x 128 tokens) and at 4 x 256.
    Times the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (``library_ms``, timed here
    only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
@@ -33,16 +35,23 @@ failed check raises and the script exits non-zero:
 3. Parity at full width, cut to 4 layers, f32 with TF32 off:
    ``llama3_2_3b``: greedy tokens of a chunked, prefix-cached run equal an
    unchunked, uncached run; ``hymba_1_5b``: greedy decoding across a
-   wrapped ring lane equals the CPU run's tokens. For both, the model's
-   logits on the card agree with the same model run on the CPU through the
-   plain versions.
-4. Serving full ``llama3_2_3b`` (28 layers, bf16, paged KV), then full
-   ``hymba_1_5b`` (32 layers, bf16, contiguous ring lanes), each behind a
-   ``pars_bert_base``-width ranking predictor, seeded on the card: a burst
-   of 16 requests under PARS and under FCFS. Every kernel's launch count is
-   set to 0 just before each run and read just after. Then the command-line
-   launcher (``repro_torch.launch.serve --full``) trains its full-width
-   predictor and serves a short burst, for each architecture.
+   wrapped ring lane equals the CPU run's tokens; ``rwkv6_7b``: a 32-token
+   prefill and 16 greedy decode steps equal the CPU run's tokens. For all
+   three, the model's logits on the card agree with the same model run on
+   the CPU through the plain versions. Then ``nemotron_4_15b`` at its f32
+   smoke width on the paged kernels: a burst's greedy tokens equal the
+   CPU's.
+4. Serving full ``llama3_2_3b`` (28 layers, bf16, paged KV), full
+   ``hymba_1_5b`` (32 layers, bf16, contiguous ring lanes) and full
+   ``rwkv6_7b`` (32 layers, bf16, per-slot recurrent state, no K/V), each
+   behind a ``pars_bert_base``-width ranking predictor, seeded on the card:
+   a burst of 16 requests under PARS and under FCFS. Every kernel's launch
+   count is set to 0 just before each run and read just after: each kernel
+   of the path must have launched, and no kernel of another path. Then the
+   command-line launcher (``repro_torch.launch.serve --full``) serves a
+   short burst of each architecture: under FCFS for llama3_2_3b and
+   hymba_1_5b, under PARS for rwkv6_7b, training its full-width predictor
+   first.
 5. Profiles, after every unprofiled run (bursts that followed a profiler
    session in the same process were seen to run slower): each FCFS burst
    once more under the profiler, giving device time by kernel (the port's
@@ -53,7 +62,11 @@ failed check raises and the script exits non-zero:
    reference's bar (pairwise, held-out Kendall tau_b >= 0.45), one epoch
    each of the pointwise and listwise baselines, and the serve launcher's
    full-width ``pars_bert_base`` predictor (loss, ms per step and held-out
-   tau_b per epoch). A non-finite loss fails.
+   tau_b per epoch). A non-finite loss fails. Then, in each of two child
+   processes with different hash salts, three of that predictor's steps
+   run once with PyTorch's default kernels and twice under deterministic
+   algorithms: the deterministic runs must end with bitwise equal
+   parameters, in one process and across the two.
 7. Trained PARS on the served path: a 32-request burst on full
    ``llama3_2_3b`` (phase 4's paged engine) under FCFS, PARS with the
    phase-6 predictor and oracle SJF; every request finishes, the scorer
@@ -76,6 +89,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -637,8 +651,11 @@ def phase_linear_attention_kernel(dev):
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     entry = None
-    # Hymba's SSD heads at a 128-token bucket, then RWKV-6 7B's heads
+    # Hymba's SSD heads at a 128-token bucket (the record's shape), RWKV-6
+    # 7B's heads at its served prefill shape (8 prompts of 128 tokens), and
+    # at 4 x 256 tokens
     for mode, b, h, t, dk, dv in (("ssd", 8, 50, 128, 16, 64),
+                                  ("rwkv", 8, 64, 128, 64, 64),
                                   ("rwkv", 4, 64, 256, 64, 64)):
         lw_dim = dk if mode == "rwkv" else 1
         occ = {dt: kernel_occupancy(getattr(torch, dt), 64, dk, dv, lw_dim)
@@ -673,24 +690,35 @@ def phase_linear_attention_kernel(dev):
                                     + 4 * c * dk * dv          # state in/out
                                     + 2 * c * (dk + dv))       # diagonal
         bound_ms, bound_by = bound(bytes_moved, flops)
-        log(f"  {mode} bf16: {ms:.4f} ms kernel, {plain_ms:.4f} ms plain, "
-            f"no library call, bound {bound_ms:.5f} ms ({bound_by})")
-        if entry is None:       # the served path's mode goes to the record
-            def kernel(i, q=q, k=k, v=v, lw=lw, u=u, mode=mode):
-                a = (q, k, v, lw) if i == 0 else tuple(
-                    x.clone() for x in (q, k, v, lw))
-                return lambda: linear_attention(*a, u, mode=mode)
+        log(f"  {mode} B={b} T={t} bf16: {ms:.4f} ms kernel, {plain_ms:.4f} "
+            f"ms plain, no library call, bound {bound_ms:.5f} ms "
+            f"({bound_by}, {bytes_moved / 1e6:.2f} MB)")
+        if entry is not None and (b, t) != (8, 128):
+            continue
 
-            t = {}
-            t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
-            log(f"  {mode} bf16, device-only: kernel {t['device_ms']:.5f} ms "
-                f"warm, {t['cold_ms']:.5f} ms L2-cold")
+        def kernel(i, q=q, k=k, v=v, lw=lw, u=u, mode=mode):
+            a = (q, k, v, lw) if i == 0 else tuple(
+                x.clone() for x in (q, k, v, lw))
+            return lambda: linear_attention(*a, u, mode=mode)
+
+        dev_t = {}
+        dev_t["device_ms"], dev_t["cold_ms"] = device_times(kernel,
+                                                            bytes_moved)
+        log(f"  {mode} bf16, device-only: kernel {dev_t['device_ms']:.5f} ms "
+            f"warm, {dev_t['cold_ms']:.5f} ms L2-cold")
+        if entry is not None:   # rwkv mode at RWKV-6 7B's served shape
+            entry.update({"rwkv_max_abs_err": err, "rwkv_ms": ms,
+                          "rwkv_plain_ms": plain_ms,
+                          "rwkv_bound_ms": bound_ms,
+                          "rwkv_bound_by": bound_by,
+                          **{f"rwkv_{k}": v for k, v in dev_t.items()}})
+        else:                   # Hymba's ssd mode: the record's shape
             entry = {"name": "linear_attention", "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/rwkv6_chunk.cu",
                      "replaces": "src/repro/kernels/rwkv6_chunk/kernel.py:75",
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": None, **t,
+                     "library_ms": None, **dev_t,
                      "call": kernel(0)}
     return entry
 
@@ -727,11 +755,14 @@ def burst(n: int = 16, seed: int = SEED):
 # serves from contiguous ring lanes (no chunking or caching, which its SSM
 # state forbids) 128 positions wide, so the longer outputs wrap the ring,
 # under a budget that admits all 8 slots at full demand (128 + 64 positions
-# in 16-token blocks each).
+# in 16-token blocks each); rwkv6_7b, attention-free, keeps only per-slot
+# recurrent state (no chunking or caching either) under the same budget.
 SERVED = {
     "llama3_2_3b": dict(cache_len=512, chunk=64, caching=True, kv_blocks=64),
     "hymba_1_5b": dict(cache_len=128, chunk=None, caching=False,
                        kv_blocks=8 * 12),
+    "rwkv6_7b": dict(cache_len=512, chunk=None, caching=False,
+                     kv_blocks=8 * 12),
 }
 
 
@@ -801,19 +832,21 @@ def phase_parity(dev) -> float:
     return err
 
 
-def phase_hymba_parity(dev) -> float:
-    """Full-width hymba_1_5b cut to 4 layers, f32, TF32 off: a 32-token
-    prefill into 64-row lanes, then 48 greedy decode steps, which wrap the
-    ring; every step's logits on the card agree with the CPU's, and the
-    greedy tokens are equal."""
+def phase_recurrent_parity(dev, arch: str, steps: int) -> float:
+    """Full-width ``arch`` (hymba_1_5b or rwkv6_7b) cut to 4 layers, f32,
+    TF32 off: a 32-token prefill into a 64-position cache, then ``steps``
+    greedy decode steps (past 64, Hymba's ring lanes wrap); every step's
+    logits on the card agree with the CPU's at 1e-3, and the greedy tokens
+    are equal."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
     from repro_torch.models import transformer as tfm
 
-    cfg = get_config("hymba_1_5b").replace(num_layers=4, dtype="float32")
+    cfg = get_config(arch).replace(num_layers=4, dtype="float32")
     params = tfm.init_params(cfg, SEED, device=dev)
     prompt = torch.as_tensor(np.random.default_rng(2).integers(
         0, cfg.vocab_size, (2, 32)))
-    steps, width = 48, 64
+    width = 64
 
     def run(tree, device):
         cache = tfm.init_cache(cfg, 2, width, device=device)
@@ -828,18 +861,63 @@ def phase_hymba_parity(dev) -> float:
             nxt = lg1.argmax(-1)
         return torch.stack(logits, 1), torch.stack(toks, 1)
 
+    linear_attention.launches = 0
     lg, toks = run(params, dev)
-    ref, ref_toks = run(_tree_to(params, "cpu"), torch.device("cpu"))
+    if linear_attention.launches != cfg.num_layers:
+        raise AssertionError(f"{arch} prefill launched the chunked kernel "
+                             f"{linear_attention.launches} times, not once "
+                             f"per layer")
+    cpu_params = _tree_to(params, "cpu")
+    del params
+    torch.cuda.empty_cache()
+    ref, ref_toks = run(cpu_params, torch.device("cpu"))
     if not bool(torch.isfinite(lg).all()):
-        raise AssertionError("non-finite hymba logits")
-    err = check_close("hymba 4-layer logits card vs CPU, prefill and 48 "
-                      "decode steps", lg, ref, 1e-3)
+        raise AssertionError(f"non-finite {arch} logits")
+    err = check_close(f"{arch} 4-layer logits card vs CPU, prefill and "
+                      f"{steps} decode steps", lg, ref, 1e-3)
     if not torch.equal(toks, ref_toks):
-        raise AssertionError("hymba greedy tokens across the ring wrap "
-                             "differ between the card and the CPU")
-    log(f"  hymba greedy tokens equal the CPU's over {steps} steps "
-        f"(positions 32..{32 + steps - 1} in {width}-row lanes)")
+        raise AssertionError(f"{arch} greedy tokens differ between the card "
+                             f"and the CPU")
+    log(f"  {arch} greedy tokens equal the CPU's over {steps} steps "
+        f"(positions 32..{32 + steps - 1}, {width}-position cache)")
     return err
+
+
+def phase_dense_smoke(dev, arch: str = "nemotron_4_15b") -> None:
+    """A dense config beyond llama (squared ReLU, layernorm) at its f32
+    smoke width on the paged kernels: a 12-request burst's greedy tokens on
+    the card equal the same engine's on the CPU (plain versions)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.scheduler.policies import fcfs
+    from repro_torch.kernels.flash_decode.ops import paged_decode_attention
+    from repro_torch.kernels.flash_prefill.ops import flash_attention
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    params = tfm.init_params(cfg, SEED, device=dev)
+    out, counts = {}, {}
+    for where, tree in (("card", params), ("cpu", _tree_to(params, "cpu"))):
+        device = tree["embed"].device
+        for k in (paged_decode_attention, flash_attention):
+            k.launches = 0
+        eng = make_engine(cfg, tree, fcfs(), device, chunk=None,
+                          caching=False, kv_blocks=64, cache_len=256)
+        eng.submit(burst(12))
+        fin = eng.run()
+        if len(fin) != 12 or not eng.backend.paged:
+            raise AssertionError(f"{arch} smoke on the {where}: "
+                                 f"{len(fin)} of 12 finished")
+        out[where] = {r.req_id: r.generated_tokens for r in fin}
+        counts[where] = {k.__name__: k.launches for k in
+                         (paged_decode_attention, flash_attention)}
+    if not all(counts["card"].values()):
+        raise AssertionError(f"{arch} smoke: a kernel was never launched "
+                             f"on the card: {counts['card']}")
+    if out["card"] != out["cpu"]:
+        diff = [i for i in out["cpu"] if out["cpu"][i] != out["card"][i]]
+        raise AssertionError(f"{arch} smoke tokens differ for {diff}")
+    log(f"  {arch} smoke (f32, paged): 12 requests' greedy tokens equal the "
+        f"CPU's; card launches {counts['card']}")
 
 
 def serve_once(cfg, params, policy, dev, reqs, arch):
@@ -854,9 +932,13 @@ def serve_once(cfg, params, policy, dev, reqs, arch):
     return eng, fin, rep, wall
 
 
-def phase_serve(dev, arch: str, kernels) -> dict:
-    """Serve full ``arch`` in bf16 under PARS and FCFS, profile the FCFS
-    burst, then run the launcher. Returns the PARS run's launch counts."""
+def phase_serve(dev, arch: str, kernels, idle=(),
+                launcher_policy: str = "pars") -> dict:
+    """Serve full ``arch`` in bf16 under PARS and FCFS, then run the
+    launcher under ``launcher_policy`` (``pars`` trains its full-width
+    predictor first). Every kernel of ``kernels`` must launch in each
+    burst, and none of ``idle`` (kernels of other paths). Returns the PARS
+    run's launch counts and the FCFS run's wall time."""
     from repro_torch.configs import get_config
     from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
     from repro_torch.core.predictor.train import RankingPredictor
@@ -883,10 +965,11 @@ def phase_serve(dev, arch: str, kernels) -> dict:
         policy = (make_policy("pars", predictor) if name == "pars"
                   else fcfs())
         reqs = burst(16)
-        for k in kernels:
+        for k in (*kernels, *idle):
             k.launches = 0
         eng, fin, rep, wall = serve_once(cfg, params, policy, dev, reqs, arch)
         counts = {k.__name__: k.launches for k in kernels}
+        strays = {k.__name__: k.launches for k in idle if k.launches}
         tokens = sum(r.true_length for r in fin)
         log(f"  {rep.row()}")
         log(f"  {name}: {len(fin)} finished, {tokens} tokens in {wall:.2f} s "
@@ -901,6 +984,8 @@ def phase_serve(dev, arch: str, kernels) -> dict:
             problems.append(f"{len(fin)} of {len(reqs)} finished")
         if any(v == 0 for v in counts.values()):
             problems.append(f"a kernel was never launched: {counts}")
+        if strays:
+            problems.append(f"another path's kernel launched: {strays}")
         if caching and eng.backend.prefix_installs == 0:
             problems.append("no prefix-cache hit")
         if eng.backend.prefix_tokens_copied != 0:
@@ -923,9 +1008,9 @@ def phase_serve(dev, arch: str, kernels) -> dict:
     torch.cuda.empty_cache()
 
     # the command-line entry point, at published widths on the card
-    rep = launch_serve.main(["--arch", arch, "--full", "--policy", "pars",
-                             "--requests", "8", "--batch", "4",
-                             "--max-len", "16"])
+    rep = launch_serve.main(["--arch", arch, "--full", "--policy",
+                             launcher_policy, "--requests", "8", "--batch",
+                             "4", "--max-len", "16"])
     if rep.n_requests != 8:
         raise AssertionError(f"launcher served {rep.n_requests} of 8")
     torch.cuda.empty_cache()
@@ -1007,6 +1092,91 @@ def phase_train_predictor(dev):
     full = {"params": sum(t.numel() for t in _leaves(pred.params)),
             "epochs": per_epoch}
     return pred, {"mini": mini, "pars_bert_base": full}
+
+
+def predictor_determinism(device: str = "cuda") -> dict:
+    """Three pairwise steps of the serve launcher's ``pars_bert_base``
+    predictor (its corpus, lengths and settings, 384 pairs), once with
+    PyTorch's default kernels and twice under
+    ``torch.use_deterministic_algorithms``, from one seed. Returns each
+    run's epoch line and a SHA-256 digest of its final parameters. Runs in
+    a process of its own (:func:`phase_predictor_determinism`)."""
+    import hashlib
+    import warnings
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import pars_bert_base
+    from repro_torch.core.predictor import TrainSettings, train_predictor
+    from repro_torch.core.predictor.tokenizer import HashTokenizer
+    from repro_torch.data.synthetic import (MODELS, make_corpus,
+                                            sample_lengths)
+
+    corpus = make_corpus("alpaca", 1000, seed=1)
+    lengths = np.clip(sample_lengths(corpus, "llama"), 1, 120)
+    pcfg = pars_bert_base.CONFIG
+    settings = TrainSettings(method="pairwise", epochs=1,
+                             pairs_per_epoch=3 * 128,
+                             delta=MODELS["llama"].delta)
+    out = {}
+    for mode, runs in (("default", 1), ("deterministic", 2)):
+        torch.use_deterministic_algorithms(mode == "deterministic",
+                                           warn_only=True)
+        for run in range(runs):
+            lines = []
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                pred = train_predictor(
+                    corpus.prompts, lengths, settings=settings,
+                    tokenizer=HashTokenizer(vocab_size=pcfg.vocab_size,
+                                            max_len=pcfg.max_len),
+                    pcfg=pcfg, log_fn=lines.append, device=device)
+            digest = hashlib.sha256()
+            for leaf in _leaves(pred.params):
+                digest.update(leaf.detach().cpu().numpy().tobytes())
+            out[f"{mode}_{run}"] = {
+                "epoch_line": lines[-1], "digest": digest.hexdigest(),
+                "alerts": sorted({str(w.message)[:120] for w in caught
+                                  if "determinis" in str(w.message)})}
+    torch.use_deterministic_algorithms(False)
+    return out
+
+
+def phase_predictor_determinism() -> dict:
+    """Runs :func:`predictor_determinism` in two processes with different
+    hash salts (``PYTHONHASHSEED``), each with cuBLAS's deterministic
+    workspace set before its first call. Fails if the deterministic runs
+    end with different parameters, in one process or across the two."""
+    runs = {}
+    for salt in ("1", "2"):
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+                   PYTHONHASHSEED=salt)
+        proc = subprocess.run(
+            [sys.executable, "-c", "import json, chip_smoke; print(json."
+             "dumps(chip_smoke.predictor_determinism()))"],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"determinism check failed:\n"
+                                 f"{proc.stderr[-3000:]}")
+        runs[salt] = json.loads(proc.stdout.strip().splitlines()[-1])
+        for name, rec in runs[salt].items():
+            log(f"  pars_bert_base 3 steps, process {salt}, {name}: "
+                f"{rec['epoch_line']}; params {rec['digest'][:16]}; alerts "
+                f"{rec['alerts']}")
+    digests = {(salt, name): rec["digest"] for salt, run in runs.items()
+               for name, rec in run.items()}
+    det = {d for (salt, name), d in digests.items()
+           if name.startswith("deterministic")}
+    out = {"deterministic_equal": len(det) == 1,
+           "default_equals_deterministic": len(set(digests.values())) == 1,
+           "runs": runs}
+    log(f"  deterministic runs equal in and across processes: "
+        f"{out['deterministic_equal']}; default kernels equal them too: "
+        f"{out['default_equals_deterministic']}")
+    if not out["deterministic_equal"]:
+        raise AssertionError(f"pars_bert_base training differs between "
+                             f"runs from one seed under deterministic "
+                             f"algorithms: unseeded state ({digests})")
+    return out
 
 
 def phase_trained_pars(dev, predictor) -> dict:
@@ -1278,22 +1448,33 @@ def main() -> int:
         f"(at {time.perf_counter() - t_start:.1f} s)")
     phase_parity(dev)
     torch.cuda.empty_cache()
-    phase_hymba_parity(dev)
+    phase_recurrent_parity(dev, "hymba_1_5b", 48)
+    torch.cuda.empty_cache()
+    phase_recurrent_parity(dev, "rwkv6_7b", 16)
+    torch.cuda.empty_cache()
+    phase_dense_smoke(dev)
     torch.cuda.empty_cache()
 
     from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                       ring_decode_attention)
     from repro_torch.kernels.flash_prefill.ops import flash_attention
     from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
-    served, fcfs_walls = [], {}
+    served, fcfs_walls = {}, {}
+    everything = (paged_decode_attention, flash_attention,
+                  ring_decode_attention, linear_attention)
     for arch, kernels in (
             ("llama3_2_3b", (paged_decode_attention, flash_attention)),
             ("hymba_1_5b", (ring_decode_attention, linear_attention,
-                            flash_attention))):
+                            flash_attention)),
+            ("rwkv6_7b", (linear_attention,))):
         log(f"== phase 4: serving full {arch} under PARS and FCFS "
             f"(at {time.perf_counter() - t_start:.1f} s)")
-        counts, fcfs_walls[arch] = phase_serve(dev, arch, kernels)
-        served.append(counts)
+        idle = tuple(k for k in everything if k not in kernels)
+        # only the newest path's launcher trains its predictor (phase 6
+        # trains the same one): the earlier paths' launchers serve FCFS
+        served[arch], fcfs_walls[arch] = phase_serve(
+            dev, arch, kernels, idle,
+            launcher_policy="pars" if arch == "rwkv6_7b" else "fcfs")
     # torch.profiler runs only now, so that no unprofiled burst follows a
     # profiler session (bursts that did were seen to run slower)
     log(f"== phase 5: profiles (at {time.perf_counter() - t_start:.1f} s)")
@@ -1305,13 +1486,17 @@ def main() -> int:
             f"{kernel_ms(call)}")
     # each kernel's launches in the PARS bursts of the paths that run it
     for e in entries:
-        e["launches"] = sum(run.get(e["name"], 0) for run in served)
+        e["launches_by_path"] = {arch: run[e["name"]]
+                                 for arch, run in served.items()
+                                 if e["name"] in run}
+        e["launches"] = sum(e["launches_by_path"].values())
         if e["launches"] == 0:
             raise AssertionError(f"{e['name']} never launched while serving")
 
     log(f"== phase 6: training the ranking predictor "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     predictor, training = phase_train_predictor(dev)
+    training["determinism"] = phase_predictor_determinism()
     log(f"== phase 7: trained PARS on the served path "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     training["trained_pars_burst"] = phase_trained_pars(dev, predictor)

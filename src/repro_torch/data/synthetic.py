@@ -22,6 +22,7 @@ Everything is seeded and deterministic given (dataset, model, seed).
 """
 from __future__ import annotations
 
+import zlib
 from dataclasses import dataclass
 from typing import Dict, List, Sequence
 
@@ -120,8 +121,10 @@ def sample_lengths(corpus: Corpus, model: str, *, run_seed: int = 0,
     """
     prof = MODELS[model]
     n = len(corpus.prompts)
+    # not hash(): Python salts the hash of a str per process, so the seed
+    # (and every length) would change from one process to the next
     hidden_rng = np.random.default_rng(
-        hash((corpus.dataset, corpus.seed, model)) % 2**32)
+        zlib.crc32(repr((corpus.dataset, corpus.seed, model)).encode()))
     extra = 0.25 if corpus.dataset == "lmsys" else 0.0
     hidden = hidden_rng.normal(0.0, prof.hidden_sigma + extra, n)
     mu = prof.base + prof.slope * corpus.z + hidden

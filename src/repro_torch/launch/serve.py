@@ -4,20 +4,23 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --full            # 3B, bf16
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu      # smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b --full
 
 Twin of ``repro/launch/serve.py``. Builds the engine around the chosen
-architecture (``llama3_2_3b`` or ``hymba_1_5b``: its f32 smoke config, or
-with ``--full`` its published widths in bf16), with seeded random weights,
-serves a burst (or a Poisson stream), and prints the paper's latency
-metrics. The KV mode follows the architecture, as in the reference: a paged
-pool for ``llama3_2_3b``, contiguous ring lanes for the sliding-window
-hybrid ``hymba_1_5b``. PARS-family policies rank with a predictor
-trained here as the reference's launcher trains it (:func:`train_ranker`:
-1000 alpaca prompts, the workload's lengths clipped to ``--max-len``, two
-epochs of 2048 δ-filtered pairs, at the mini width or, with ``--full``, at
-``pars_bert_base``'s BERT-base width), or loaded from ``--predictor
-PATH.npz`` (a checkpoint of ``RankingPredictor.save``, the port's or the
-reference's).
+architecture (one the port runs: the dense ``llama3_2_3b``,
+``nemotron_4_15b`` and ``command_r_35b``, the hybrid ``hymba_1_5b`` or the
+attention-free ``rwkv6_7b``; its f32 smoke config, or with ``--full`` its
+published widths in bf16), with seeded random weights, serves a burst (or a
+Poisson stream), and prints the paper's latency metrics. The cache follows
+the architecture, as in the reference: a paged KV pool for the dense
+models, contiguous ring lanes for the sliding-window hybrid ``hymba_1_5b``,
+per-slot recurrent state for ``rwkv6_7b``. PARS-family policies rank with
+a predictor trained here as the reference's launcher trains it
+(:func:`train_ranker`: 1000 alpaca prompts, the workload's lengths clipped
+to ``--max-len``, two epochs of 2048 δ-filtered pairs, at the mini width
+or, with ``--full``, at ``pars_bert_base``'s BERT-base width), or loaded
+from ``--predictor PATH.npz`` (a checkpoint of ``RankingPredictor.save``,
+the port's or the reference's).
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import argparse
 
 import numpy as np
 
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs import pars_bert_base
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.predictor.train import (RankingPredictor, TrainSettings,
@@ -37,6 +40,18 @@ from repro_torch.data.workload import (burst_arrivals, make_requests,
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.serving import serve
+
+
+def ported_archs() -> list:
+    """The architectures whose family the port runs."""
+    out = []
+    for arch in ARCH_IDS:
+        try:
+            tfm.check_supported(get_config(arch))
+        except NotImplementedError:
+            continue
+        out.append(arch)
+    return out
 
 
 def train_ranker(policy: str, workload: str, max_len: int, *, full: bool,
@@ -64,7 +79,8 @@ def train_ranker(policy: str, workload: str, max_len: int, *, full: bool,
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="llama3_2_3b")
+    ap.add_argument("--arch", default="llama3_2_3b",
+                    choices=ported_archs())
     ap.add_argument("--policy", default="pars",
                     choices=["fcfs", "pars", "pointwise", "listwise", "oracle"])
     ap.add_argument("--workload", default="llama", choices=list(MODELS))

@@ -64,6 +64,16 @@ def apply_norm(p: dict, x: torch.Tensor, kind: str,
     return y.to(x.dtype)
 
 
+def group_norm_heads(x: torch.Tensor, scale: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm (RWKV output norm). x: (..., H, dh)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Activations
 # ---------------------------------------------------------------------------

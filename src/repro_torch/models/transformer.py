@@ -1,12 +1,13 @@
-"""Decoder-only transformer, dense and hybrid families: parameters, prefill,
-chunked continuation and decode over a paged or a contiguous KV cache.
+"""Decoder-only transformer, dense, hybrid and SSM families: parameters,
+prefill, chunked continuation and decode over a paged or a contiguous cache.
 
-Port of ``repro/models/transformer.py`` for the DENSE family and the HYBRID
+Port of ``repro/models/transformer.py`` for the DENSE family, the HYBRID
 family (attention and a Mamba-2/SSD head bank in every layer, their outputs
-averaged). Parameters keep the reference's pytree layout as nested dicts of
-tensors, with every layer leaf stacked on a leading ``num_layers`` axis, so
-bridged JAX parameters drop in unchanged; the layer loop is a Python loop
-where JAX used ``lax.scan``.
+averaged) and the SSM family (attention-free RWKV-6 time-mix and
+channel-mix, ``models/rwkv6.py``). Parameters keep the reference's pytree
+layout as nested dicts of tensors, with every layer leaf stacked on a
+leading ``num_layers`` axis, so bridged JAX parameters drop in unchanged;
+the layer loop is a Python loop where JAX used ``lax.scan``.
 
 Two decode caches, one per engine mode:
 
@@ -25,7 +26,11 @@ Two decode caches, one per engine mode:
        HYBRID: "conv_tail": (L, S, conv_width - 1, d_inner),
                "ssm_state": (L, S, nheads, state, head_dim) f32}
 
-  A lane is an append buffer while ``pos < W`` and a ring after.
+  A lane is an append buffer while ``pos < W`` and a ring after. The SSM
+  family keeps no K/V lanes, only per-slot recurrent state::
+
+      {"state": (L, S, H, dh, dh) f32, "tm_prev", "cm_prev": (L, S, d),
+       "slots", "pos"}
 
 :func:`init_cache` builds either with identity tables or slots; the serving
 engine passes its own pool or lanes with the dispatched requests' tables or
@@ -39,7 +44,8 @@ Attention runs on the port's kernels: prefill attention for
 :func:`forward_seq` (``q_start = 0`` over the prompt's own K/V) and
 :func:`forward_chunk` (per-row offsets over lanes gathered from the cache),
 paged or ring decode attention for :func:`decode_step` (no gather). The
-HYBRID family's SSM runs the chunked linear-attention kernel in prefill.
+HYBRID family's SSM runs the chunked linear-attention kernel in prefill
+(``ssd`` mode), as does the SSM family's time-mix (``rwkv`` mode).
 The kernels have no backward (their wrappers refuse operands that require
 grad): training runs :func:`forward_seq` with ``attn_impl="naive"`` or
 ``"chunked"``, the reference's plain attention, for the dense family.
@@ -52,10 +58,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import flatten, unflatten
-from repro_torch.configs.base import DENSE, HYBRID, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                   ring_decode_attention)
+from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models import ssm as ssd
 from repro_torch.models.attention import (attention, gather_lane,
                                           prefill_attention, prefill_cache,
@@ -69,26 +76,28 @@ Cache = Dict[str, torch.Tensor]
 
 # The ROADMAP item (section A) that ports each family this module rejects.
 _ROADMAP_ITEM = {"moe": "A9 (MoE and VLM)", "vlm": "A9 (MoE and VLM)",
-                 "ssm": "A10 (the RWKV-6 family)",
                  "audio": "A11 (encoder-decoder)"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family not in (DENSE, HYBRID) or cfg.is_encdec:
+    if cfg.family not in (DENSE, HYBRID, SSM) or cfg.is_encdec:
         item = _ROADMAP_ITEM.get(cfg.family, "A11 (encoder-decoder)")
         raise NotImplementedError(
-            f"the port runs the dense and hybrid families; {cfg.family} "
-            f"waits for ROADMAP item {item}")
-    if cfg.pos_emb != "rope":
+            f"the port runs the dense, hybrid and ssm families; "
+            f"{cfg.family} waits for ROADMAP item {item}")
+    if cfg.pos_emb != "rope" and not (cfg.family == SSM
+                                      and cfg.pos_emb == "none"):
         raise NotImplementedError(
-            f"pos_emb={cfg.pos_emb!r}: the port's decoders use rope; "
-            f"learned positions wait for ROADMAP item A11")
+            f"pos_emb={cfg.pos_emb!r}: the port's attention decoders use "
+            f"rope (the ssm family none); learned positions wait for "
+            f"ROADMAP item A11")
 
 
 def default_paged(cfg: ModelConfig) -> bool:
     """The reference engine's choice: block-structured KV for attention-only
-    append caches; hybrid and sliding-window models keep per-slot lanes."""
+    append caches; hybrid, ssm and sliding-window models keep per-slot
+    lanes or state."""
     return cfg.family == DENSE and not cfg.is_encdec and not cfg.sliding_window
 
 
@@ -119,19 +128,24 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     def zeros(n):
         return torch.zeros(L, n, dtype=dtype, device=dev)
 
-    attn = {"wq": dense((d, h * dh)), "wk": dense((d, kh * dh)),
-            "wv": dense((d, kh * dh)), "wo": dense((h * dh, d))}
-    mlp = {"w_up": dense((d, f)), "w_down": dense((f, d))}
-    if gated(cfg.activation):
-        mlp["w_gate"] = dense((d, f))
-    if cfg.use_bias:
-        attn.update(bq=zeros(h * dh), bk=zeros(kh * dh), bv=zeros(kh * dh),
-                    bo=zeros(d))
-        mlp.update(b_up=zeros(f), b_down=zeros(d))
-    layers = {"ln1": stacked_norm(), "ln2": stacked_norm(), "attn": attn,
-              "mlp": mlp}
-    if cfg.family == HYBRID:
-        layers["ssm"] = ssd.init_ssm(gen, cfg, dtype, L)
+    if cfg.family == SSM:       # attention-free: time-mix, channel-mix
+        layers = {"ln1": stacked_norm(), "ln2": stacked_norm(),
+                  "tm": rwkv.init_time_mix(gen, cfg, dtype, L),
+                  "cm": rwkv.init_channel_mix(gen, cfg, dtype, L)}
+    else:
+        attn = {"wq": dense((d, h * dh)), "wk": dense((d, kh * dh)),
+                "wv": dense((d, kh * dh)), "wo": dense((h * dh, d))}
+        mlp = {"w_up": dense((d, f)), "w_down": dense((f, d))}
+        if gated(cfg.activation):
+            mlp["w_gate"] = dense((d, f))
+        if cfg.use_bias:
+            attn.update(bq=zeros(h * dh), bk=zeros(kh * dh),
+                        bv=zeros(kh * dh), bo=zeros(d))
+            mlp.update(b_up=zeros(f), b_down=zeros(d))
+        layers = {"ln1": stacked_norm(), "ln2": stacked_norm(), "attn": attn,
+                  "mlp": mlp}
+        if cfg.family == HYBRID:
+            layers["ssm"] = ssd.init_ssm(gen, cfg, dtype, L)
     params: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, d), dtype),
         "final_norm": init_norm(d, cfg.norm, dtype, dev),
@@ -168,7 +182,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``N = batch*mb`` block pool (plus the null block),
     ``mb = max_len / block_size``. Contiguous: row b owns lane b, of width
     ``W = min(max_len, sliding_window)`` (the ring a window needs, never
-    wider than the window)."""
+    wider than the window); the SSM family, contiguous only, holds per-slot
+    recurrent state and no lanes."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -179,9 +194,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if paged:
         if not default_paged(cfg):
             raise ValueError(
-                "paged KV needs an attention-only model without a sliding "
-                "window: hybrid state is not block-structured and window "
-                "lanes are shorter than the positions they cover")
+                f"paged KV needs an attention-family model without a "
+                f"sliding window (got {cfg.family}, window "
+                f"{cfg.sliding_window}): recurrent state is not "
+                f"block-structured and window lanes are shorter than the "
+                f"positions they cover")
         if max_len % block_size:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
@@ -193,11 +210,18 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                 "tables": torch.arange(n, dtype=torch.int32,
                                        device=dev).reshape(batch, mb),
                 "pos": pos}
+    slots = torch.arange(batch, dtype=torch.int32, device=dev)
+    if cfg.family == SSM:
+        h, d = cfg.num_heads, cfg.d_model
+        return {"state": torch.zeros(L, batch, h, dh, dh,
+                                     dtype=torch.float32, device=dev),
+                "tm_prev": torch.zeros(L, batch, d, dtype=dt, device=dev),
+                "cm_prev": torch.zeros(L, batch, d, dtype=dt, device=dev),
+                "slots": slots, "pos": pos}
     w = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
     cache = {"k": torch.zeros(L, batch, kh, w, dh, dtype=dt, device=dev),
              "v": torch.zeros(L, batch, kh, w, dh, dtype=dt, device=dev),
-             "slots": torch.arange(batch, dtype=torch.int32, device=dev),
-             "pos": pos}
+             "slots": slots, "pos": pos}
     if cfg.family == HYBRID:
         s = cfg.ssm
         d_inner, nh, n = ssd._dims(cfg)
@@ -310,7 +334,8 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     backward. With ``cache`` the prompt's K/V rows ``[0, S)`` are written
     into it through its tables or into its slots' lanes (a prompt longer
     than a lane keeps its last W rows at their ring slots), HYBRID's conv
-    tail and SSM state land in the slots, and ``pos`` becomes S (the
+    tail and SSM state, and the SSM family's state and last normed rows
+    (``tm_prev``, ``cm_prev``), land in the slots, and ``pos`` becomes S (the
     serving engine's first-chunk prefill); ``build_cache=True`` does the
     same into a fresh ``init_cache(cfg, B, cache_len)``.
 
@@ -343,6 +368,9 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
     for layer, lp in enumerate(unstack_layers(params)):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
+        if cfg.family == SSM:
+            x = _rwkv_seq(lp, x, xn, cfg, cache, layer)
+            continue
         q, k, v = _qkv(lp["attn"], xn, cfg)
         q, k = _rope_qk(q, k, cfg, positions)
         if cache is not None and "tables" in cache:
@@ -368,6 +396,45 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits, cache, dict(_NO_AUX)
 
 
+def _rwkv_seq(lp: Params, x: torch.Tensor, xn: torch.Tensor,
+              cfg: ModelConfig, cache: Optional[Cache], layer: int
+              ) -> torch.Tensor:
+    """One SSM layer over a prompt from a zero state (both token shifts
+    start from zeros); with a cache, the final state and the last rows of
+    the layer's normed inputs land in the slots."""
+    prev = torch.zeros(x.shape[0], cfg.d_model, dtype=x.dtype,
+                       device=x.device)
+    out, last_tm, state = rwkv.time_mix(lp["tm"], xn, prev, cfg)
+    x = x + out
+    xn2 = apply_norm(lp["ln2"], x, cfg.norm)
+    out2, last_cm = rwkv.channel_mix(lp["cm"], xn2, prev)
+    if cache is not None:
+        slots = cache["slots"].long()
+        cache["state"][layer][slots] = state
+        cache["tm_prev"][layer][slots] = last_tm
+        cache["cm_prev"][layer][slots] = last_cm
+    return x + out2
+
+
+def _rwkv_step(lp: Params, x: torch.Tensor, xn: torch.Tensor,
+               cfg: ModelConfig, cache: Cache, layer: int,
+               rows: torch.Tensor) -> torch.Tensor:
+    """One SSM layer, one token per row: the slots' state and token shifts
+    gathered, advanced and scattered back."""
+    states, tm_prev, cm_prev = (cache[k][layer]
+                                for k in ("state", "tm_prev", "cm_prev"))
+    out, last_tm, state = rwkv.time_mix_step(lp["tm"], xn[:, 0],
+                                             tm_prev[rows], states[rows],
+                                             cfg)
+    x = x + out[:, None]
+    xn2 = apply_norm(lp["ln2"], x, cfg.norm)
+    out2, last_cm = rwkv.channel_mix_step(lp["cm"], xn2[:, 0], cm_prev[rows])
+    states[rows] = state
+    tm_prev[rows] = last_tm
+    cm_prev[rows] = last_cm
+    return x + out2[:, None]
+
+
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: Cache) -> Tuple[torch.Tensor, Cache]:
     """Continue a partial prefill: row b's chunk ``tokens[b]`` (B, C) sits
@@ -384,8 +451,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     check_supported(cfg)
     if cfg.family != DENSE:
         raise NotImplementedError(
-            f"forward_chunk runs the dense family; {cfg.family} carries "
-            f"recurrent cross-chunk state")
+            f"forward_chunk supports attention-family models (the port: "
+            f"dense); {cfg.family} carries recurrent cross-chunk state")
     b, c = tokens.shape
     x = params["embed"][tokens]
     pos0 = cache["pos"].to(torch.int32)
@@ -423,7 +490,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     ``min(pos+1, W)`` rows; contiguous, into lane slot ``pos % W``, before
     the ring decode kernel attends the lane under the ring and window mask.
     A wrap past W overwrites the oldest row: the reference's ring
-    semantics. HYBRID's SSM advances its conv tail and state by one token.
+    semantics. HYBRID's SSM advances its conv tail and state by one token,
+    as the SSM family advances its state and token shifts.
     Returns ``(logits (B, V), cache)`` with ``pos`` advanced by one."""
     check_supported(cfg)
     x = params["embed"][token]
@@ -439,6 +507,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         rows = slots.long()
     for layer, lp in enumerate(unstack_layers(params)):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
+        if cfg.family == SSM:
+            x = _rwkv_step(lp, x, xn, cfg, cache, layer, rows)
+            continue
         q, k, v = _qkv(lp["attn"], xn, cfg)
         q, k = _rope_qk(q, k, cfg, positions)
         k_all, v_all = cache["k"][layer], cache["v"][layer]

@@ -22,14 +22,16 @@ without a sliding window):
 * **Contiguous.** Each slot owns a lane per layer, stored heads first:
   ``(L, max_batch, KH, W, dh)`` with ``W = min(cache_len,
   sliding_window)``, plus a hybrid model's conv tail and f32 SSM state per
-  slot. Prefill writes a slot's lane in place, decode reads and writes the
-  active slots' lanes in place with the ring decode kernel (no per-step
-  gather and scatter of whole lanes, as the reference's ``_decode_active``
-  had), and a lane wraps as a ring once a sequence outgrows W. Prefix
-  caching keeps the reference's hash-keyed fragment store: per-block K/V
-  copied out of a donor lane at prompt completion and into a hit's lane at
-  admission (``prefix_tokens_copied`` counts the copied tokens), dropped
-  through the allocator's eviction listener.
+  slot; an attention-free (SSM family) model's slots hold only its f32
+  state and token shifts, no lanes. Prefill writes a slot's lane in
+  place, decode reads and writes the active slots' lanes in place with
+  the ring decode kernel (no per-step gather and scatter of whole lanes,
+  as the reference's ``_decode_active`` had), and a lane wraps as a ring
+  once a sequence outgrows W. Prefix caching keeps the reference's
+  hash-keyed fragment store: per-block K/V copied out of a donor lane at
+  prompt completion and into a hit's lane at admission
+  (``prefix_tokens_copied`` counts the copied tokens), dropped through the
+  allocator's eviction listener.
 
 Admitted first chunks are grouped by length into one ``forward_seq`` per
 power-of-two token bucket. Continuation chunks (chunked prefill, or the
@@ -177,10 +179,11 @@ class RealBackend:
             return
         if not tfm.default_paged(cfg):
             raise ValueError(
-                f"paged KV needs an attention-only model without a sliding "
-                f"window (got {cfg.family}, window {cfg.sliding_window}): "
-                f"recurrent state is not block-structured and window lanes "
-                f"are shorter than the positions they cover")
+                f"paged KV needs an attention-family model without a "
+                f"sliding window (got {cfg.family}, window "
+                f"{cfg.sliding_window}): recurrent state is not "
+                f"block-structured and window lanes are shorter than the "
+                f"positions they cover")
         alloc = core.allocator
         if alloc.total_blocks >= UNBOUNDED_BLOCKS:
             raise ValueError("paged KV needs a bounded allocator: the "

@@ -302,8 +302,8 @@ def test_rope_and_per_row_positions_match():
 
 @pytest.mark.parametrize("family", [None, "hybrid", "moe", "ssm"])
 def test_only_the_dense_family_is_ported(family):
-    """The dense and hybrid families run; the others raise, naming their
-    ROADMAP item."""
+    """The dense, hybrid and ssm families run; the others raise, naming
+    their ROADMAP item."""
     if family is None:
         cfg = get_config("llama3_2_3b")
         assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -321,6 +321,22 @@ def test_only_the_dense_family_is_ported(family):
         assert params["layers"]["ssm"]["a_log"].dtype == torch.float32
         with pytest.raises(ValueError, match="paged KV needs"):
             tfm.init_cache(cfg, 1, 64, paged=True, device="cpu")
+        return
+    if family == "ssm":
+        cfg = get_config("rwkv6_7b")
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.head_dim,
+                cfg.d_ff, cfg.vocab_size, cfg.pos_emb) == (
+            32, 4096, 64, 64, 14336, 65536, "none")
+        tfm.check_supported(cfg)
+        assert not tfm.default_paged(cfg)
+        smoke = get_smoke_config("rwkv6_7b")
+        params = tfm.init_params(smoke, device="cpu")
+        assert set(params["layers"]) == {"ln1", "ln2", "tm", "cm"}
+        assert params["layers"]["tm"]["decay_a"].dtype == torch.float32
+        with pytest.raises(ValueError, match="paged KV needs"):
+            tfm.init_cache(smoke, 1, 64, paged=True, device="cpu")
+        with pytest.raises(NotImplementedError, match="A11"):
+            tfm.check_supported(smoke.replace(pos_emb="learned"))
         return
     cfg = get_smoke_config("llama3_2_3b").replace(family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
