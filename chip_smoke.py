@@ -22,7 +22,9 @@ failed check raises and the script exits non-zero:
    with every step's log-decay at the contract's edge; its bare 3xTF32
    tile against plain matrix products at 1e-5), in ``ssd`` mode at
    Hymba's heads and in ``rwkv`` mode at RWKV-6 7B's served prefill shape
-   (8 x 128 tokens) and at 4 x 256.
+   (8 x 128 tokens) and at 4 x 256. Paged decode also at the MoE and VLM
+   paths' served shapes (OLMoE's 16 KV heads of group 1, Qwen2-VL's 8 of
+   group 8) and prefill at H = KH = 16.
    Times the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (``library_ms``, timed here
    only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
@@ -38,26 +40,35 @@ failed check raises and the script exits non-zero:
    wrapped ring lane equals the CPU run's tokens; ``rwkv6_7b``: a 32-token
    prefill and 16 greedy decode steps equal the CPU run's tokens. For all
    three, the model's logits on the card agree with the same model run on
-   the CPU through the plain versions. Then ``nemotron_4_15b`` at its f32
-   smoke width on the paged kernels: a burst's greedy tokens equal the
-   CPU's.
+   the CPU through the plain versions. ``olmoe_1b_7b`` at the published
+   capacity factor 1.25: a 4 x 64-token prefill (some token-slots must be
+   dropped, as many on the card as on the CPU) and 16 greedy decode steps,
+   logits and tokens against the CPU's. Then ``nemotron_4_15b``,
+   ``moonshot_v1_16b_a3b`` (MoE, shared expert) and ``qwen2_vl_72b``
+   (M-RoPE) at their f32 smoke widths on the paged kernels: a burst's
+   greedy tokens equal the CPU's.
 4. Serving full ``llama3_2_3b`` (28 layers, bf16, paged KV), full
-   ``hymba_1_5b`` (32 layers, bf16, contiguous ring lanes) and full
-   ``rwkv6_7b`` (32 layers, bf16, per-slot recurrent state, no K/V), each
-   behind a ``pars_bert_base``-width ranking predictor, seeded on the card:
-   a burst of 16 requests under PARS and under FCFS. Every kernel's launch
+   ``hymba_1_5b`` (32 layers, bf16, contiguous ring lanes), full
+   ``rwkv6_7b`` (32 layers, bf16, per-slot recurrent state, no K/V) and
+   full ``olmoe_1b_7b`` (16 layers, 64 experts, bf16, paged KV; MoE first
+   chunks padded with replicas of lane 0), each behind a
+   ``pars_bert_base``-width ranking predictor, seeded on the card: a burst
+   of 16 requests under PARS and under FCFS; then ``qwen2_vl_72b`` at full
+   width cut to 16 of its 80 layers, under PARS. Every kernel's launch
    count is set to 0 just before each run and read just after: each kernel
    of the path must have launched, and no kernel of another path. Then the
    command-line launcher (``repro_torch.launch.serve --full``) serves a
-   short burst of each architecture: under FCFS for llama3_2_3b and
-   hymba_1_5b, under PARS for rwkv6_7b, training its full-width predictor
-   first.
+   short burst of each architecture: under FCFS, but under PARS for
+   rwkv6_7b, training its full-width predictor first; for qwen2_vl_72b it
+   must refuse, saying that the published model does not fit.
 5. Profiles, after every unprofiled run (bursts that followed a profiler
    session in the same process were seen to run slower): each FCFS burst
    once more under the profiler, giving device time by kernel (the port's
    own kernels listed wherever they rank) and the device's busy share of
-   the unprofiled run's wall time; then the device time of each kernel
-   that one call of each kernel launches, at the record's shapes.
+   the unprofiled run's wall time, and for OLMoE the device time of each
+   MoE stage (router, dispatch, expert products, combine); then the
+   device time of each kernel that one call of each kernel launches, at
+   the record's shapes.
 6. Training the ranking predictor on the card: the mini predictor to the
    reference's bar (pairwise, held-out Kendall tau_b >= 0.45), one epoch
    each of the pointwise and listwise baselines, and the serve launcher's
@@ -87,7 +98,9 @@ imported.
 """
 from __future__ import annotations
 
+import bisect
 import functools
+import gc
 import json
 import os
 import re
@@ -110,6 +123,14 @@ BF16_FLOPS_S = 989e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def free_memory() -> None:
+    """Return the memory of the phase before to the card: an engine and
+    its core refer to each other, so only the cycle collector frees the
+    weights an engine holds."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -180,16 +201,55 @@ def kernel_ms(fn, calls: int = 50) -> dict:
     return times
 
 
+# the named ranges of models/moe.py, one per stage of an MoE layer
+MOE_STAGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
+
+
+def _device_event(e) -> bool:
+    """A kernel, copy or fill on the device (not a host event, and not the
+    device-side span of a host range)."""
+    from torch.autograd import DeviceType
+
+    return e.device_type() != DeviceType.CPU and not e.is_user_annotation()
+
+
 def device_rows(prof) -> list:
     """``[(device ms, calls, name)]`` of a ``torch.profiler`` session, one
-    row per kernel or copy that ran on the device."""
-    rows = []
-    for e in prof.key_averages():
-        t = getattr(e, "self_device_time_total",
-                    getattr(e, "self_cuda_time_total", 0.0))
-        if t > 0:
-            rows.append((t / 1e3, e.count, e.key))
-    return rows
+    row per kernel or copy that ran on the device, summed from the
+    session's raw events (``key_averages()``, which builds the profiler's
+    event tree, took a minute and more at a burst's ~10^5 kernels)."""
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if _device_event(e):
+            t, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (t + e.duration_ns(), n + 1)
+    return [(t / 1e6, n, name) for name, (t, n) in by_name.items()]
+
+
+def range_rows(prof, names) -> dict:
+    """``{name: (device ms, calls)}`` for the host ranges (``record_function``)
+    of ``names`` in a session that traced host activity: a kernel counts
+    for the range that holds the host operator which launched it (the
+    kernel's linked correlation id)."""
+    from torch.autograd import DeviceType
+
+    events = prof.profiler.kineto_results.events()
+    ranges = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
+                    if e.device_type() == DeviceType.CPU
+                    and e.is_user_annotation() and e.name() in names)
+    starts = [r[0] for r in ranges]
+    range_of = {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and not e.is_user_annotation():
+            i = bisect.bisect_right(starts, e.start_ns()) - 1
+            if i >= 0 and e.start_ns() < ranges[i][1]:
+                range_of[e.correlation_id()] = ranges[i][2]
+    ms = dict.fromkeys(names, 0.0)
+    for e in events:
+        name = range_of.get(e.linked_correlation_id())
+        if name is not None and _device_event(e):
+            ms[name] += e.duration_ns() / 1e6
+    return {n: (ms[n], sum(r[2] == n for r in ranges)) for n in names}
 
 
 def cold_copies(bytes_read: float) -> int:
@@ -450,6 +510,101 @@ def phase_prefill_kernel(dev):
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, **t,
             "call": lambda: flash_attention(q, k, v, zero, full)}
+
+
+def phase_moe_vlm_instances(dev) -> dict:
+    """Paged decode at the MoE and VLM paths' served shapes, OLMoE's (KH 16,
+    one query head per KV head) and Qwen2-VL's (KH 8, group 8), and
+    prefill at H = KH = 16: each against its plain version (f32 at 2e-5,
+    bf16 at 2e-2), timed back-to-back and device-only (warm and L2-cold)
+    beside SDPA and its bound. Returns keys for the two kernels' entries."""
+    from repro_torch.kernels.flash_decode.ops import (
+        paged_decode_attention, paged_decode_attention_plain)
+    from repro_torch.kernels.flash_prefill.ops import (
+        flash_attention, flash_attention_plain)
+
+    b, dh, bs, mb = 8, 128, 16, 32
+    rng = np.random.default_rng(SEED + 1)
+    served = torch.as_tensor(128 + rng.integers(1, 65, b), dtype=torch.int32,
+                             device=dev)
+    bf = torch.bfloat16
+    out = {"paged_decode_attention": {}, "flash_attention": {}}
+    for label, kh, g in (("olmoe", 16, 1), ("qwen2_vl", 8, 8)):
+        h, n = kh * g, b * mb + 1
+        log(f"paged decode ({label}): B={b} KH={kh} G={g} dh={dh} bs={bs} "
+            f"max_blocks={mb} lengths {served.tolist()}")
+        tb = torch.as_tensor(np.stack([rng.permutation(n)[:mb]
+                                       for _ in range(b)]),
+                             dtype=torch.int32, device=dev)
+        q32 = torch.randn(b, h, dh, device=dev)
+        kp32 = torch.randn(n, bs, kh, dh, device=dev)
+        vp32 = torch.randn(n, bs, kh, dh, device=dev)
+        for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+            t = getattr(torch, dt)
+            args = (q32.to(t), kp32.to(t), vp32.to(t), tb, served)
+            out_k = paged_decode_attention(*args)
+            torch.cuda.synchronize()
+            err = check_close(f"decode {label} {dt}", out_k,
+                              paged_decode_attention_plain(*args), tol)
+        q, kp, vp = q32.to(bf), kp32.to(bf), vp32.to(bf)
+        t = {"max_abs_err": err,
+             "ms": cuda_ms(lambda: paged_decode_attention(q, kp, vp, tb,
+                                                          served), 200),
+             "plain_ms": cuda_ms(lambda: paged_decode_attention_plain(
+                 q, kp, vp, tb, served), 20),
+             **_paged_times(f"{label} served lengths", q, kp, vp, tb, served,
+                            g)}
+        log(f"  decode {label} bf16, back-to-back: {t['ms']:.4f} ms kernel, "
+            f"{t['plain_ms']:.4f} ms plain")
+        out["paged_decode_attention"].update(
+            {f"{label}_{k}": v for k, v in t.items()})
+
+    h = kh = 16
+    sq = 128
+    log(f"prefill (olmoe): B={b} H={h} KH={kh} Sq=Skv={sq} dh={dh}")
+    q32 = torch.randn(b, h, sq, dh, device=dev)
+    k32 = torch.randn(b, kh, sq, dh, device=dev)
+    v32 = torch.randn(b, kh, sq, dh, device=dev)
+    zero = torch.zeros(b, dtype=torch.int32, device=dev)
+    full = torch.full((b,), sq, dtype=torch.int32, device=dev)
+    for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        t = getattr(torch, dt)
+        args = (q32.to(t), k32.to(t), v32.to(t), zero, full)
+        out_k = flash_attention(*args)
+        torch.cuda.synchronize()
+        err = check_close(f"prefill H=KH={h} {dt}", out_k,
+                          flash_attention_plain(*args), tol)
+    q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bytes_moved = 2 * (2 * b * h * sq * dh + 2 * b * kh * sq * dh) + 8 * b
+    bound_ms, bound_by = bound(bytes_moved,
+                               4 * dh * b * h * sq * (sq + 1) // 2)
+    t = {"max_abs_err": err,
+         "ms": cuda_ms(lambda: flash_attention(q, k, v, zero, full), 100),
+         "plain_ms": cuda_ms(lambda: flash_attention_plain(q, k, v, zero,
+                                                           full), 20),
+         "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True), 100),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def kernel(i):
+        a = (q, k, v) if i == 0 else (q.clone(), k.clone(), v.clone())
+        return lambda: flash_attention(*a, zero, full)
+
+    def library(i):
+        a = (q, k, v) if i == 0 else (q.clone(), k.clone(), v.clone())
+        return lambda: sdpa(*a, is_causal=True)
+
+    t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
+    t["library_device_ms"], t["library_cold_ms"] = device_times(
+        library, bytes_moved)
+    log(f"  prefill H=KH={h} bf16: back-to-back {t['ms']:.4f} ms kernel, "
+        f"{t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms SDPA; "
+        f"device-only kernel {t['device_ms']:.5f} ms warm, "
+        f"{t['cold_ms']:.5f} ms L2-cold; SDPA {t['library_device_ms']:.5f} / "
+        f"{t['library_cold_ms']:.5f} ms; bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    out["flash_attention"].update({f"olmoe_{k}": v for k, v in t.items()})
+    return out
 
 
 def phase_ring_decode_kernel(dev):
@@ -757,8 +912,14 @@ def burst(n: int = 16, seed: int = SEED):
 # under a budget that admits all 8 slots at full demand (128 + 64 positions
 # in 16-token blocks each); rwkv6_7b, attention-free, keeps only per-slot
 # recurrent state (no chunking or caching either) under the same budget.
+# olmoe_1b_7b (MoE) and qwen2_vl_72b's backbone (VLM) serve as llama3_2_3b
+# does, so continuation chunks and prefix-hit suffixes run their layers
+# through forward_chunk.
 SERVED = {
     "llama3_2_3b": dict(cache_len=512, chunk=64, caching=True, kv_blocks=64),
+    "olmoe_1b_7b": dict(cache_len=512, chunk=64, caching=True, kv_blocks=64),
+    "qwen2_vl_72b": dict(cache_len=512, chunk=64, caching=True,
+                         kv_blocks=64),
     "hymba_1_5b": dict(cache_len=128, chunk=None, caching=False,
                        kv_blocks=8 * 12),
     "rwkv6_7b": dict(cache_len=512, chunk=None, caching=False,
@@ -869,7 +1030,7 @@ def phase_recurrent_parity(dev, arch: str, steps: int) -> float:
                              f"per layer")
     cpu_params = _tree_to(params, "cpu")
     del params
-    torch.cuda.empty_cache()
+    free_memory()
     ref, ref_toks = run(cpu_params, torch.device("cpu"))
     if not bool(torch.isfinite(lg).all()):
         raise AssertionError(f"non-finite {arch} logits")
@@ -883,10 +1044,64 @@ def phase_recurrent_parity(dev, arch: str, steps: int) -> float:
     return err
 
 
-def phase_dense_smoke(dev, arch: str = "nemotron_4_15b") -> None:
-    """A dense config beyond llama (squared ReLU, layernorm) at its f32
-    smoke width on the paged kernels: a 12-request burst's greedy tokens on
-    the card equal the same engine's on the CPU (plain versions)."""
+def phase_moe_parity(dev, steps: int = 16) -> dict:
+    """Full-width ``olmoe_1b_7b`` cut to 4 layers, f32, TF32 off, at the
+    published capacity factor 1.25: a prefill of 4 x 64 tokens (one MoE
+    dispatch of 256 tokens, capacity 40 a group) into a paged cache, then
+    ``steps`` greedy decode steps routed row by row, as the engine routes
+    them. The card's logits agree with the CPU's at 1e-3, the greedy tokens
+    and the prefill's dropped token-slots are equal, and some slot was
+    dropped (the capacity bound was exercised)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("olmoe_1b_7b").replace(num_layers=4, dtype="float32")
+    params = tfm.init_params(cfg, SEED, device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 64)))
+    width = 128
+
+    def run(tree, device):
+        cache = tfm.init_cache(cfg, 4, width, device=device)
+        lg, cache, aux = tfm.forward_seq(tree, cfg, prompt.to(device),
+                                         cache=cache)
+        logits, toks = [lg[:, -1].cpu()], []
+        nxt = lg[:, -1].argmax(-1)
+        for _ in range(steps):
+            toks.append(nxt.cpu())
+            lg1, cache = tfm.decode_step(tree, cfg, cache, nxt[:, None])
+            logits.append(lg1.cpu())
+            nxt = lg1.argmax(-1)
+        return (torch.stack(logits, 1), torch.stack(toks, 1),
+                int(aux["dropped_slots"]))
+
+    lg, toks, dropped = run(params, dev)
+    cpu_params = _tree_to(params, "cpu")
+    del params
+    free_memory()
+    ref, ref_toks, ref_dropped = run(cpu_params, torch.device("cpu"))
+    if not bool(torch.isfinite(lg).all()):
+        raise AssertionError("non-finite olmoe_1b_7b logits")
+    err = check_close(f"olmoe_1b_7b 4-layer logits card vs CPU, prefill and "
+                      f"{steps} decode steps", lg, ref, 1e-3)
+    if not torch.equal(toks, ref_toks):
+        raise AssertionError("olmoe_1b_7b greedy tokens differ between the "
+                             "card and the CPU")
+    log(f"  olmoe_1b_7b greedy tokens equal the CPU's over {steps} steps; "
+        f"capacity dropped {dropped} of {4 * 4 * 64 * 8} token-slots in "
+        f"the prefill (CPU {ref_dropped})")
+    if dropped == 0 or dropped != ref_dropped:
+        raise AssertionError(f"olmoe_1b_7b dropped slots: card {dropped}, "
+                             f"CPU {ref_dropped} (must be equal, above 0)")
+    return {"logits_max_abs_err": err, "dropped_slots": dropped}
+
+
+def phase_paged_smoke(dev, arch: str = "nemotron_4_15b") -> None:
+    """A config beyond llama at its f32 smoke width on the paged kernels
+    (nemotron_4_15b: squared ReLU, layernorm; moonshot_v1_16b_a3b: MoE
+    with a shared expert; qwen2_vl_72b: M-RoPE): a 12-request burst's
+    greedy tokens on the card equal the same engine's on the CPU (plain
+    versions)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.scheduler.policies import fcfs
     from repro_torch.kernels.flash_decode.ops import paged_decode_attention
@@ -910,6 +1125,7 @@ def phase_dense_smoke(dev, arch: str = "nemotron_4_15b") -> None:
         out[where] = {r.req_id: r.generated_tokens for r in fin}
         counts[where] = {k.__name__: k.launches for k in
                          (paged_decode_attention, flash_attention)}
+        pads = eng.backend.prefill_pad_lanes
     if not all(counts["card"].values()):
         raise AssertionError(f"{arch} smoke: a kernel was never launched "
                              f"on the card: {counts['card']}")
@@ -917,7 +1133,7 @@ def phase_dense_smoke(dev, arch: str = "nemotron_4_15b") -> None:
         diff = [i for i in out["cpu"] if out["cpu"][i] != out["card"][i]]
         raise AssertionError(f"{arch} smoke tokens differ for {diff}")
     log(f"  {arch} smoke (f32, paged): 12 requests' greedy tokens equal the "
-        f"CPU's; card launches {counts['card']}")
+        f"CPU's; card launches {counts['card']}; MoE padding lanes {pads}")
 
 
 def serve_once(cfg, params, policy, dev, reqs, arch):
@@ -933,12 +1149,15 @@ def serve_once(cfg, params, policy, dev, reqs, arch):
 
 
 def phase_serve(dev, arch: str, kernels, idle=(),
-                launcher_policy: str = "pars") -> dict:
-    """Serve full ``arch`` in bf16 under PARS and FCFS, then run the
-    launcher under ``launcher_policy`` (``pars`` trains its full-width
-    predictor first). Every kernel of ``kernels`` must launch in each
-    burst, and none of ``idle`` (kernels of other paths). Returns the PARS
-    run's launch counts and the FCFS run's wall time."""
+                launcher_policy: str = "pars", depth=None,
+                policies=("pars", "fcfs")) -> dict:
+    """Serve full ``arch`` in bf16 (cut to ``depth`` layers where given)
+    under each of ``policies``, then run the launcher under
+    ``launcher_policy`` (``pars`` trains its full-width predictor first);
+    a cut config's launcher must refuse ``--full``, saying that it does not
+    fit. Every kernel of ``kernels`` must launch in each burst, and none of
+    ``idle`` (kernels of other paths). Returns the PARS run's launch
+    counts and the FCFS run's wall time (None without FCFS)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
     from repro_torch.core.predictor.train import RankingPredictor
@@ -947,6 +1166,8 @@ def phase_serve(dev, arch: str, kernels, idle=(),
     from repro_torch.models import transformer as tfm
 
     cfg = get_config(arch)
+    if depth is not None:
+        cfg = cfg.replace(num_layers=depth)
     caching = SERVED[arch]["caching"]
     t0 = time.perf_counter()
     params = tfm.init_params(cfg, SEED, device=dev)
@@ -961,7 +1182,7 @@ def phase_serve(dev, arch: str, kernels, idle=(),
     serve_once(cfg, params, fcfs(), dev, burst(2, seed=99), arch)
 
     launches, walls = {}, {}
-    for name in ("pars", "fcfs"):
+    for name in policies:
         policy = (make_policy("pars", predictor) if name == "pars"
                   else fcfs())
         reqs = burst(16)
@@ -975,7 +1196,9 @@ def phase_serve(dev, arch: str, kernels, idle=(),
         log(f"  {name}: {len(fin)} finished, {tokens} tokens in {wall:.2f} s "
             f"({tokens / wall:.1f} tok/s); launches {counts}; prefill "
             f"{eng.backend.prefill_dispatches} + extend "
-            f"{eng.backend.extend_dispatches} dispatches; prefix hits "
+            f"{eng.backend.extend_dispatches} dispatches (MoE padding lanes "
+            f"{eng.backend.prefill_pad_lanes} in first chunks; continuation "
+            f"chunks and decode unpadded); prefix hits "
             f"{eng.backend.prefix_installs}, tokens copied "
             f"{eng.backend.prefix_tokens_copied}; scorer failures "
             f"{policy.scorer_failures}, degradations {policy.degradations}")
@@ -1004,16 +1227,27 @@ def phase_serve(dev, arch: str, kernels, idle=(),
             raise AssertionError(f"serving {arch} under {name}: {problems}")
         launches[name] = counts
         walls[name] = wall
-    del params, predictor
-    torch.cuda.empty_cache()
+    del params, predictor, eng, fin
+    free_memory()
 
     # the command-line entry point, at published widths on the card
-    rep = launch_serve.main(["--arch", arch, "--full", "--policy",
-                             launcher_policy, "--requests", "8", "--batch",
-                             "4", "--max-len", "16"])
+    argv = ["--arch", arch, "--full", "--policy", launcher_policy,
+            "--requests", "8", "--batch", "4", "--max-len", "16"]
+    if depth is not None:
+        try:
+            launch_serve.main(argv)
+        except SystemExit as e:
+            if "does not fit" not in str(e):
+                raise
+            log(f"  launcher --full: {e}")
+        else:
+            raise AssertionError(f"the launcher served {arch} --full, "
+                                 f"which does not fit the card")
+        return launches["pars"], walls.get("fcfs")
+    rep = launch_serve.main(argv)
     if rep.n_requests != 8:
         raise AssertionError(f"launcher served {rep.n_requests} of 8")
-    torch.cuda.empty_cache()
+    free_memory()
     return launches["pars"], walls["fcfs"]
 
 
@@ -1220,7 +1454,7 @@ def phase_trained_pars(dev, predictor) -> dict:
                      "p90_per_token_s": rep.p90_per_token_latency,
                      "ttft_s": rep.avg_ttft, "wall_s": wall}
     del params
-    torch.cuda.empty_cache()
+    free_memory()
     return out
 
 
@@ -1270,7 +1504,7 @@ def phase_train_lm(dev) -> dict:
         if not abs(a - b) <= 1e-3 * abs(b):
             raise AssertionError(f"train step {k}: card {a} vs CPU {b}")
     del params
-    torch.cuda.empty_cache()
+    free_memory()
 
     cfg = get_config("llama3_2_3b")
     steps, b, s = 10, 4, 64
@@ -1327,12 +1561,12 @@ def phase_train_lm(dev) -> dict:
     for t, count, key in host[:10]:
         log(f"    {t:9.2f} ms {count:6d} calls  {key[:90]}")
     del params, state
-    torch.cuda.empty_cache()
+    free_memory()
     _, history = launch_train.main(["--full", "--steps", "2", "--batch", "2",
                                     "--seq", "32", "--device", str(dev)])
     if not all(np.isfinite(h["loss"]) for h in history):
         raise AssertionError(f"train launcher: {history}")
-    torch.cuda.empty_cache()
+    free_memory()
     return {"f32_4_layers": {"logits_max_abs_err": err, **{
                 f"{k}_{d}": v for d, m in metrics.items()
                 for k, v in m.items()}},
@@ -1362,7 +1596,9 @@ def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
     device activity only (kernels and copies, so no time is counted twice);
     prints the device time by kernel and the device's busy share of the
     unprofiled run's wall time (one stream, so kernel times do not
-    overlap)."""
+    overlap). For an MoE model the session also traces host activity, so
+    that the device time of each MoE stage's kernels (``MOE_STAGES``, the
+    ranges ``models/moe.py`` opens) is printed beside them."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
@@ -1371,12 +1607,15 @@ def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
 
     cfg = get_config(arch)
     params = tfm.init_params(cfg, SEED, device=dev)
+    stages = cfg.moe is not None
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if stages else [])
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         _, _, _, wall = serve_once(cfg, params, fcfs(), dev, burst(16), arch)
         torch.cuda.synchronize()
     del params
-    torch.cuda.empty_cache()
+    free_memory()
     rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     log(f"  profile ({arch} fcfs burst): device busy {busy:.1f} ms; wall "
@@ -1392,6 +1631,15 @@ def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
         if any(k in key for k in PORT_KERNELS):
             log(f"    port kernel {ms:9.2f} ms {ms / busy:6.1%} {count:7d} "
                 f"calls, {1e3 * ms / count:.2f} us each  {key[:70]}")
+    if stages:
+        for name, (ms, count) in range_rows(prof, MOE_STAGES).items():
+            log(f"    stage {name:13s} {ms:9.2f} ms "
+                f"{ms / max(busy, 1e-9):6.1%} {count:6d} calls "
+                f"(device time of its kernels)")
+        index = sum(ms for ms, _, key in rows
+                    if re.search(r"index|scatter|gather", key))
+        log(f"    kernels named index/scatter/gather: {index:.2f} ms "
+            f"{index / max(busy, 1e-9):.1%}")
     log(f"  profiling took {time.perf_counter() - t0:.1f} s")
 
 
@@ -1443,17 +1691,22 @@ def main() -> int:
     entries = [phase_decode_kernel(dev), phase_prefill_kernel(dev),
                phase_ring_decode_kernel(dev),
                phase_linear_attention_kernel(dev)]
+    for name, keys in phase_moe_vlm_instances(dev).items():
+        next(e for e in entries if e["name"] == name).update(keys)
 
     log(f"== phase 3: parity at full width, 4 layers, f32 "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     phase_parity(dev)
-    torch.cuda.empty_cache()
+    free_memory()
     phase_recurrent_parity(dev, "hymba_1_5b", 48)
-    torch.cuda.empty_cache()
+    free_memory()
     phase_recurrent_parity(dev, "rwkv6_7b", 16)
-    torch.cuda.empty_cache()
-    phase_dense_smoke(dev)
-    torch.cuda.empty_cache()
+    free_memory()
+    phase_moe_parity(dev)
+    free_memory()
+    for arch in ("nemotron_4_15b", "moonshot_v1_16b_a3b", "qwen2_vl_72b"):
+        phase_paged_smoke(dev, arch)
+        free_memory()
 
     from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                       ring_decode_attention)
@@ -1462,24 +1715,32 @@ def main() -> int:
     served, fcfs_walls = {}, {}
     everything = (paged_decode_attention, flash_attention,
                   ring_decode_attention, linear_attention)
-    for arch, kernels in (
-            ("llama3_2_3b", (paged_decode_attention, flash_attention)),
+    paged = (paged_decode_attention, flash_attention)
+    # (arch, kernels of its path, layers where cut, policies)
+    for arch, kernels, depth, policies in (
+            ("llama3_2_3b", paged, None, ("pars", "fcfs")),
             ("hymba_1_5b", (ring_decode_attention, linear_attention,
-                            flash_attention)),
-            ("rwkv6_7b", (linear_attention,))):
-        log(f"== phase 4: serving full {arch} under PARS and FCFS "
+                            flash_attention), None, ("pars", "fcfs")),
+            ("rwkv6_7b", (linear_attention,), None, ("pars", "fcfs")),
+            ("olmoe_1b_7b", paged, None, ("pars", "fcfs")),
+            ("qwen2_vl_72b", paged, 16, ("pars",))):
+        log(f"== phase 4: serving {arch} "
+            f"({'full' if depth is None else f'{depth} layers'}) under "
+            f"{' and '.join(p.upper() for p in policies)} "
             f"(at {time.perf_counter() - t_start:.1f} s)")
         idle = tuple(k for k in everything if k not in kernels)
-        # only the newest path's launcher trains its predictor (phase 6
-        # trains the same one): the earlier paths' launchers serve FCFS
+        # only the RWKV path's launcher trains its predictor (phase 6
+        # trains the same one): the other paths' launchers serve FCFS
         served[arch], fcfs_walls[arch] = phase_serve(
             dev, arch, kernels, idle,
-            launcher_policy="pars" if arch == "rwkv6_7b" else "fcfs")
+            launcher_policy="pars" if arch == "rwkv6_7b" else "fcfs",
+            depth=depth, policies=policies)
     # torch.profiler runs only now, so that no unprofiled burst follows a
     # profiler session (bursts that did were seen to run slower)
     log(f"== phase 5: profiles (at {time.perf_counter() - t_start:.1f} s)")
     for arch, wall in fcfs_walls.items():
-        profile_serving(dev, arch, wall)
+        if wall is not None:
+            profile_serving(dev, arch, wall)
     calls = {e["name"]: e.pop("call") for e in entries if "call" in e}
     for name, call in calls.items():
         log(f"  {name} at the record's shape, device ms per call by kernel: "

@@ -5,16 +5,21 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu      # smoke
     PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba_1_5b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_7b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --full
 
 Twin of ``repro/launch/serve.py``. Builds the engine around the chosen
 architecture (one the port runs: the dense ``llama3_2_3b``,
-``nemotron_4_15b`` and ``command_r_35b``, the hybrid ``hymba_1_5b`` or the
-attention-free ``rwkv6_7b``; its f32 smoke config, or with ``--full`` its
-published widths in bf16), with seeded random weights, serves a burst (or a
-Poisson stream), and prints the paper's latency metrics. The cache follows
-the architecture, as in the reference: a paged KV pool for the dense
-models, contiguous ring lanes for the sliding-window hybrid ``hymba_1_5b``,
-per-slot recurrent state for ``rwkv6_7b``. PARS-family policies rank with
+``nemotron_4_15b`` and ``command_r_35b``, the MoE ``olmoe_1b_7b``,
+``moonshot_v1_16b_a3b`` and ``kimi_k2_1t_a32b``, Qwen2-VL's backbone
+``qwen2_vl_72b``, the hybrid ``hymba_1_5b`` or the attention-free
+``rwkv6_7b``; its f32 smoke config, or with ``--full`` its published widths
+in bf16, where the weights fit the device: ``kimi_k2_1t_a32b`` and
+``qwen2_vl_72b`` do not fit one H100, and ``--full`` says so), with seeded
+random weights, serves a burst (or a Poisson stream), and prints the
+paper's latency metrics. The cache follows the architecture, as in the
+reference: a paged KV pool for the dense, MoE and VLM models, contiguous
+ring lanes for the sliding-window hybrid ``hymba_1_5b``, per-slot
+recurrent state for ``rwkv6_7b``. PARS-family policies rank with
 a predictor trained here as the reference's launcher trains it
 (:func:`train_ranker`: 1000 alpaca prompts, the workload's lengths clipped
 to ``--max-len``, two epochs of 2048 δ-filtered pairs, at the mini width
@@ -27,6 +32,7 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.configs import pars_bert_base
@@ -107,6 +113,7 @@ def main(argv=None):
     cfg = (get_config(args.arch) if args.full else
            get_smoke_config(args.arch).replace(dtype="float32",
                                                vocab_size=2048))
+    tfm.require_fit(cfg, dev, getattr(torch, cfg.dtype).itemsize)
 
     predictor = None
     if args.policy in ("pars", "pointwise", "listwise"):

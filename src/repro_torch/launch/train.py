@@ -1,19 +1,27 @@
-"""Training launcher: the dense LM's train step on one card.
+"""Training launcher: the LM's train step on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+        --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 10
 
-Twin of ``repro/launch/train.py`` without a mesh: one device. The smoke
-config runs in f32 with ``remat="none"``; ``--full`` takes the published
-config in its dtype (bf16 for ``llama3_2_3b``) with ``remat="full"``. Seeded
-random weights, a fresh random batch every step (``example_batch``, seed
-``1 + step``), Adam with a cosine schedule (3e-4, 5 warmup steps) and
-global-norm clipping at 1.0, as the reference.
+Twin of ``repro/launch/train.py`` without a mesh: one device, the dense,
+MoE and VLM families (a VLM batch carries its stub vision prefix). The
+smoke config runs in f32 with ``remat="none"``; ``--full`` takes the
+published config in its dtype (bf16 for ``llama3_2_3b``) with
+``remat="full"``, where its weights, gradients and Adam's two f32 moments
+(12 bytes a bf16 parameter) fit the device: of the published configs only
+the dense ``llama3_2_3b`` does on one H100, and ``--full`` says so for the
+others. Seeded random weights, a fresh random batch every step
+(``example_batch``, seed ``1 + step``), Adam with a cosine schedule (3e-4,
+5 warmup steps) and global-norm clipping at 1.0, as the reference.
 """
 from __future__ import annotations
 
 import argparse
 import time
+
+import torch
 
 from repro_torch.configs import canon, get_config, get_smoke_config
 from repro_torch.device import resolve_device
@@ -40,6 +48,7 @@ def main(argv=None):
     arch = canon(args.arch)
     cfg = (get_config(arch) if args.full
            else get_smoke_config(arch).replace(dtype="float32"))
+    tfm.require_fit(cfg, dev, 2 * getattr(torch, cfg.dtype).itemsize + 8)
     print(f"training {cfg.arch_id} on {dev}")
 
     opt = Adam(learning_rate=cosine_schedule(3e-4, 5, args.steps),

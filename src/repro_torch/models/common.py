@@ -27,14 +27,14 @@ def dense_init(gen: torch.Generator, shape: Sequence[int],
     std = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)    # in place: one f32 copy of a leaf
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -112,6 +112,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     freqs = rope_freqs(x.shape[-1], theta, x.device)           # (half,)
     ang = positions[..., None].float() * freqs                 # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]                        # (B, S, 1, half)
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     -1).to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> tuple:
+    """Split of the ``head_dim // 2`` frequency pairs into (t, h, w)
+    sections: (1/4, 3/8, 3/8), as the reference generalises Qwen2-VL's
+    [16, 24, 24] of 64 pairs."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """Multimodal RoPE. x: (B, S, H, dh); positions_thw: (3, B, S) int,
+    the temporal, height and width ids. Each section of frequency pairs
+    rotates by its own position stream [arXiv:2409.12191 §2.1]; with the
+    three streams equal it is :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (half,)
+    pos = torch.cat([p[..., None].expand(*p.shape, n) for p, n in
+                     zip(positions_thw, mrope_sections(x.shape[-1]))],
+                    -1).float()                                # (B, S, half)
+    ang = pos * freqs
+    cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],

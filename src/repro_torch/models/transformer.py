@@ -1,17 +1,23 @@
-"""Decoder-only transformer, dense, hybrid and SSM families: parameters,
-prefill, chunked continuation and decode over a paged or a contiguous cache.
+"""Decoder-only transformer, dense, MoE, VLM, hybrid and SSM families:
+parameters, prefill, chunked continuation and decode over a paged or a
+contiguous cache.
 
-Port of ``repro/models/transformer.py`` for the DENSE family, the HYBRID
-family (attention and a Mamba-2/SSD head bank in every layer, their outputs
-averaged) and the SSM family (attention-free RWKV-6 time-mix and
-channel-mix, ``models/rwkv6.py``). Parameters keep the reference's pytree
-layout as nested dicts of tensors, with every layer leaf stacked on a
-leading ``num_layers`` axis, so bridged JAX parameters drop in unchanged;
-the layer loop is a Python loop where JAX used ``lax.scan``.
+Port of ``repro/models/transformer.py`` for the DENSE family, the MOE
+family (the FFN a capacity-bounded mixture of experts, ``models/moe.py``,
+plus a shared dense MLP where ``d_ff > 0``), the VLM family (Qwen2-VL's
+language backbone: M-RoPE positions, stub vision embeddings prepended to
+the tokens), the HYBRID family (attention and a Mamba-2/SSD head bank in
+every layer, their outputs averaged) and the SSM family (attention-free
+RWKV-6 time-mix and channel-mix, ``models/rwkv6.py``); the
+encoder-decoder (audio) family waits for ROADMAP item A11. Parameters keep
+the reference's pytree layout as nested dicts of tensors, with every layer
+leaf stacked on a leading ``num_layers`` axis, so bridged JAX parameters
+drop in unchanged; the layer loop is a Python loop where JAX used
+``lax.scan``.
 
 Two decode caches, one per engine mode:
 
-* **paged** (dense family without a window)::
+* **paged** (dense, MoE and VLM families without a window)::
 
       {"k", "v": (L, N+1, bs, KH, dh) pools, block N a null block,
        "tables": (B, max_blocks) int32 block table per sequence,
@@ -48,17 +54,26 @@ HYBRID family's SSM runs the chunked linear-attention kernel in prefill
 (``ssd`` mode), as does the SSM family's time-mix (``rwkv`` mode).
 The kernels have no backward (their wrappers refuse operands that require
 grad): training runs :func:`forward_seq` with ``attn_impl="naive"`` or
-``"chunked"``, the reference's plain attention, for the dense family.
+``"chunked"``, the reference's plain attention, for the dense, MoE and VLM
+families.
+
+An MoE layer's output for a token depends on the other tokens of its
+dispatch (expert capacity): :func:`forward_seq` routes a call's rows
+together, as the reference's function does on a batch (first chunks,
+training); :func:`forward_chunk` and :func:`decode_step` route each row as
+its own dispatch, as the reference engine's continuation and decode
+programs do (one row at a time under ``vmap``).
 """
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import flatten, unflatten
-from repro_torch.configs.base import DENSE, HYBRID, SSM, ModelConfig
+from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                   ring_decode_attention)
@@ -67,38 +82,83 @@ from repro_torch.models import ssm as ssd
 from repro_torch.models.attention import (attention, gather_lane,
                                           prefill_attention, prefill_cache,
                                           update_cache, write_paged)
-from repro_torch.models.common import (activate, apply_norm, apply_rope,
-                                       dense_init, embed_init, gated,
-                                       init_norm, positions_for)
+from repro_torch.models.common import (activate, apply_mrope, apply_norm,
+                                       apply_rope, dense_init, embed_init,
+                                       gated, init_norm, positions_for)
+from repro_torch.models.moe import apply_moe, init_moe
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
 
+# The families whose token mixing is attention alone.
+ATTENTION_FAMILIES = (DENSE, MOE, VLM)
 # The ROADMAP item (section A) that ports each family this module rejects.
-_ROADMAP_ITEM = {"moe": "A9 (MoE and VLM)", "vlm": "A9 (MoE and VLM)",
-                 "audio": "A11 (encoder-decoder)"}
+_ROADMAP_ITEM = {"audio": "A11 (encoder-decoder)"}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family not in (DENSE, HYBRID, SSM) or cfg.is_encdec:
+    if cfg.family not in (*ATTENTION_FAMILIES, HYBRID, SSM) or cfg.is_encdec:
         item = _ROADMAP_ITEM.get(cfg.family, "A11 (encoder-decoder)")
         raise NotImplementedError(
-            f"the port runs the dense, hybrid and ssm families; "
+            f"the port runs the dense, moe, vlm, hybrid and ssm families; "
             f"{cfg.family} waits for ROADMAP item {item}")
-    if cfg.pos_emb != "rope" and not (cfg.family == SSM
-                                      and cfg.pos_emb == "none"):
+    if cfg.pos_emb not in ("rope", "mrope") and not (
+            cfg.family == SSM and cfg.pos_emb == "none"):
         raise NotImplementedError(
             f"pos_emb={cfg.pos_emb!r}: the port's attention decoders use "
-            f"rope (the ssm family none); learned positions wait for "
-            f"ROADMAP item A11")
+            f"rope or mrope (the ssm family none); learned positions wait "
+            f"for ROADMAP item A11")
 
 
 def default_paged(cfg: ModelConfig) -> bool:
     """The reference engine's choice: block-structured KV for attention-only
     append caches; hybrid, ssm and sliding-window models keep per-slot
     lanes or state."""
-    return cfg.family == DENSE and not cfg.is_encdec and not cfg.sliding_window
+    return (cfg.family in ATTENTION_FAMILIES and not cfg.is_encdec
+            and not cfg.sliding_window)
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters :func:`init_params` makes for an attention-family
+    ``cfg``, from its widths alone (nothing is allocated), so that a
+    launcher can tell whether a published config fits the card."""
+    if cfg.family not in ATTENTION_FAMILIES:
+        raise ValueError(f"param_count covers the attention families, not "
+                         f"{cfg.family}")
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    norm = d * (2 if cfg.norm == "layernorm" else 1)
+    layer = 2 * d * q + 2 * d * kv + 2 * norm
+    if cfg.use_bias:
+        layer += q + 2 * kv + d
+    if f:
+        layer += (3 if gated(cfg.activation) else 2) * d * f
+        layer += f + d if cfg.use_bias else 0
+    if cfg.moe is not None:
+        e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
+        layer += d * e + (3 if gated(cfg.activation) else 2) * e * d * fe
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
+    return cfg.vocab_size * d + norm + head + L * layer
+
+
+def require_fit(cfg, device: torch.device, bytes_per_param: int) -> None:
+    """Exit with a message, before anything is allocated, where an
+    attention-family config's parameters at ``bytes_per_param`` bytes each
+    exceed the device's memory (the card's, or the host's for the CPU).
+    The hybrid and SSM configs (at most 7.5 B parameters) fit."""
+    if cfg.family not in ATTENTION_FAMILIES:
+        return
+    n = param_count(cfg)
+    if device.type == "cuda":
+        have = torch.cuda.get_device_properties(device).total_memory
+    else:
+        have = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    if n * bytes_per_param > have:
+        raise SystemExit(
+            f"{cfg.arch_id} at published widths does not fit: {n / 1e9:.1f} "
+            f"B parameters need {n * bytes_per_param / 1e9:.0f} GB, the "
+            f"{device.type} device holds {have / 1e9:.0f} GB")
 
 
 # ===========================================================================
@@ -135,15 +195,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     else:
         attn = {"wq": dense((d, h * dh)), "wk": dense((d, kh * dh)),
                 "wv": dense((d, kh * dh)), "wo": dense((h * dh, d))}
-        mlp = {"w_up": dense((d, f)), "w_down": dense((f, d))}
-        if gated(cfg.activation):
-            mlp["w_gate"] = dense((d, f))
         if cfg.use_bias:
             attn.update(bq=zeros(h * dh), bk=zeros(kh * dh),
                         bv=zeros(kh * dh), bo=zeros(d))
-            mlp.update(b_up=zeros(f), b_down=zeros(d))
-        layers = {"ln1": stacked_norm(), "ln2": stacked_norm(), "attn": attn,
-                  "mlp": mlp}
+        layers = {"ln1": stacked_norm(), "ln2": stacked_norm(), "attn": attn}
+        if f:                   # the dense MLP, or MoE's shared expert
+            mlp = {"w_up": dense((d, f)), "w_down": dense((f, d))}
+            if gated(cfg.activation):
+                mlp["w_gate"] = dense((d, f))
+            if cfg.use_bias:
+                mlp.update(b_up=zeros(f), b_down=zeros(d))
+            layers["mlp"] = mlp
+        if cfg.moe is not None:
+            layers["moe"] = init_moe(gen, d, cfg.moe, cfg.activation, dtype,
+                                     L)
         if cfg.family == HYBRID:
             layers["ssm"] = ssd.init_ssm(gen, cfg, dtype, L)
     params: Params = {
@@ -248,7 +313,15 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
             _linear(x, p, "wv", "bv").reshape(b, s, kh, dh))
 
 
-def _rope_qk(q, k, cfg: ModelConfig, positions):
+def _rope_qk(q, k, cfg: ModelConfig, positions, mrope_pos=None):
+    """Rotate q and k: RoPE at ``positions`` (B, S), or M-RoPE at
+    ``mrope_pos`` (3, B, S), the text positions broadcast to all three
+    streams where none are given (the reference's decode and chunk)."""
+    if cfg.pos_emb == "mrope":
+        if mrope_pos is None:
+            mrope_pos = positions[None].expand(3, *positions.shape)
+        return (apply_mrope(q, mrope_pos, cfg.rope_theta),
+                apply_mrope(k, mrope_pos, cfg.rope_theta))
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -264,8 +337,26 @@ def _attn_proj(lp: Params, out: torch.Tensor) -> torch.Tensor:
     return _linear(out.reshape(b, s, -1), lp["attn"], "wo", "bo")
 
 
-def _ffn_residual(lp: Params, x, cfg: ModelConfig):
-    return x + _mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg.norm), cfg)
+_NO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0}
+
+
+def _ffn_residual(lp: Params, x, cfg: ModelConfig, *, per_row: bool):
+    """The layer's second half: ``(x + ffn(norm(x)), aux)``, the FFN the
+    dense MLP, the MoE, or both (a shared expert), as the reference's
+    ``_ffn``; ``aux`` holds the MoE's losses and dropped slots. ``per_row``
+    routes each row as its own MoE dispatch."""
+    xn = apply_norm(lp["ln2"], x, cfg.norm)
+    y, aux = 0.0, _NO_AUX
+    if "moe" in lp:
+        y, aux = apply_moe(lp["moe"], xn, cfg.moe, cfg.activation,
+                           per_row=per_row)
+    if "mlp" in lp:
+        y = y + _mlp(lp["mlp"], xn, cfg)
+    return x + y, aux
+
+
+def _add_aux(total: dict, aux: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in aux.items()}
 
 
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -283,102 +374,120 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).contiguous()
 
 
-_NO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0}
-
-
 # ===========================================================================
 # Top level
 # ===========================================================================
 def _plain_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, attn_impl: str,
-                 kv_chunk: int) -> torch.Tensor:
-    """One dense layer on the plain, differentiable attention."""
+                 positions: torch.Tensor, mrope_pos: Optional[torch.Tensor],
+                 attn_impl: str, kv_chunk: int):
+    """One attention-family layer on the plain, differentiable attention:
+    ``(x, aux)``."""
     q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
-    q, k = _rope_qk(q, k, cfg, positions)
+    q, k = _rope_qk(q, k, cfg, positions, mrope_pos)
     out = attention(q, k, v, positions, positions, causal=True,
                     window=cfg.sliding_window, impl=attn_impl,
                     kv_chunk=kv_chunk)
-    return _ffn_residual(lp, x + _attn_proj(lp, out), cfg)
+    return _ffn_residual(lp, x + _attn_proj(lp, out), cfg, per_row=False)
 
 
-def _forward_plain(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                   attn_impl: str, kv_chunk: int, remat: str):
-    """The training forward: dense layers on the plain attention, each
-    layer recomputed in backward under ``remat="full"``."""
-    if cfg.family != DENSE:
+def _forward_plain(params: Params, cfg: ModelConfig, x: torch.Tensor,
+                   positions: torch.Tensor,
+                   mrope_pos: Optional[torch.Tensor], attn_impl: str,
+                   kv_chunk: int, remat: str):
+    """The training forward over embedded inputs ``x``: attention-family
+    layers on the plain attention, each recomputed in backward under
+    ``remat="full"``; the auxiliary losses summed over layers."""
+    if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
-            f"attn_impl={attn_impl!r} runs the dense family; training the "
-            f"{cfg.family} family (through the plain SSD scan) waits for "
+            f"attn_impl={attn_impl!r} runs the attention families; training "
+            f"the {cfg.family} family (through the plain SSD scan) waits for "
             f"ROADMAP item A8 (hybrid training)")
-    b, s = tokens.shape
-    x = params["embed"][tokens]
-    positions = positions_for(b, 0, s, x.device)
+    aux = dict(_NO_AUX)
     for lp in unstack_layers(params):
-        args = (lp, x, cfg, positions, attn_impl, kv_chunk)
-        x = (checkpoint(_plain_layer, *args, use_reentrant=False)
-             if remat == "full" and torch.is_grad_enabled()
-             else _plain_layer(*args))
-    return _final(params, cfg, x), None, dict(_NO_AUX)
+        args = (lp, x, cfg, positions, mrope_pos, attn_impl, kv_chunk)
+        x, layer_aux = (checkpoint(_plain_layer, *args, use_reentrant=False)
+                        if remat == "full" and torch.is_grad_enabled()
+                        else _plain_layer(*args))
+        aux = _add_aux(aux, layer_aux)
+    return _final(params, cfg, x), None, aux
 
 
 def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
+                vision_embeds: Optional[torch.Tensor] = None,
+                mrope_positions: Optional[torch.Tensor] = None,
                 build_cache: bool = False, cache_len: int = 0,
                 cache: Optional[Cache] = None, attn_impl: str = "kernel",
                 kv_chunk: int = 1024, remat: str = "none"
                 ) -> Tuple[torch.Tensor, Optional[Cache], dict]:
     """Full-sequence forward from position 0. tokens: (B, S) int.
 
-    Returns ``(logits (B, S, V), cache-or-None, aux)``.
+    Returns ``(logits (B, S', V), cache-or-None, aux)``: ``S' = P + S``
+    with ``vision_embeds`` (B, P, d) prepended to the token embeddings (the
+    VLM family's stub patch embeddings), ``aux`` the MoE's auxiliary
+    losses summed over layers (zero for the other families) and its
+    ``dropped_slots``. ``mrope_positions`` (3, B, S') are M-RoPE's position
+    streams, the linear positions broadcast where none are given.
 
     ``attn_impl="kernel"`` (serving) runs the prefill kernel, which has no
-    backward. With ``cache`` the prompt's K/V rows ``[0, S)`` are written
+    backward. With ``cache`` the prompt's K/V rows ``[0, S')`` are written
     into it through its tables or into its slots' lanes (a prompt longer
     than a lane keeps its last W rows at their ring slots), HYBRID's conv
     tail and SSM state, and the SSM family's state and last normed rows
-    (``tm_prev``, ``cm_prev``), land in the slots, and ``pos`` becomes S (the
-    serving engine's first-chunk prefill); ``build_cache=True`` does the
-    same into a fresh ``init_cache(cfg, B, cache_len)``.
+    (``tm_prev``, ``cm_prev``), land in the slots, and ``pos`` becomes S'
+    (the serving engine's first-chunk prefill); ``build_cache=True`` does
+    the same into a fresh ``init_cache(cfg, B, cache_len)``. A cache with
+    fewer tables or slots than B rows takes the leading rows' state only:
+    the rows past them are computed (an MoE dispatch's padding lanes,
+    which route with the others) and written nowhere.
 
     ``attn_impl="naive"`` or ``"chunked"`` (training) runs the reference's
     plain, differentiable attention (:func:`models.attention.attention`,
-    chunks of ``kv_chunk`` keys) for the dense family, and builds no cache.
-    ``remat="full"`` recomputes each layer's activations in backward
+    chunks of ``kv_chunk`` keys) for the attention families, and builds no
+    cache. ``remat="full"`` recomputes each layer's activations in backward
     (``torch.utils.checkpoint``); the reference's ``"dots"`` policy is not
     ported."""
     check_supported(cfg)
     if remat not in ("none", "full"):
         raise ValueError(f"remat={remat!r}: the port takes 'none' or 'full'")
+    x = params["embed"][tokens]
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], 1)
+    b, s, _ = x.shape
+    dev = x.device
+    positions = positions_for(b, 0, s, dev)
     if attn_impl != "kernel":
         if attn_impl not in ("naive", "chunked"):
             raise ValueError(f"unknown attn_impl {attn_impl!r}")
         if cache is not None or build_cache:
             raise ValueError(f"attn_impl={attn_impl!r} builds no cache; "
                              f"prefill into a cache runs the kernel path")
-        return _forward_plain(params, cfg, tokens, attn_impl, kv_chunk, remat)
+        return _forward_plain(params, cfg, x, positions, mrope_positions,
+                              attn_impl, kv_chunk, remat)
     if remat != "none":
         raise ValueError("remat needs the plain attention: the kernel path "
                          "has no backward")
-    b, s = tokens.shape
-    x = params["embed"][tokens]
-    dev = x.device
     if cache is None and build_cache:
         cache = init_cache(cfg, b, cache_len, dtype=x.dtype, device=dev)
-    positions = positions_for(b, 0, s, dev)
+    # rows the cache holds (its tables or slots); rows past them compute
+    n = b if cache is None else len(cache.get("tables", cache.get("slots")))
     q_start = torch.zeros(b, dtype=torch.int32, device=dev)
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
+    aux = dict(_NO_AUX)
     for layer, lp in enumerate(unstack_layers(params)):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
         if cfg.family == SSM:
             x = _rwkv_seq(lp, x, xn, cfg, cache, layer)
             continue
         q, k, v = _qkv(lp["attn"], xn, cfg)
-        q, k = _rope_qk(q, k, cfg, positions)
+        q, k = _rope_qk(q, k, cfg, positions, mrope_positions)
         if cache is not None and "tables" in cache:
-            write_paged(cache["k"][layer], cache["tables"], positions, k)
-            write_paged(cache["v"][layer], cache["tables"], positions, v)
+            write_paged(cache["k"][layer], cache["tables"], positions[:n],
+                        k[:n])
+            write_paged(cache["v"][layer], cache["tables"], positions[:n],
+                        v[:n])
         elif cache is not None:
-            prefill_cache(cache["k"][layer], cache["slots"], k)
-            prefill_cache(cache["v"][layer], cache["slots"], v)
+            prefill_cache(cache["k"][layer], cache["slots"], k[:n])
+            prefill_cache(cache["v"][layer], cache["slots"], v[:n])
         out = prefill_attention(q, _heads_first(k), _heads_first(v), q_start,
                                 kv_len, window=cfg.sliding_window)
         mix = _attn_proj(lp, out)
@@ -387,13 +496,14 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
             mix = 0.5 * (mix + ssm_out)
             if cache is not None:
                 slots = cache["slots"].long()
-                cache["conv_tail"][layer][slots] = tail
-                cache["ssm_state"][layer][slots] = state
-        x = _ffn_residual(lp, x + mix, cfg)
+                cache["conv_tail"][layer][slots] = tail[:n]
+                cache["ssm_state"][layer][slots] = state[:n]
+        x, layer_aux = _ffn_residual(lp, x + mix, cfg, per_row=False)
+        aux = _add_aux(aux, layer_aux)
     logits = _final(params, cfg, x)
     if cache is not None:
-        cache = {**cache, "pos": kv_len}
-    return logits, cache, dict(_NO_AUX)
+        cache = {**cache, "pos": kv_len[:n]}
+    return logits, cache, aux
 
 
 def _rwkv_seq(lp: Params, x: torch.Tensor, xn: torch.Tensor,
@@ -410,9 +520,10 @@ def _rwkv_seq(lp: Params, x: torch.Tensor, xn: torch.Tensor,
     out2, last_cm = rwkv.channel_mix(lp["cm"], xn2, prev)
     if cache is not None:
         slots = cache["slots"].long()
-        cache["state"][layer][slots] = state
-        cache["tm_prev"][layer][slots] = last_tm
-        cache["cm_prev"][layer][slots] = last_cm
+        n = len(slots)
+        cache["state"][layer][slots] = state[:n]
+        cache["tm_prev"][layer][slots] = last_tm[:n]
+        cache["cm_prev"][layer][slots] = last_cm[:n]
     return x + out2
 
 
@@ -445,14 +556,17 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     its table, or from its slot) causally, keys ``[0, pos[b]+C)``: exactly
     the resident prefix plus the chunk, so chunked prefill equals one
     :func:`forward_seq`. The caller guarantees ``pos + C <= W`` (no wrap).
-    Dense family only: a hybrid's SSM carries state across chunks that
-    :func:`forward_seq` does not take back in. Returns
+    Attention families only (dense, MoE, VLM): a hybrid's SSM carries
+    state across chunks that :func:`forward_seq` does not take back in.
+    M-RoPE takes the text positions in all three streams. Each row's chunk
+    is its own MoE dispatch, as under the reference engine's ``vmap``.
+    Returns
     ``(logits (B, C, V), cache)`` with ``pos`` advanced by C."""
     check_supported(cfg)
-    if cfg.family != DENSE:
+    if cfg.family not in ATTENTION_FAMILIES:
         raise NotImplementedError(
-            f"forward_chunk supports attention-family models (the port: "
-            f"dense); {cfg.family} carries recurrent cross-chunk state")
+            f"forward_chunk supports attention-family models; "
+            f"{cfg.family} carries recurrent cross-chunk state")
     b, c = tokens.shape
     x = params["embed"][tokens]
     pos0 = cache["pos"].to(torch.int32)
@@ -477,7 +591,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             lane_k, lane_v = k_all[rows], v_all[rows]
         out = prefill_attention(q, lane_k, lane_v, pos0, kv_len,
                                 window=cfg.sliding_window)
-        x = _ffn_residual(lp, x + _attn_proj(lp, out), cfg)
+        x, _ = _ffn_residual(lp, x + _attn_proj(lp, out), cfg, per_row=True)
     return _final(params, cfg, x), {**cache, "pos": kv_len}
 
 
@@ -491,7 +605,9 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     the ring decode kernel attends the lane under the ring and window mask.
     A wrap past W overwrites the oldest row: the reference's ring
     semantics. HYBRID's SSM advances its conv tail and state by one token,
-    as the SSM family advances its state and token shifts.
+    as the SSM family advances its state and token shifts. M-RoPE takes
+    ``pos`` in all three streams. Each row's token is its own MoE dispatch,
+    as under the reference engine's ``vmap``.
     Returns ``(logits (B, V), cache)`` with ``pos`` advanced by one."""
     check_supported(cfg)
     x = params["embed"][token]
@@ -532,5 +648,5 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
             tails[rows] = tail
             states[rows] = state
             mix = 0.5 * (mix + ssm_out[:, None])
-        x = _ffn_residual(lp, x + mix, cfg)
+        x, _ = _ffn_residual(lp, x + mix, cfg, per_row=True)
     return _final(params, cfg, x)[:, 0], {**cache, "pos": pos + 1}

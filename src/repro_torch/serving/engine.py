@@ -7,8 +7,8 @@ ranking, KV block accounting, chunk planning and prefix caching are the
 reference's code), and keeps the reference's backend contract:
 ``kv_demand`` / ``prefill_total`` / ``prefix_tokens`` / ``release`` have the
 same semantics, so the core makes the same decisions. Two KV modes, chosen
-as the reference chooses (``paged=None``: paged for attention-only models
-without a sliding window):
+as the reference chooses (``paged=None``: paged for attention-only models,
+the dense, MoE and VLM families, without a sliding window):
 
 * **Paged.** KV lives in one global pool per K and V, ``(L, total_blocks +
   1, block_size, KH, dh)`` (the reference's ``(n+1, L, bs, KH, dh)`` with L
@@ -40,9 +40,19 @@ suffix after a prefix-cache hit; attention-only models) run
 completes a prompt commits its sampled token as the request's first output.
 Decode runs one ``decode_step`` over the decode-ready slots per step.
 
-Unlike the jitted reference, dispatch batches are not padded to powers of
-two (eager PyTorch compiles nothing per shape), so there are no replayed
-padding lanes.
+Padding lanes. The jitted reference pads every dispatch batch to a power
+of two with lanes that replay lane 0, to bound its compiled shapes. Eager
+PyTorch compiles nothing per shape, so the port pads only where the
+padding changes the result: an MoE model's first chunks. Their one
+``forward_seq`` routes all lanes' tokens as one dispatch, and expert
+capacity couples the rows, so the replayed lanes run through the whole
+model as in the reference (and make its group size divide the dispatch).
+Only the real lanes' K/V and sampled tokens are kept: lane 0 keeps its
+own values, where the reference's scatter lets its replica's overwrite
+them (ROADMAP C3). ``forward_chunk`` and ``decode_step`` route each row
+on its own, as the reference's continuation and decode programs do under
+``vmap``, so padding them would change nothing; dense and VLM rows are
+independent.
 
 Prompt handling and completion length follow the reference: prompts are
 hash-tokenized into their bucket, and a request finishes after its
@@ -56,7 +66,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import DENSE, ModelConfig
+from repro_torch.configs.base import MOE, ModelConfig
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
@@ -143,6 +153,7 @@ class RealBackend:
         self.prefill_seconds = 0.0    # wall time spent in admission/prefill
         self.prefix_installs = 0      # slots claimed at a cached offset
         self.prefix_tokens_copied = 0  # KV tokens copied instead of computed
+        self.prefill_pad_lanes = 0    # replayed lanes of MoE first chunks
 
     # -------------------------------------------------------------- protocol
     def attach(self, core: ServingCore) -> None:
@@ -152,7 +163,7 @@ class RealBackend:
             # both features continue prefill at non-zero offsets (a cache
             # hit resumes mid-prompt even with chunking off), so both need
             # exact attention-only continuation
-            if cfg.family != DENSE or cfg.is_encdec:
+            if cfg.family not in tfm.ATTENTION_FAMILIES or cfg.is_encdec:
                 raise ValueError(
                     f"chunked prefill / prefix caching needs an "
                     f"attention-family model (got {cfg.family}): "
@@ -399,19 +410,25 @@ class RealBackend:
             first_batches = [(ln, [r]) for ln, g in sorted(first_groups.items())
                              for r in g]
         for bucket_len, group in first_batches:
-            tokens = np.zeros((len(group), bucket_len), np.int64)
+            n = len(group)
+            # an MoE dispatch replays lane 0 up to a power of two (see the
+            # module docstring); the cache takes the first n rows only
+            lanes = _next_pow2(n) if self.cfg.family == MOE else n
+            tokens = np.zeros((lanes, bucket_len), np.int64)
             for j, req in enumerate(group):
                 ids = self._prompt_ids(req)[:bucket_len]
                 tokens[j, :len(ids)] = ids      # tail = pad token 0
+            tokens[n:] = tokens[0]
             # the pool blocks that hold the bucket
             nb = -(-bucket_len // self.k_pool.shape[2]) if self.paged else None
             logits, _, _ = tfm.forward_seq(
                 self.params, self.cfg,
                 torch.as_tensor(tokens, device=self.device),
-                cache=self._cache(group, np.zeros(len(group), np.int32), nb))
+                cache=self._cache(group, np.zeros(n, np.int32), nb))
             slots = [self._slot_of[r.req_id] for r in group]
-            self.slot_tokens[slots] = self._sample(logits[:, -1])
+            self.slot_tokens[slots] = self._sample(logits[:n, -1])
             self.prefill_dispatches += 1
+            self.prefill_pad_lanes += lanes - n
 
         for chunk_len, group in sorted(ext_groups.items()):
             tokens = np.zeros((len(group), chunk_len), np.int64)

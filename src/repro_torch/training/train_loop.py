@@ -41,6 +41,11 @@ def make_train_step(cfg: ModelConfig, opt: Adam, *, attn_impl: str = "chunked",
                     remat: str = "full", microbatch: int = 1) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
+    ``metrics`` hold ``loss`` and ``grad_norm`` and, with ``microbatch ==
+    1``, ``lm_loss``'s metrics: ``ce``, ``load_balance_loss`` and
+    ``router_z_loss`` (the MoE family's; zero for the others) and, for
+    the MoE family, ``dropped_slots``.
+
     ``microbatch > 1`` accumulates f32 gradients over that many equal slices
     of the batch and divides by ``microbatch``, as the reference's scan:
     peak activation memory scales with B / microbatch. ``params`` are

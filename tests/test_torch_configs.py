@@ -2,7 +2,9 @@
 
 ``repro_torch.configs`` holds every architecture of the reference's
 registry, field for field (published and smoke configs), and refuses the
-families the port does not run yet, naming their ROADMAP item. The f32
+family the port does not run yet (audio), naming its ROADMAP item. The
+attention families' parameters have the reference's leaves (paths, shapes,
+dtypes), counted from the widths alone by ``param_count``. The f32
 ``nemotron_4_15b`` (squared ReLU, layernorm) and ``command_r_35b``
 (layernorm, tied head, rope theta 8e6) smoke configs give the JAX model's
 logits at 1e-4 through prefill and decode, and nemotron's greedy tokens on
@@ -34,9 +36,10 @@ torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 DENSE_EXTRA = ["nemotron_4_15b", "command_r_35b"]
 # families the port does not run yet -> the ROADMAP item named on refusal
-UNPORTED = {"olmoe_1b_7b": "A9", "moonshot_v1_16b_a3b": "A9",
-            "kimi_k2_1t_a32b": "A9", "qwen2_vl_72b": "A9",
-            "whisper_tiny": "A11"}
+UNPORTED = {"whisper_tiny": "A11"}
+# the MoE and VLM configs (ROADMAP A9)
+MOE_VLM = ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "kimi_k2_1t_a32b",
+           "qwen2_vl_72b"]
 
 
 def test_all_configs_equals_the_reference_registry():
@@ -59,6 +62,35 @@ def test_unported_families_are_refused_naming_their_item(arch):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP item {UNPORTED[arch]}"):
         tfm.init_params(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch", MOE_VLM + ["llama3_2_3b"] + DENSE_EXTRA)
+def test_attention_family_params_have_the_reference_leaves(arch):
+    """``init_params`` builds the reference's leaves (the experts' router in
+    f32 beside bf16 weights, a shared MLP only where ``d_ff > 0``, biases,
+    layernorm, a tied head), and ``param_count`` counts them from the
+    widths."""
+    cfg = configs.get_smoke_config(arch)
+    tfm.check_supported(cfg)
+    assert tfm.default_paged(cfg)
+    ref = _flatten(jtfm.init_params(jax.random.PRNGKey(0),
+                                    jconfigs.get_smoke_config(arch)))
+    mine = bridge.flatten(tfm.init_params(cfg, device="cpu"))
+    assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for k, v in mine.items()} == \
+        {k: (v.shape, str(v.dtype)) for k, v in ref.items()}
+    assert tfm.param_count(cfg) == sum(v.numel() for v in mine.values())
+
+
+def test_param_count_of_the_published_moe_config():
+    """olmoe_1b_7b: 419.6 M parameters a layer (attention 4 x 2048^2,
+    64 experts of 3 x 2048 x 1024, a 2048 x 64 router, two norms), 6.92 B
+    with the embedding and the untied head (2 x 50304 x 2048)."""
+    cfg = configs.get_config("olmoe_1b_7b")
+    layer = 4 * 2048 ** 2 + 64 * 3 * 2048 * 1024 + 2048 * 64 + 2 * 2048
+    assert layer == 419_565_568
+    assert tfm.param_count(cfg) == 16 * layer + 2 * 50304 * 2048 + 2048
+    assert round(tfm.param_count(cfg) / 1e9, 2) == 6.92
 
 
 def _bridged(arch):

@@ -216,8 +216,8 @@ def test_engine_refuses_what_the_slice_does_not_port(setup, hymba,
                                                      monkeypatch):
     _jcfg, _jparams, cfg, params = setup
     sched = Scheduler(policy=fcfs(), max_batch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A9"):
-        Engine(cfg.replace(family="moe"), params, sched, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP item A11"):
+        Engine(cfg.replace(family="audio"), params, sched, device="cpu")
     hcfg, hparams = hymba[2], hymba[3]
     for kw in (dict(prefill_chunk_tokens=16), dict(prefix_caching=True)):
         with pytest.raises(ValueError, match="attention-family"):
@@ -232,7 +232,8 @@ def test_engine_refuses_what_the_slice_does_not_port(setup, hymba,
         Engine(cfg, params, sched)                 # device defaults to cuda
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_3b", "hymba_1_5b", "rwkv6_7b"])
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "hymba_1_5b", "rwkv6_7b",
+                                  "olmoe_1b_7b", "qwen2_vl_72b"])
 def test_launcher_serves_on_cpu(capsys, arch):
     rep = launch_serve.main(["--arch", arch, "--device", "cpu",
                              "--requests", "6", "--batch", "2",

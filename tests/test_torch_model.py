@@ -300,10 +300,11 @@ def test_rope_and_per_row_positions_match():
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("family", [None, "hybrid", "moe", "ssm"])
+@pytest.mark.parametrize("family", [None, "hybrid", "moe", "vlm", "ssm",
+                                    "audio"])
 def test_only_the_dense_family_is_ported(family):
-    """The dense, hybrid and ssm families run; the others raise, naming
-    their ROADMAP item."""
+    """The dense, MoE, VLM, hybrid and ssm families run; the audio family
+    (encoder-decoder) raises, naming its ROADMAP item."""
     if family is None:
         cfg = get_config("llama3_2_3b")
         assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -338,8 +339,30 @@ def test_only_the_dense_family_is_ported(family):
         with pytest.raises(NotImplementedError, match="A11"):
             tfm.check_supported(smoke.replace(pos_emb="learned"))
         return
+    if family == "moe":
+        cfg = get_config("olmoe_1b_7b")
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.moe.num_experts,
+                cfg.moe.top_k, cfg.moe.expert_d_ff,
+                cfg.moe.capacity_factor) == (
+            16, 2048, 16, 16, 128, 0, 50304, 64, 8, 1024, 1.25)
+        tfm.check_supported(cfg)
+        assert tfm.default_paged(cfg)
+        params = tfm.init_params(get_smoke_config("olmoe_1b_7b"),
+                                 device="cpu")
+        assert set(params["layers"]) == {"ln1", "ln2", "attn", "moe"}
+        assert params["layers"]["moe"]["router"].dtype == torch.float32
+        return
+    if family == "vlm":
+        cfg = get_config("qwen2_vl_72b")
+        assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.pos_emb) == (
+            80, 8192, 64, 8, 128, 29568, 152064, "mrope")
+        tfm.check_supported(cfg)
+        assert tfm.default_paged(cfg)
+        return
     cfg = get_smoke_config("llama3_2_3b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item A11"):
         tfm.init_params(cfg, device="cpu")
 
 
