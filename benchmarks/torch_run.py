@@ -1,0 +1,103 @@
+"""Benchmark runner of the port — one function per paper table/figure, the
+twin of ``benchmarks/run.py`` for ``benchmarks/torch_*.py``.
+
+    python -m benchmarks.torch_run                       # on the card
+    python -m benchmarks.torch_run --only table2 cross_model \
+        --predictor pars_bert_base
+    PYTHONPATH=src python -m benchmarks.torch_run --device cpu --only table1
+
+Each benchmark prints its table and a ``name,us_per_call,derived`` CSV row,
+and merges its section (with the device it ran on, the scale, the
+predictor width and its wall seconds) into ``BENCH_torch.json`` at the repo
+root, or into ``--json``: under the bench's name at the mini width, under
+``<name>@pars_bert_base`` at the paper's. ``--device`` defaults to
+``cuda`` and raises without a card. On the card ``prefill_admission``
+serves the published widths (``--full``); on the CPU the smoke config.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import sys
+import time
+import traceback
+
+from benchmarks.torch_common import (BENCH_TORCH_JSON, PREDICTOR_WIDTHS,
+                                     record_torch_bench, section_meta,
+                                     section_name)
+from repro_torch.device import resolve_device
+
+#: bench name (as in benchmarks/run.py) -> twin module
+MODULES = {
+    "table1": "torch_table1_variability",
+    "table2": "torch_table2_rank_methods",
+    "table3": "torch_table3_backbones",
+    "table4": "torch_table4_filtering",
+    "cross_model": "torch_cross_model",
+    "pars_plus": "torch_pars_plus_ablation",
+    "prefill_admission": "torch_prefill_admission",
+}
+BENCHES = tuple(MODULES)
+#: the benches that train predictors (at ``--predictor``)
+PREDICTOR_BENCHES = ("table2", "table3", "table4", "cross_model", "pars_plus")
+
+
+def run_bench(name: str, device: str, width: str) -> dict:
+    """Run one bench; returns its ``BENCH_torch.json`` section."""
+    mod = importlib.import_module(f"benchmarks.{MODULES[name]}")
+    t0 = time.perf_counter()
+    if name == "table1":
+        results = mod.run()
+    elif name == "prefill_admission":
+        results = mod.run(device=device,
+                          full=resolve_device(device).type == "cuda")
+    else:
+        results = mod.run(device=device, predictor=width)
+    return {**mod.section(results),
+            **section_meta(device,
+                           width if name in PREDICTOR_BENCHES else None),
+            "wall_s": time.perf_counter() - t0}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(prog="benchmarks.torch_run")
+    ap.add_argument("--only", nargs="*", default=None,
+                    help=f"subset of {BENCHES}")
+    ap.add_argument("--device", default="cuda",
+                    help="where predictors train and the engine serves "
+                    "(cuda raises without a card)")
+    ap.add_argument("--predictor", default="mini", choices=PREDICTOR_WIDTHS,
+                    help="predictor width: the reference benches' mini, or "
+                    "the paper's BERT-base")
+    ap.add_argument("--json", default=None,
+                    help="merge the sections into this file instead of "
+                    "BENCH_torch.json at the repo root")
+    args = ap.parse_args(argv)
+    selected = args.only or BENCHES
+    unknown = [n for n in selected if n not in MODULES]
+    if unknown:
+        ap.error(f"unknown benches {unknown}; choose from {BENCHES}")
+    resolve_device(args.device)           # no card: fail before any work
+
+    t0 = time.perf_counter()
+    sections, failures = {}, []
+    for name in selected:
+        print(f"\n{'=' * 72}\n== {name}\n{'=' * 72}", flush=True)
+        try:
+            sections[name] = run_bench(name, args.device, args.predictor)
+        except Exception:
+            failures.append(name)
+            traceback.print_exc()
+            continue
+        width = args.predictor if name in PREDICTOR_BENCHES else None
+        record_torch_bench(section_name(name, width), sections[name],
+                           args.json or BENCH_TORCH_JSON)
+    print(f"\ntotal benchmark wall time: {time.perf_counter() - t0:.0f}s")
+    if failures:
+        print(f"FAILED benches: {failures}")
+        sys.exit(1)
+    return sections
+
+
+if __name__ == "__main__":
+    main()

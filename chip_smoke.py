@@ -90,11 +90,25 @@ failed check raises and the script exits non-zero:
    steps on one batch of 4 x 64 (the loss falls, grad norms are finite;
    ms per step, tokens/s, peak memory, share of the bf16 peak), and the
    train launcher (``repro_torch.launch.train --full``) for two steps.
+9. The paper's benchmarks on the card, through the port: Tables I–IV, the
+   cross-model study and the PARS+ ablation (``benchmarks.torch_run``,
+   FAST scale, the mini predictor, every predictor trained on the card),
+   then the admission twin (``benchmarks.torch_prefill_admission
+   --full``: full ``llama3_2_3b``, bf16, bursts of 8 prompts, 4 reps,
+   sequential against bucketed prefill). Bars, the reference's own: Table
+   II's alpaca/gpt4 pairwise tau_b >= 0.45; in each cross-model cell
+   oracle <= native PARS x 1.001 and native PARS < FCFS in average
+   per-token latency. Every admission request finishes, bucketed makes
+   fewer dispatches than sequential, the prefill kernel launches in every
+   layer of every prefill dispatch and paged decode in the decode steps,
+   and no other kernel. The sections go to ``chiprun_out/BENCH_torch.json``
+   and must pass ``benchmarks.torch_check_bench --card``.
 
-The last lines are a JSON object of training numbers, one of per-kernel
-numbers and then ``{"ok": true, "device": {...}}``. It exits non-zero,
-printing no result, where no CUDA card is visible or the package cannot be
-imported.
+The last lines are JSON objects of training numbers, of the benchmarks'
+numbers (tau per table cell, speedups, dispatches, wall per bench), of
+per-kernel numbers and then ``{"ok": true, "device": {...}}``. It exits
+non-zero, printing no result, where no CUDA card is visible or the
+package cannot be imported.
 """
 from __future__ import annotations
 
@@ -516,8 +530,9 @@ def phase_moe_vlm_instances(dev) -> dict:
     """Paged decode at the MoE and VLM paths' served shapes, OLMoE's (KH 16,
     one query head per KV head) and Qwen2-VL's (KH 8, group 8), and
     prefill at H = KH = 16: each against its plain version (f32 at 2e-5,
-    bf16 at 2e-2), timed back-to-back and device-only (warm and L2-cold)
-    beside SDPA and its bound. Returns keys for the two kernels' entries."""
+    bf16 at 2e-2), timed back-to-back and device-only (warm and L2-cold),
+    beside SDPA timed both ways and the bound. Returns keys for the two
+    kernels' entries."""
     from repro_torch.kernels.flash_decode.ops import (
         paged_decode_attention, paged_decode_attention_plain)
     from repro_torch.kernels.flash_prefill.ops import (
@@ -547,15 +562,19 @@ def phase_moe_vlm_instances(dev) -> dict:
             err = check_close(f"decode {label} {dt}", out_k,
                               paged_decode_attention_plain(*args), tol)
         q, kp, vp = q32.to(bf), kp32.to(bf), vp32.to(bf)
+        lib = _paged_sdpa_args(q, kp, vp, tb, served, g)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
         t = {"max_abs_err": err,
              "ms": cuda_ms(lambda: paged_decode_attention(q, kp, vp, tb,
                                                           served), 200),
              "plain_ms": cuda_ms(lambda: paged_decode_attention_plain(
                  q, kp, vp, tb, served), 20),
+             "library_ms": cuda_ms(lambda: sdpa(lib[0], lib[1], lib[2],
+                                                attn_mask=lib[3]), 200),
              **_paged_times(f"{label} served lengths", q, kp, vp, tb, served,
                             g)}
         log(f"  decode {label} bf16, back-to-back: {t['ms']:.4f} ms kernel, "
-            f"{t['plain_ms']:.4f} ms plain")
+            f"{t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms SDPA")
         out["paged_decode_attention"].update(
             {f"{label}_{k}": v for k, v in t.items()})
 
@@ -1583,6 +1602,123 @@ def phase_train_lm(dev) -> dict:
                                  for t, c, k in host[:6]]}}}
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the paper's benchmarks on the card
+# ---------------------------------------------------------------------------
+# the reference's bars (tests/test_system.py): Table II's alpaca/gpt4
+# pairwise tau_b, and oracle <= native PARS x 1.001 < FCFS in each
+# cross-model cell
+TAU_BAR = 0.45
+ORACLE_SLACK = 1.001
+TABLE_BENCHES = ("table1", "table2", "table3", "table4", "cross_model",
+                 "pars_plus")
+
+
+def _bench_summary(sections: dict) -> dict:
+    """The numbers of phase 9's JSON line: tau per table cell, speedups,
+    dispatches, launches and the wall seconds of each bench."""
+    cross = sections["cross_model"]["cells"]
+    adm = sections["prefill_admission"]
+    return {
+        "device": sections["table2"]["device"],
+        "predictor": sections["table2"]["predictor"],
+        "table2_tau": sections["table2"]["tau"],
+        "table3_tau": sections["table3"]["tau"],
+        "table4_tau": sections["table4"]["tau"],
+        "cross_model": {k: {f: c[f] for f in (
+            "tau_cross", "tau_native", "speedup_cross_vs_fcfs",
+            "speedup_native_vs_fcfs")} for k, c in cross.items()},
+        "pars_plus_best_gain_vs_pars":
+            sections["pars_plus"]["best_pars_plus_gain_vs_pars"],
+        "prefill_admission": {
+            "width": adm["width"], "speedup": adm["speedup"],
+            **{mode: {f: adm[mode][f] for f in (
+                "dispatches", "prefill_s", "warmup_s", "wall_s",
+                "launches")} for mode in ("sequential", "bucketed")}},
+        "wall_s": {name: sec["wall_s"] for name, sec in sections.items()},
+    }
+
+
+def phase_benchmarks(kernels) -> tuple:
+    """The paper's benchmarks through the port on the card: the table and
+    study twins (``benchmarks.torch_run``, FAST scale, mini predictor,
+    every predictor trained on the card) and the admission twin at
+    published width (``benchmarks.torch_prefill_admission --full``), with
+    every count of ``kernels`` set to 0 just before it and read just after;
+    the sections go to ``chiprun_out/BENCH_torch.json``, which must pass
+    ``torch_check_bench --card``. Checks the reference's bars and that the
+    admission twin ran the prefill kernel in every layer of every prefill
+    dispatch, paged decode in its decode steps and no other kernel.
+    Returns the summary and the admission's launch counts."""
+    from benchmarks import torch_check_bench, torch_prefill_admission
+    from benchmarks import torch_run
+    from repro_torch.configs import get_config
+
+    path = ROOT / "chiprun_out" / "BENCH_torch.json"
+    path.unlink(missing_ok=True)
+    sections = torch_run.main(["--only", *TABLE_BENCHES, "--json",
+                               str(path)])
+    for k in kernels:
+        k.launches = 0
+    sections["prefill_admission"] = torch_prefill_admission.main(
+        ["--full", "--json", str(path)])
+    launches = {k.__name__: k.launches for k in kernels}
+    errors = torch_check_bench.check(path, card=True)
+    if errors:
+        raise AssertionError(f"{path}: {errors}")
+
+    problems = []
+    tau = sections["table2"]["tau"]["alpaca/gpt4"]["pairwise"]
+    if not tau >= TAU_BAR:
+        problems.append(f"Table II alpaca/gpt4 pairwise tau_b {tau:.4f} "
+                        f"< {TAU_BAR}")
+    for cell, c in sections["cross_model"]["cells"].items():
+        lat = c["avg_per_token_latency"]
+        log(f"  cross_model {cell}: avg per-token latency fcfs "
+            f"{lat['fcfs']:.4f}, cross {lat['cross']:.4f}, native "
+            f"{lat['native']:.4f}, oracle {lat['oracle']:.4f} s")
+        if not lat["oracle"] <= lat["native"] * ORACLE_SLACK:
+            problems.append(f"{cell}: oracle above native PARS")
+        if not lat["native"] < lat["fcfs"]:
+            problems.append(f"{cell}: native PARS not below FCFS")
+    adm = sections["prefill_admission"]
+    layers = get_config(adm["arch"]).num_layers
+    runs = adm["batch"] * adm["reps"]
+    for mode in ("sequential", "bucketed"):
+        m = adm[mode]
+        counts = m["launches"]
+        if m["finished"] != runs:
+            problems.append(f"admission {mode}: {m['finished']} of {runs} "
+                            f"finished")
+        if counts["flash_attention"] != layers * m["dispatches"]:
+            problems.append(f"admission {mode}: {counts['flash_attention']}"
+                            f" prefill launches for {m['dispatches']} "
+                            f"dispatches of {layers} layers")
+        decode = counts["paged_decode_attention"]
+        if decode == 0 or decode % layers:
+            problems.append(f"admission {mode}: {decode} paged decode "
+                            f"launches")
+        strays = {k: v for k, v in counts.items() if v and k not in (
+            "flash_attention", "paged_decode_attention")}
+        if strays:
+            problems.append(f"admission {mode}: another path's kernel "
+                            f"launched: {strays}")
+    if not adm["bucketed"]["dispatches"] < adm["sequential"]["dispatches"]:
+        problems.append("bucketed admission made no fewer dispatches")
+    if adm["width"] != "published":
+        problems.append("the admission twin did not run at published width")
+    total = {k: sum(adm[m]["launches"][k] for m in ("sequential",
+                                                    "bucketed"))
+             for k in launches}
+    if total != launches:
+        problems.append(f"the twin's counts {total} differ from the "
+                        f"wrappers' {launches}")
+    if problems:
+        raise AssertionError(f"phase 9: {problems}")
+    log(f"  {path.relative_to(ROOT)}: torch_check_bench --card passed")
+    return _bench_summary(sections), launches
+
+
 # the kernels of src/repro_torch/kernels/csrc, as the profiler names them
 PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
                 "flash_prefill_wgmma_kernel", "flash_prefill_kernel",
@@ -1662,7 +1798,7 @@ def main() -> int:
         print("chip_smoke: no CUDA card is visible; this script runs on the "
               "card", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     from repro_torch.kernels import build
 
     t_start = time.perf_counter()
@@ -1765,8 +1901,17 @@ def main() -> int:
     log(f"== phase 8: training the LM (at {time.perf_counter() - t_start:.1f}"
         f" s)")
     training["lm"] = phase_train_lm(dev)
+    free_memory()
+    log(f"== phase 9: the paper's benchmarks on the card "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    benchmarks, admission = phase_benchmarks(everything)
+    for e in entries:
+        if admission[e["name"]]:
+            e["launches_by_path"]["prefill_admission"] = admission[e["name"]]
+            e["launches"] += admission[e["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training}))
+    print(json.dumps({"benchmarks": benchmarks}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -1,12 +1,38 @@
-"""Serving metrics: the subset of the reference metrics module that
-:func:`repro_torch.serving.engine.serve` returns.
+"""Serving metrics: the paper's average & p90 *per-token* latency (§IV) plus
+the two latency axes chunked prefill trades between:
 
-``report`` turns finished requests into a :class:`LatencyReport` (the
-paper's average and p90 per-token latency, TTFT, inter-token-latency
-percentiles, throughput, prefix-cache and fault counters), and
-:class:`RunCounters` bundles the optional run counters. The definitions are
-verbatim copies of ``repro/serving/metrics.py``; the multi-replica and SLO
-reports are not part of this port yet.
+* **TTFT** (arrival → first token): chunking a long prompt across steps
+  delays *its* first token;
+* **inter-token latency** (gap between consecutive output tokens of a
+  request already decoding): chunking exists to protect exactly this — an
+  unchunked long-prompt burst shows up as a p99 ITL spike on every
+  co-resident request.
+
+ITL percentiles come from actual per-token gaps when the run recorded
+``Request.token_times`` (``record_token_times=True`` on the core), and fall
+back to each request's mean gap (finish − first_token)/(n − 1) otherwise.
+
+Multi-replica runs aggregate through :func:`router_report`: one pooled
+``LatencyReport`` over every replica's finished requests plus per-replica
+reports and router-level signals (load imbalance, cross-replica
+prefix-hit rate, routed TTFT). Aggregation is NaN-safe for replicas that
+served zero requests — empty replicas contribute all-NaN per-replica rows
+and are excluded from imbalance means; they never poison the pooled
+aggregate (which is computed from the pooled request list, not by
+averaging per-replica summaries).
+
+Optional run counters (rerank refreshes, dropped requests, scorer faults,
+router crash/restart tallies) travel in one :class:`RunCounters` bundle —
+``report(..., counters=RunCounters.from_core(core))`` — instead of a
+per-feature kwarg each. The historical loose kwargs are still accepted for
+one release and produce bit-identical reports (pinned by tests).
+
+SLO-grade workloads (``repro_torch.serving.workloads``) are scored by
+:func:`slo_report`: per-priority-class TTFT/ITL SLO attainment, goodput
+(= tokens of requests that met every applicable SLO, per second — the
+SNIPPETS ch. 9 metric), and per-tenant tail percentiles, all under the same
+NaN-when-absent convention (a class without an ITL SLO reports NaN ITL
+attainment, never a fake 100%).
 """
 from __future__ import annotations
 
@@ -285,4 +311,332 @@ def report(policy: str, finished: Sequence[Request], *,
         rerank_preemptions=float(rrank.sum()) if len(rrank)
         else float("nan"),
         **faults,
+    )
+
+
+# --------------------------------------------------------------- multi-replica
+@dataclass(frozen=True)
+class RouterReport:
+    """Aggregate + per-replica view of one multi-replica routed run.
+
+    ``aggregate`` is a :class:`LatencyReport` over the *pooled* finished
+    requests of every replica (so its means/percentiles are request-weighted,
+    never averages of per-replica summaries — an empty replica cannot poison
+    them with NaN). ``per_replica[i]`` is replica *i*'s own report; replicas
+    that served nothing report all-NaN rows, by the same "NaN means absent"
+    convention the latency report uses.
+    """
+    policy: str                            # routing policy name
+    n_replicas: int
+    n_requests: int                        # pooled finished count
+    aggregate: LatencyReport
+    per_replica: Tuple[LatencyReport, ...]
+    requests_per_replica: Tuple[int, ...]
+    tokens_per_replica: Tuple[int, ...]    # generated tokens per replica
+    # max/mean served requests per *serving* replica (1.0 = perfectly even;
+    # NaN when nothing finished anywhere). Replicas that served zero requests
+    # still count in the mean — an idle replica IS imbalance.
+    load_imbalance: float
+    token_imbalance: float                 # same ratio over generated tokens
+    # Prefix-cache affinity signal: pooled hit rate across replicas (NaN when
+    # caching was off everywhere) — the number cache-affinity routing moves.
+    cross_replica_hit_rate: float
+    routed_ttft_mean_s: float              # arrival → first token, pooled
+    routed_ttft_p99_s: float
+    # Router-level admission-gate traffic per replica (attempts include
+    # KV-gate deferrals re-tried on later cycles); () when the run did not
+    # go through a router that counts them.
+    admit_attempts: Tuple[int, ...] = ()
+    # Fault tolerance (empty tuples / NaN when the run had no fault layer):
+    # per-replica crash and cold-restart counts, and router-level failover /
+    # escape re-dispatches. The pooled drop counters live on ``aggregate``.
+    crashes: Tuple[int, ...] = ()
+    restarts: Tuple[int, ...] = ()
+    failover_redispatches: float = float("nan")
+
+    def row(self) -> str:
+        return (f"{self.policy:24s} n={self.n_requests:6d} "
+                f"ttft={self.routed_ttft_mean_s * 1e3:9.2f} ms  "
+                f"hit_rate={self.cross_replica_hit_rate:5.2f}  "
+                f"imbalance={self.load_imbalance:5.2f}  "
+                f"per_replica={list(self.requests_per_replica)}")
+
+
+def _imbalance(counts: Sequence[int]) -> float:
+    """max/mean of per-replica counts; NaN when every replica is empty (no
+    load to be imbalanced about — 0/0 must not warn or crash)."""
+    total = sum(counts)
+    if not counts or total == 0:
+        return float("nan")
+    return max(counts) / (total / len(counts))
+
+
+def router_report(policy: str,
+                  per_replica_finished: Sequence[Sequence[Request]],
+                  admit_attempts: Sequence[int] = (),
+                  counters: Optional[RunCounters] = None,
+                  reranks: Optional[float] = None,
+                  dropped: Optional[Sequence[Request]] = None,
+                  crashes: Optional[Sequence[int]] = None,
+                  restarts: Optional[Sequence[int]] = None,
+                  redispatches: Optional[int] = None) -> RouterReport:
+    """NaN-safe aggregation of N replicas' finished requests (any of which
+    may be empty) into one :class:`RouterReport`. ``counters`` — one
+    :class:`RunCounters` bundle (``RunCounters.from_router(router)``
+    collects it, ``admit_attempts`` included); the loose keywords are the
+    deprecated one-release equivalents, mutually exclusive with it.
+    ``reranks`` — total priority-key refreshes across replicas, ``None``
+    when no replica re-ranked (reported NaN, like every other absent
+    counter). The fault parameters (``dropped`` / ``crashes`` /
+    ``restarts`` / ``redispatches``) follow the same convention: ``None`` =
+    no fault layer = NaN/empty."""
+    c = _merge_counters(counters, dict(
+        reranks=reranks, dropped=dropped,
+        admit_attempts=tuple(admit_attempts),
+        crashes=tuple(crashes) if crashes is not None else None,
+        restarts=tuple(restarts) if restarts is not None else None,
+        redispatches=redispatches))
+    pooled = [r for fin in per_replica_finished for r in fin]
+    agg = report(policy, pooled,
+                 counters=RunCounters(reranks=c.reranks, dropped=c.dropped))
+    per = tuple(report(f"{policy}/r{i}", fin)
+                for i, fin in enumerate(per_replica_finished))
+    counts = tuple(len(fin) for fin in per_replica_finished)
+    tokens = tuple(sum(r.true_length for r in fin)
+                   for fin in per_replica_finished)
+    return RouterReport(
+        policy=policy,
+        n_replicas=len(per_replica_finished),
+        n_requests=len(pooled),
+        aggregate=agg,
+        per_replica=per,
+        requests_per_replica=counts,
+        tokens_per_replica=tokens,
+        load_imbalance=_imbalance(counts),
+        token_imbalance=_imbalance(tokens),
+        cross_replica_hit_rate=agg.prefix_hit_rate,
+        routed_ttft_mean_s=agg.avg_ttft,
+        routed_ttft_p99_s=agg.p99_ttft,
+        admit_attempts=tuple(c.admit_attempts),
+        crashes=c.crashes if c.crashes is not None else (),
+        restarts=c.restarts if c.restarts is not None else (),
+        failover_redispatches=(float(c.redispatches)
+                               if c.redispatches is not None
+                               else float("nan")),
+    )
+
+
+# ------------------------------------------------------------------ SLO layer
+def meets_ttft(r: Request) -> Optional[bool]:
+    """Did ``r`` meet its TTFT SLO? ``None`` when it carries none (not
+    applicable — never counted in attainment). A request that never produced
+    a first token (dropped before decode) missed by definition."""
+    if r.slo_ttft_s is None:
+        return None
+    if r.first_token_time is None:
+        return False
+    return (r.first_token_time - r.arrival_time) <= r.slo_ttft_s
+
+
+def meets_itl(r: Request) -> Optional[bool]:
+    """Did ``r`` meet its inter-token-latency SLO (mean gap between output
+    tokens ≤ ``slo_itl_s``)? Gaps come from ``token_times`` when the run
+    recorded them, else the (finish − first)/(n − 1) mean. ``None`` when the
+    request carries no ITL SLO; a request with fewer than two output tokens
+    has no inter-token gap and trivially meets; a dropped request missed."""
+    if r.slo_itl_s is None:
+        return None
+    if r.state is not RequestState.FINISHED:
+        return False
+    if r.true_length < 2:
+        return True
+    if len(r.token_times) >= 2:
+        mean_gap = float(np.mean(np.diff(r.token_times)))
+    elif r.first_token_time is not None and r.finish_time is not None:
+        mean_gap = (r.finish_time - r.first_token_time) / (r.true_length - 1)
+    else:
+        return False
+    return mean_gap <= r.slo_itl_s
+
+
+def meets_slo(r: Request) -> Optional[bool]:
+    """Every *applicable* SLO met. ``None`` when the request carries no SLO
+    at all — such requests are excluded from attainment rates but count
+    toward goodput (nothing to violate)."""
+    checks = [m for m in (meets_ttft(r), meets_itl(r)) if m is not None]
+    if not checks:
+        return None
+    return all(checks)
+
+
+def _attainment(flags: List[Optional[bool]]) -> float:
+    """Share of applicable (non-``None``) flags that are True; NaN when no
+    request in the group carried that SLO."""
+    applicable = [f for f in flags if f is not None]
+    return _mean(np.asarray(applicable, dtype=float)) if applicable \
+        else float("nan")
+
+
+@dataclass(frozen=True)
+class ClassSLOStats:
+    """One priority class's SLO scorecard (requests pooled across tenants)."""
+    name: str
+    priority: int
+    n_requests: int                   # finished + dropped
+    n_finished: int
+    n_dropped: int
+    ttft_attainment: float            # share meeting TTFT SLO (NaN: no SLO)
+    itl_attainment: float             # share meeting ITL SLO (NaN: no SLO)
+    slo_attainment: float             # share meeting every applicable SLO
+    goodput_tok_s: float              # SLO-met output tokens / makespan
+    throughput_tok_s: float           # all finished output tokens / makespan
+    avg_ttft_s: float
+    p99_ttft_s: float
+    p99_itl_s: float
+
+    def row(self) -> str:
+        return (f"  {self.name:14s} n={self.n_requests:5d} "
+                f"attain={self.slo_attainment:5.2f} "
+                f"(ttft={self.ttft_attainment:5.2f} "
+                f"itl={self.itl_attainment:5.2f})  "
+                f"goodput={self.goodput_tok_s:8.1f} tok/s  "
+                f"p99_ttft={self.p99_ttft_s:7.2f} s")
+
+
+@dataclass(frozen=True)
+class TenantStats:
+    """One tenant's tail-latency row (finished requests only)."""
+    name: str
+    n_requests: int
+    p50_ttft_s: float
+    p99_ttft_s: float
+    p99_per_token_latency: float
+    slo_attainment: float
+
+
+@dataclass(frozen=True)
+class SLOReport:
+    """Per-class SLO attainment + goodput for one run, aggregated alongside
+    a :class:`LatencyReport` (the harness emits both). Goodput is the
+    SNIPPETS ch. 9 metric: output tokens of requests that met *every*
+    applicable SLO, per second of makespan — a scheduler that finishes many
+    requests late scores high throughput and low goodput. Dropped requests
+    (shed / cancelled / rejected / failed) count as SLO misses in every
+    attainment rate and contribute zero goodput."""
+    policy: str
+    n_requests: int                   # finished + dropped
+    n_finished: int
+    n_dropped: int
+    makespan_s: float                 # last finish − first arrival
+    goodput_tok_s: float
+    throughput_tok_s: float
+    slo_attainment: float             # over requests carrying ≥ 1 SLO
+    ttft_attainment: float
+    itl_attainment: float
+    per_class: Tuple[ClassSLOStats, ...] = ()
+    per_tenant: Tuple[TenantStats, ...] = ()
+
+    def rows(self) -> str:
+        head = (f"{self.policy:12s} n={self.n_requests:5d} "
+                f"attain={self.slo_attainment:5.2f}  "
+                f"goodput={self.goodput_tok_s:8.1f} tok/s  "
+                f"tput={self.throughput_tok_s:8.1f} tok/s")
+        return "\n".join([head] + [c.row() for c in self.per_class])
+
+    def cls(self, name: str) -> ClassSLOStats:
+        """Lookup one class row by name (KeyError when absent)."""
+        for c in self.per_class:
+            if c.name == name:
+                return c
+        raise KeyError(name)
+
+
+def _tenant_stats(name: str, reqs: List[Request]) -> TenantStats:
+    fin = [r for r in reqs if r.state is RequestState.FINISHED]
+    ttft = np.asarray([r.first_token_time - r.arrival_time for r in fin
+                       if r.first_token_time is not None], dtype=float)
+    per_tok = np.asarray([r.per_token_latency() for r in fin], dtype=float)
+    return TenantStats(
+        name=name, n_requests=len(reqs),
+        p50_ttft_s=_pct(ttft, 50), p99_ttft_s=_pct(ttft, 99),
+        p99_per_token_latency=_pct(per_tok, 99),
+        slo_attainment=_attainment([meets_slo(r) for r in reqs]),
+    )
+
+
+def slo_report(policy: str, finished: Sequence[Request],
+               dropped: Sequence[Request] = ()) -> SLOReport:
+    """Score one run against the per-request SLO annotations
+    (``slo_ttft_s`` / ``slo_itl_s`` / ``priority_class`` / ``tenant`` —
+    see :mod:`repro_torch.serving.workloads`). Requests without annotations are
+    fine: they land in class ``"-"`` with NaN attainment and their tokens
+    count toward both throughput and goodput (no SLO to violate)."""
+    finished = list(finished)
+    dropped = list(dropped)
+    everything = finished + dropped
+    if not everything:
+        nan = float("nan")
+        return SLOReport(policy=policy, n_requests=0, n_finished=0,
+                         n_dropped=0, makespan_s=nan, goodput_tok_s=nan,
+                         throughput_tok_s=nan, slo_attainment=nan,
+                         ttft_attainment=nan, itl_attainment=nan)
+    if finished:
+        t0 = min(r.arrival_time for r in everything)
+        t1 = max(r.finish_time for r in finished)
+        makespan = max(t1 - t0, 1e-9)
+    else:
+        makespan = float("nan")
+
+    def _goodput(reqs: List[Request]) -> float:
+        good = sum(r.true_length for r in reqs
+                   if r.state is RequestState.FINISHED
+                   and meets_slo(r) is not False)
+        return good / makespan
+
+    def _throughput(reqs: List[Request]) -> float:
+        return sum(r.true_length for r in reqs
+                   if r.state is RequestState.FINISHED) / makespan
+
+    by_class: Dict[str, List[Request]] = {}
+    by_tenant: Dict[str, List[Request]] = {}
+    for r in everything:
+        by_class.setdefault(r.priority_class or "-", []).append(r)
+        by_tenant.setdefault(r.tenant or "-", []).append(r)
+
+    classes = []
+    for name in sorted(by_class):
+        reqs = by_class[name]
+        fin = [r for r in reqs if r.state is RequestState.FINISHED]
+        ttft = np.asarray([r.first_token_time - r.arrival_time for r in fin
+                           if r.first_token_time is not None], dtype=float)
+        itl = itl_samples(fin)
+        classes.append(ClassSLOStats(
+            name=name,
+            priority=max((r.priority for r in reqs), default=0),
+            n_requests=len(reqs), n_finished=len(fin),
+            n_dropped=len(reqs) - len(fin),
+            ttft_attainment=_attainment([meets_ttft(r) for r in reqs]),
+            itl_attainment=_attainment([meets_itl(r) for r in reqs]),
+            slo_attainment=_attainment([meets_slo(r) for r in reqs]),
+            goodput_tok_s=_goodput(reqs),
+            throughput_tok_s=_throughput(reqs),
+            avg_ttft_s=_mean(ttft),
+            p99_ttft_s=_pct(ttft, 99),
+            p99_itl_s=_pct(itl, 99),
+        ))
+
+    return SLOReport(
+        policy=policy,
+        n_requests=len(everything),
+        n_finished=len(finished),
+        n_dropped=len(dropped),
+        makespan_s=makespan,
+        goodput_tok_s=_goodput(everything),
+        throughput_tok_s=_throughput(everything),
+        slo_attainment=_attainment([meets_slo(r) for r in everything]),
+        ttft_attainment=_attainment([meets_ttft(r) for r in everything]),
+        itl_attainment=_attainment([meets_itl(r) for r in everything]),
+        per_class=tuple(classes),
+        per_tenant=tuple(_tenant_stats(n, by_tenant[n])
+                         for n in sorted(by_tenant)),
     )

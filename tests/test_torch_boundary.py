@@ -1,9 +1,11 @@
 """The port's import boundary and its copies of framework-free modules.
 
 The machine with the card has no JAX, so ``src/repro_torch``,
-``chip_smoke.py`` and ``tests/test_torch_cuda.py`` import neither ``jax``
-nor anything of ``repro``; modules that need no framework are copies, held
-here equal to their source with ``repro.`` rewritten to ``repro_torch.``.
+``chip_smoke.py``, ``tests/test_torch_cuda.py`` and the benchmark and
+example twins (``benchmarks/torch_*.py``, ``examples/torch_*.py``) import
+neither ``jax`` nor anything of ``repro``, nor ``benchmarks.common`` (which
+imports JAX); modules that need no framework are copies, held here equal to
+their source with ``repro.`` rewritten to ``repro_torch.``.
 """
 import ast
 import os
@@ -17,7 +19,7 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 REF = ROOT / "src" / "repro"
 
-# modules copied whole, and modules of which a subset of definitions is copied
+# modules copied whole
 WHOLE_COPIES = [
     "configs/__init__.py", "configs/base.py", "configs/llama3_2_3b.py",
     "configs/hymba_1_5b.py", "configs/pars_bert_base.py",
@@ -29,10 +31,10 @@ WHOLE_COPIES = [
     "core/scheduler/policies.py", "core/scheduler/scheduler.py",
     "core/predictor/tokenizer.py", "core/predictor/pairing.py",
     "core/predictor/metrics.py", "serving/config.py", "serving/kv_cache.py",
-    "serving/core.py", "data/__init__.py", "data/synthetic.py",
-    "data/workload.py",
+    "serving/core.py", "serving/faults.py", "serving/metrics.py",
+    "serving/router.py", "serving/workloads.py", "serving/simulator.py",
+    "data/__init__.py", "data/synthetic.py", "data/workload.py",
 ]
-SUBSET_COPIES = ["serving/faults.py", "serving/metrics.py"]
 # whole copies that repair a fault of their source: (source text, port text)
 # replacements, applied after the rewrite
 REPAIRS = {
@@ -52,6 +54,8 @@ REPAIRS = {
     ],
 }
 FORBIDDEN = {"jax", "jaxlib", "repro"}
+# modules forbidden by their full name (the JAX benchmarks' shared module)
+FORBIDDEN_MODULES = {"benchmarks.common"}
 
 
 def _rewrite(text):
@@ -59,10 +63,12 @@ def _rewrite(text):
 
 
 def _port_sources():
-    """The port, the card's smoke script, and the card-only tests (which
-    run on the card's machine)."""
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tests" / "test_torch_cuda.py"]
+    """The port, the card's smoke script, the card-only tests, and the
+    benchmark and example twins (all of which run on the card's machine)."""
+    return (sorted(PORT.rglob("*.py"))
+            + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+            + sorted((ROOT / "benchmarks").glob("torch_*.py"))
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -74,18 +80,38 @@ def test_no_jax_or_reference_import(path):
             names = [a.name for a in node.names]
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             names = [node.module or ""]
+            names += [f"{node.module}.{a.name}" for a in node.names]
         else:
             continue
         for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, \
+            assert (name.split(".")[0] not in FORBIDDEN
+                    and name not in FORBIDDEN_MODULES), \
                 f"{path.relative_to(ROOT)}:{node.lineno} imports {name}"
 
 
-def test_port_imports_with_jax_and_reference_unavailable():
-    code = ("import sys\n"
+# run first in a child interpreter: JAX, the JAX package and the JAX
+# benchmarks' shared module cannot be imported
+_BLOCKED = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
-            "import repro_torch, repro_torch.bridge\n"
+            "sys.modules['benchmarks.common'] = None\n")
+_NOTHING_BLOCKED_LOADED = (
+    "assert not [m for m in sys.modules\n"
+    "            if (m.split('.')[0] in ('jax', 'repro')\n"
+    "                or m == 'benchmarks.common')\n"
+    "            and sys.modules[m] is not None]\n")
+
+
+def _run_blocked(code):
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), str(ROOT)]))
+    return subprocess.run([sys.executable, "-c", _BLOCKED + code],
+                          env=env, cwd=ROOT, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_port_imports_with_jax_and_reference_unavailable():
+    code = ("import repro_torch, repro_torch.bridge\n"
             "import repro_torch.serving.engine, repro_torch.launch.serve\n"
             "import repro_torch.core.predictor\n"
             "import repro_torch.models.ssm\n"
@@ -93,13 +119,30 @@ def test_port_imports_with_jax_and_reference_unavailable():
             "import repro_torch.kernels.rwkv6_chunk.ops\n"
             "import repro_torch.training, repro_torch.launch.train\n"
             "from repro_torch.models import lm_loss\n"
-            "assert not [m for m in sys.modules\n"
-            "            if m.split('.')[0] in ('jax', 'repro')\n"
-            "            and sys.modules[m] is not None]\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    proc = subprocess.run([sys.executable, "-c", code], env=env,
-                          capture_output=True, text=True, timeout=120)
+            "import repro_torch.serving.simulator\n"
+            "import repro_torch.serving.router\n"
+            "import repro_torch.serving.workloads\n"
+            "import benchmarks.torch_run, benchmarks.torch_check_bench\n"
+            "for name in benchmarks.torch_run.MODULES.values():\n"
+            "    __import__('benchmarks.' + name)\n"
+            + _NOTHING_BLOCKED_LOADED)
+    proc = _run_blocked(code)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_table1_twin_runs_with_jax_and_reference_unavailable(tmp_path):
+    """``python -m benchmarks.torch_run --device cpu --only table1`` with
+    JAX, the JAX package and ``benchmarks.common`` blocked."""
+    out = tmp_path / "bench.json"
+    code = ("import runpy\n"
+            "sys.argv = ['torch_run', '--device', 'cpu', '--only', 'table1',"
+            f" '--json', {str(out)!r}]\n"
+            "runpy.run_module('benchmarks.torch_run', run_name='__main__')\n"
+            + _NOTHING_BLOCKED_LOADED)
+    proc = _run_blocked(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "table1_variability," in proc.stdout
+    assert '"device": "cpu"' in out.read_text()
 
 
 @pytest.mark.parametrize("rel", WHOLE_COPIES)
@@ -149,29 +192,6 @@ def test_sample_lengths_are_the_same_in_every_process():
         assert proc.returncode == 0, proc.stderr
         outs.add(proc.stdout)
     assert len(outs) == 1
-
-
-def _definitions(text):
-    """Top-level definitions by name -> their source text."""
-    tree = ast.parse(text)
-    out = {}
-    for node in tree.body:
-        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
-            out[node.name] = ast.get_source_segment(text, node)
-        elif isinstance(node, ast.Assign):
-            for t in node.targets:
-                if isinstance(t, ast.Name):
-                    out[t.id] = ast.get_source_segment(text, node)
-    return out
-
-
-@pytest.mark.parametrize("rel", SUBSET_COPIES)
-def test_subset_copy_definitions_equal_their_source(rel):
-    port = _definitions((PORT / rel).read_text())
-    ref = _definitions(_rewrite((REF / rel).read_text()))
-    assert port, rel
-    for name, text in port.items():
-        assert text == ref.get(name), f"{rel}: {name} drifted"
 
 
 def test_chip_smoke_fails_without_a_card_and_prints_no_result(tmp_path):

@@ -13,7 +13,9 @@ aliased tables and slots bitwise; the bf16 prefill kernel's bare wgmma tile
 against ``torch.matmul``), chunked linear attention at 5e-4 (its final state
 included, at the log-decay contract's edge too; its bare 3xTF32 tile against
 ``torch.matmul`` at 1e-5); the engine on the card emits the same greedy tokens
-as on the CPU, and its contiguous lanes the same tokens as its paged pool.
+as on the CPU, and its contiguous lanes the same tokens as its paged pool;
+the admission benchmark's twin launches the paged path's two kernels and
+no other.
 """
 import numpy as np
 import pytest
@@ -441,3 +443,24 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
             yield from leaves(v) if isinstance(v, dict) else (v,)
     for a, b in zip(leaves(p_card), leaves(p_cpu)):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["sequential", "bucketed"])
+def test_admission_twin_on_the_card_launches_the_paged_kernels(cuda, mode):
+    """``benchmarks.torch_prefill_admission`` at smoke width (f32, batch 4,
+    two bursts) on the card: the CPU run's dispatches, every request
+    finished, the prefill kernel in each layer of each prefill dispatch,
+    paged decode in each layer of each decode step, no other kernel."""
+    from benchmarks.torch_prefill_admission import run
+
+    on_card = run(batch=4, reps=2, device=cuda)[mode]
+    on_cpu = run(batch=4, reps=2, device="cpu")[mode]
+    layers = get_smoke_config("llama3_2_3b").num_layers
+    counts = on_card["launches"]
+    assert on_card["dispatches"] == on_cpu["dispatches"]
+    assert on_card["finished"] == 8
+    assert counts["flash_attention"] == layers * on_card["dispatches"]
+    assert counts["paged_decode_attention"] > 0
+    assert counts["paged_decode_attention"] % layers == 0
+    assert counts["ring_decode_attention"] == counts["linear_attention"] == 0
+    assert not any(on_cpu["launches"].values())
