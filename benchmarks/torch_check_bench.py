@@ -5,9 +5,11 @@ Every twin run by ``benchmarks/torch_run.py`` merges its section into
 This checker asserts that the file carries **all** expected sections with
 their load-bearing keys non-null, and that every section names the device
 it ran on. Sections at the paper's predictor width
-(``<name>@pars_bert_base``) are held to the same keys. With ``--card`` a
-section measured on the CPU is refused, so a file that claims card numbers
-holds only card numbers.
+(``<name>@pars_bert_base``) are held to the same keys. The simulator serving
+twins (``SIMULATOR_SECTIONS``) ran on no device: their sections must say
+``"simulator"``, and no other section may. With ``--card`` a section
+measured on the CPU is refused, so a file that claims card numbers holds
+only card numbers.
 
     python -m benchmarks.torch_check_bench [--card] [--path FILE]
 """
@@ -18,7 +20,8 @@ import json
 import sys
 from pathlib import Path
 
-from benchmarks.torch_common import BENCH_TORCH_JSON
+from benchmarks.torch_common import (BENCH_TORCH_JSON, SERVING_BENCHES,
+                                     SIMULATOR)
 
 #: section name -> keys that must be present and non-null
 REQUIRED_SECTIONS = {
@@ -29,7 +32,27 @@ REQUIRED_SECTIONS = {
     "cross_model": ("cells", "worst_cross_speedup"),
     "pars_plus": ("avg_per_token_latency", "best_pars_plus_gain_vs_pars"),
     "prefill_admission": ("sequential", "bucketed", "speedup", "width"),
+    # the reference's serving sections (benchmarks/check_bench.py), then
+    # the engine twins' real halves and width
+    "router": ("affinity", "skew"),
+    "iterative_rank": ("mean_speedup_vs_static", "p99_speedup_vs_static",
+                       "heavy_noise_vs_fcfs"),
+    "fault_tolerance": ("crash_failover", "predictor_degradation",
+                        "deadline_shed", "no_fault_parity"),
+    "workload_harness": ("multitenant", "overload_shed", "starvation",
+                         "rate_sweep", "routed"),
+    "paged_decode": ("concurrency_ratio", "real_identical_outputs",
+                     "real_prefix_tokens_copied", "kernel", "width"),
+    "chunked_prefill": ("p99_itl_speedup", "chunked_p99_itl_s",
+                        "unchunked_p99_itl_s", "real_identical_outputs",
+                        "width"),
+    "prefix_caching": ("hit_rate", "warm_ttft_speedup",
+                       "prefill_tokens_saved", "real_identical_outputs",
+                       "width"),
+    "kernels": ("kernels",),
 }
+#: the sections that ran the simulator only: labelled ``SIMULATOR``
+SIMULATOR_SECTIONS = frozenset(SERVING_BENCHES)
 #: keys every section carries (``section_meta``); ``predictor`` may be null
 #: for the benches that train none
 META_KEYS = ("device", "scale", "wall_s")
@@ -58,7 +81,14 @@ def check(path=BENCH_TORCH_JSON, card: bool = False) -> list:
                 errors.append(f"{section}.{key} missing or null")
         if "predictor" not in payload:
             errors.append(f"{section}.predictor missing")
-        if card and payload.get("device") == "cpu":
+        device = payload.get("device")
+        if bench in SIMULATOR_SECTIONS and device != SIMULATOR:
+            errors.append(f"{section} ran the simulator only, but its "
+                          f"device says {device!r}")
+        if bench not in SIMULATOR_SECTIONS and device == SIMULATOR:
+            errors.append(f"{section} ran on a device, but says "
+                          f"{SIMULATOR!r}")
+        if card and device == "cpu":
             errors.append(f"{section} was measured on the CPU")
     return errors
 

@@ -1,6 +1,6 @@
 """Shared infrastructure of the port's benchmark twins: sized settings,
 in-process caches, the predictor trainer at a named width, and the
-``BENCH_torch.json`` section merge.
+``BENCH_torch.json`` section merge, and the serving-benchmark runner.
 
 The twin of ``benchmarks/common.py`` for ``benchmarks/torch_*.py``. It
 imports the port (``repro_torch``) and neither JAX nor the JAX package, so
@@ -13,23 +13,34 @@ restores the paper-scale protocol, as in the reference. Predictors train
 on an explicit ``device`` (``"cuda"`` raises without a card) at one of two
 widths (``PREDICTOR_WIDTHS``): ``mini``, the reference benchmarks' default
 ``PredictorConfig()``, or ``pars_bert_base``, the paper's BERT-base.
+
+Serving benchmarks on the copied simulator declare a :class:`ServingBench`
+and delegate their ``main`` to :func:`bench_main`, as in the reference; their
+sections ran on no device and say so (``"device": "simulator"``).
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import json
 import math
 import os
 import subprocess
+import time
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Callable, Optional, Tuple
 
-from repro_torch.configs import pars_bert_base
+from repro_torch.configs import get_config, get_smoke_config, pars_bert_base
 from repro_torch.core.predictor import (HashTokenizer, TrainSettings,
                                         evaluate_tau, train_predictor)
 from repro_torch.data.synthetic import MODELS, make_corpus, sample_lengths
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
+                                                  ring_decode_attention)
+from repro_torch.kernels.flash_prefill.ops import flash_attention
+from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 
 FAST = os.environ.get("REPRO_BENCH_FULL", "0") != "1"
 
@@ -113,10 +124,17 @@ def emit(name: str, us_per_call: float, derived: str) -> None:
     print(f"{name},{us_per_call:.1f},{derived}")
 
 
+#: the device label of a section that ran the simulator only (no device)
+SIMULATOR = "simulator"
+
+
 def device_label(device: DeviceLike) -> str:
     """What a section ran on: for a card, its name and power limit as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
-    prints them (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"); else "cpu"."""
+    prints them (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"); ``SIMULATOR``
+    for the simulator; else "cpu"."""
+    if device == SIMULATOR:
+        return SIMULATOR
     dev = resolve_device(device)
     if dev.type != "cuda":
         return "cpu"
@@ -129,8 +147,8 @@ def device_label(device: DeviceLike) -> str:
 
 def section_meta(device: DeviceLike, width) -> dict:
     """The keys every ``BENCH_torch.json`` section carries: the device it
-    ran on, the benchmark scale and the predictor width (None where the
-    bench trains no predictor)."""
+    ran on (``SIMULATOR`` where it ran none), the benchmark scale and the
+    predictor width (None where the bench trains no predictor)."""
     return {"device": device_label(device),
             "scale": dataclasses.asdict(scale()), "predictor": width}
 
@@ -140,6 +158,38 @@ def section_name(bench: str, width=None) -> str:
     width (or where it trains no predictor), ``<name>@<width>`` at
     another, so that one file holds both widths' tables."""
     return bench if width in (None, "mini") else f"{bench}@{width}"
+
+
+#: every kernel wrapper of the port, whose launches the engine twins report
+KERNELS = (flash_attention, paged_decode_attention, ring_decode_attention,
+           linear_attention)
+
+
+def launches() -> dict:
+    """Each kernel wrapper's launch count so far, by wrapper name."""
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+def launches_since(before: dict) -> dict:
+    """Each wrapper's launches since ``before`` (a :func:`launches`)."""
+    return {k: v - before[k] for k, v in launches().items()}
+
+
+def engine_config(arch: str, full: bool, dtype: Optional[str] = None):
+    """The served model of an engine twin: the published config (in
+    ``dtype`` where given, else its own), or the reference benches' smoke
+    config in f32 with ``vocab_size`` 2048."""
+    if full:
+        cfg = get_config(arch)
+        return cfg.replace(dtype=dtype) if dtype else cfg
+    return get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
+
+
+def width_keys(arch: str, cfg, full: bool) -> dict:
+    """The section keys that say at which width an engine twin served."""
+    return dict(arch=arch, width="published" if full else "smoke",
+                dtype=cfg.dtype, num_layers=cfg.num_layers,
+                d_model=cfg.d_model, vocab_size=cfg.vocab_size)
 
 
 def combo(dataset: str, model: str) -> str:
@@ -173,3 +223,69 @@ def record_torch_bench(section: str, payload: dict,
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(data, indent=2, sort_keys=True,
                                allow_nan=False) + "\n")
+
+
+# -------------------------------------------------------- serving-bench runner
+@dataclass(frozen=True)
+class ServingBench:
+    """One serving benchmark, declaratively (the reference's runner).
+
+    ``run(args)`` does the actual work (acceptance assertions included) and
+    returns the full results dict; ``section(results)`` reduces it to the
+    ``BENCH_torch.json`` payload; ``headline(results)`` yields the
+    ``(us_per_call, derived)`` pair(s) for the repo-wide CSV row convention;
+    ``add_args`` hooks extra benchmark-specific flags onto the shared
+    parser."""
+    name: str
+    run: Callable[[argparse.Namespace], dict]
+    section: Callable[[dict], dict]
+    headline: Optional[Callable[[dict], Tuple]] = None
+    add_args: Optional[Callable[[argparse.ArgumentParser], None]] = None
+    smoke_help: str = "tiny CI config: prove the acceptance bars hold"
+
+
+def bench_args(bench: ServingBench, argv=None) -> argparse.Namespace:
+    """``bench``'s command line: ``--smoke`` / ``--json`` / ``--seed`` and
+    its own flags."""
+    ap = argparse.ArgumentParser(prog=f"benchmarks.torch_{bench.name}")
+    ap.add_argument("--smoke", action="store_true", help=bench.smoke_help)
+    ap.add_argument("--json", default=None,
+                    help="merge the section into this file instead of "
+                    "BENCH_torch.json at the repo root")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="trace seed (determinism knob)")
+    if bench.add_args is not None:
+        bench.add_args(ap)
+    return ap.parse_args(argv)
+
+
+def run_serving_bench(bench: ServingBench, args: argparse.Namespace) -> dict:
+    """Run ``bench`` and print its CSV rows; returns its
+    ``BENCH_torch.json`` section (labelled ``SIMULATOR``, with its wall
+    seconds)."""
+    t0 = time.perf_counter()
+    results = bench.run(args)
+    if bench.headline is not None:
+        rows = bench.headline(results)
+        # one (name, us, derived) row or a list of them
+        if rows and not isinstance(rows[0], (tuple, list)):
+            rows = [rows]
+        for row in rows:
+            emit(*row)
+    return {**bench.section(results), **section_meta(SIMULATOR, None),
+            "wall_s": time.perf_counter() - t0}
+
+
+def bench_main(bench: ServingBench, argv=None) -> dict:
+    """The one arg-parse/emit/record path every simulator serving twin
+    shares: merges its section into ``BENCH_torch.json`` (or ``--json``)."""
+    args = bench_args(bench, argv)
+    section = run_serving_bench(bench, args)
+    record_torch_bench(bench.name, section, args.json or BENCH_TORCH_JSON)
+    return section
+
+
+#: The simulator serving twins (``benchmarks/torch_<name>.py``), each
+#: exposing ``BENCH`` and a ``main(argv)`` delegating to :func:`bench_main`.
+SERVING_BENCHES = ("router", "iterative_rank", "fault_tolerance",
+                   "workload_harness")

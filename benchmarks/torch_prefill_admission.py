@@ -26,23 +26,17 @@ import time
 
 import numpy as np
 
-from benchmarks.torch_common import (BENCH_TORCH_JSON, emit,
-                                     record_torch_bench, section_meta)
-from repro_torch.configs import get_config, get_smoke_config
+from benchmarks.torch_common import (BENCH_TORCH_JSON, emit, engine_config,
+                                     launches, launches_since,
+                                     record_torch_bench, section_meta,
+                                     width_keys)
 from repro_torch.core.scheduler.policies import fcfs
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
-                                                  ring_decode_attention)
-from repro_torch.kernels.flash_prefill.ops import flash_attention
-from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.engine import Engine
 
-#: every kernel wrapper of the port, whose launches each mode reports
-KERNELS = (flash_attention, paged_decode_attention, ring_decode_attention,
-           linear_attention)
 CACHE_LEN, PROMPT_LEN = 64, 32
 
 
@@ -60,8 +54,7 @@ def run(batch: int = 8, reps: int = 4, arch: str = "llama3_2_3b", *,
         full: bool = False, device: DeviceLike = "cuda") -> dict:
     dev = resolve_device(device)
     # the published config (bf16), or the reference bench's smoke one
-    cfg = (get_config(arch) if full else get_smoke_config(arch).replace(
-        dtype="float32", vocab_size=2048))
+    cfg = engine_config(arch, full)
     params = tfm.init_params(cfg, 0, device=dev)
     results = {}
     for mode, bucketed in (("sequential", False), ("bucketed", True)):
@@ -69,7 +62,7 @@ def run(batch: int = 8, reps: int = 4, arch: str = "llama3_2_3b", *,
         eng = Engine(cfg, params, sched, cache_len=CACHE_LEN,
                      prompt_len=PROMPT_LEN, bucketed=bucketed, device=dev)
         warm_s = eng.warmup()
-        before = {k.__name__: k.launches for k in KERNELS}
+        before = launches()
         t0 = time.perf_counter()
         for rep in range(reps):           # full-batch burst = 1 admission cycle
             eng.submit(_burst(batch, seed=rep))
@@ -81,8 +74,7 @@ def run(batch: int = 8, reps: int = 4, arch: str = "llama3_2_3b", *,
             prefill_s=eng.backend.prefill_seconds, warmup_s=warm_s,
             wall_s=wall_s, finished=len(eng.finished),
             tokens=sum(r.true_length for r in eng.finished),
-            launches={k.__name__: k.launches - before[k.__name__]
-                      for k in KERNELS})
+            launches=launches_since(before))
         print(f"{mode:10s} warmup={warm_s:6.1f} s "
               f"dispatches={eng.backend.prefill_dispatches:3d} "
               f"(over {reps} bursts of {batch})  "
@@ -96,11 +88,9 @@ def run(batch: int = 8, reps: int = 4, arch: str = "llama3_2_3b", *,
     emit("prefill_admission", buk["prefill_s"] * 1e6 / (batch * reps),
          f"admission speedup {speedup:.2f}x "
          f"({seq['dispatches']}->{buk['dispatches']} dispatches)")
-    results.update(arch=arch, width="published" if full else "smoke",
-                   dtype=cfg.dtype, num_layers=cfg.num_layers,
-                   d_model=cfg.d_model, vocab_size=cfg.vocab_size,
-                   batch=batch, reps=reps, cache_len=CACHE_LEN,
-                   prompt_len=PROMPT_LEN, speedup=speedup)
+    results.update(**width_keys(arch, cfg, full), batch=batch, reps=reps,
+                   cache_len=CACHE_LEN, prompt_len=PROMPT_LEN,
+                   speedup=speedup)
     return results
 
 

@@ -101,14 +101,36 @@ failed check raises and the script exits non-zero:
    per-token latency. Every admission request finishes, bucketed makes
    fewer dispatches than sequential, the prefill kernel launches in every
    layer of every prefill dispatch and paged decode in the decode steps,
-   and no other kernel. The sections go to ``chiprun_out/BENCH_torch.json``
-   and must pass ``benchmarks.torch_check_bench --card``.
+   and no other kernel. The simulator serving twins (``router``,
+   ``iterative_rank``, ``fault_tolerance``, ``workload_harness``) run at
+   the reference's ``--smoke`` sizes beside the tables, on no device.
+   Then the engine halves of the serving twins at published
+   ``llama3_2_3b`` width in f32 with TF32 off (``paged_decode``,
+   ``chunked_prefill`` and ``prefix_caching --full``, the reference's
+   default sizes), every launch count set to 0 just before each twin and
+   read just after, each twin reporting its runs' own counts: the prefill
+   kernel in every layer of every prefill and extend dispatch, paged
+   decode in a multiple of the layers in every paged run, ring decode in
+   a multiple of the layers in ``paged_decode``'s contiguous run and
+   nowhere else, the chunked kernel never. Bars, the reference's own:
+   greedy tokens identical across each twin's two routes (paged against
+   ring lanes, chunked against one-shot prefill, a cache hit against a
+   full prefill), no KV token copied on the paged hit path, grow
+   preemptions recovering on a 6-block budget, incremental reservation
+   admitting >= 1.5x. Then the kernel microbench twin
+   (``benchmarks.torch_kernel_bench``: prefill at S 512, ring decode over
+   8,192-row lanes, ``rwkv`` mode over 1,024 tokens, each against its
+   plain version, timed as in phase 2 beside SDPA and its bound) and
+   ``examples/torch_serve_e2e.py --full`` (8 requests under FCFS, PARS and
+   oracle). The sections go to ``chiprun_out/BENCH_torch.json`` and must
+   pass ``benchmarks.torch_check_bench --card``.
 
 The last lines are JSON objects of training numbers, of the benchmarks'
-numbers (tau per table cell, speedups, dispatches, wall per bench), of
-per-kernel numbers and then ``{"ok": true, "device": {...}}``. It exits
-non-zero, printing no result, where no CUDA card is visible or the
-package cannot be imported.
+numbers (tau per table cell, speedups, dispatches, wall per bench, the
+serving twins' latencies and launches), of per-kernel numbers (the
+microbench's shapes under ``bench_*`` keys) and then ``{"ok": true,
+"device": {...}}``. It exits non-zero, printing no result, where no CUDA
+card is visible or the repository's files cannot be imported.
 """
 from __future__ import annotations
 
@@ -126,13 +148,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmarks.torch_timing import (BF16_FLOPS_S, bound, cuda_ms,
+                                     device_times)
+
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit): HBM
-# bytes/s and bf16 tensor-core FLOP/s (the main path's dtype).
-HBM_BYTES_S = 3.35e12
-BF16_FLOPS_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -145,51 +165,6 @@ def free_memory() -> None:
     weights an engine holds."""
     gc.collect()
     torch.cuda.empty_cache()
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device milliseconds of ``fn`` over ``iters`` back-to-back calls
-    (CUDA events, after ``warmup`` calls)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-L2_BYTES = 50e6
-
-
-def device_ms(calls, launches: int = 200) -> float:
-    """Device milliseconds per call with the host out of the loop: rounds
-    over ``calls`` (about ``launches`` calls in all) captured in one CUDA
-    graph, replayed once warm and once timed with CUDA events. Calls that
-    rotate over copies of their inputs (``cold_copies``) find them out of
-    L2, as the served caller does; a single call finds them in L2."""
-    rounds = max(1, launches // len(calls))
-    for call in calls:
-        call()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(rounds):
-            for call in calls:
-                call()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (rounds * len(calls))
 
 
 def kernel_ms(fn, calls: int = 50) -> dict:
@@ -264,28 +239,6 @@ def range_rows(prof, names) -> dict:
         if name is not None and _device_event(e):
             ms[name] += e.duration_ns() / 1e6
     return {n: (ms[n], sum(r[2] == n for r in ranges)) for n in names}
-
-
-def cold_copies(bytes_read: float) -> int:
-    """Copies of a call's inputs to rotate over so that at least 3 x the
-    50 MB L2 is read between two uses of one copy."""
-    return int(np.ceil(3 * L2_BYTES / bytes_read)) + 1
-
-
-def device_times(make_call, bytes_read: float):
-    """(warm, cold) device milliseconds per call. ``make_call(i)`` makes
-    copy i of the inputs (copy 0 may be the caller's own) and returns a
-    call on it; the cold time rotates over ``cold_copies`` of them."""
-    calls = [make_call(i) for i in range(cold_copies(bytes_read))]
-    return device_ms(calls[:1]), device_ms(calls)
-
-
-def bound(bytes_moved: float, flops: float):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and bf16
-    operations over the peak bf16 rate."""
-    t_bytes = bytes_moved / HBM_BYTES_S * 1e3
-    t_ops = flops / BF16_FLOPS_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_close(name: str, out, ref, tol: float) -> float:
@@ -1612,6 +1565,7 @@ TAU_BAR = 0.45
 ORACLE_SLACK = 1.001
 TABLE_BENCHES = ("table1", "table2", "table3", "table4", "cross_model",
                  "pars_plus")
+BENCH_FILE = ROOT / "chiprun_out" / "BENCH_torch.json"
 
 
 def _bench_summary(sections: dict) -> dict:
@@ -1649,23 +1603,21 @@ def phase_benchmarks(kernels) -> tuple:
     ``torch_check_bench --card``. Checks the reference's bars and that the
     admission twin ran the prefill kernel in every layer of every prefill
     dispatch, paged decode in its decode steps and no other kernel.
-    Returns the summary and the admission's launch counts."""
-    from benchmarks import torch_check_bench, torch_prefill_admission
-    from benchmarks import torch_run
+    The simulator serving twins run at the reference's ``--smoke`` sizes
+    beside the tables. Returns the summary and the admission's launch
+    counts."""
+    from benchmarks import torch_prefill_admission, torch_run
+    from benchmarks.torch_common import SERVING_BENCHES
     from repro_torch.configs import get_config
 
-    path = ROOT / "chiprun_out" / "BENCH_torch.json"
-    path.unlink(missing_ok=True)
-    sections = torch_run.main(["--only", *TABLE_BENCHES, "--json",
-                               str(path)])
+    BENCH_FILE.unlink(missing_ok=True)
+    sections = torch_run.main(["--only", *TABLE_BENCHES, *SERVING_BENCHES,
+                               "--smoke", "--json", str(BENCH_FILE)])
     for k in kernels:
         k.launches = 0
     sections["prefill_admission"] = torch_prefill_admission.main(
-        ["--full", "--json", str(path)])
+        ["--full", "--json", str(BENCH_FILE)])
     launches = {k.__name__: k.launches for k in kernels}
-    errors = torch_check_bench.check(path, card=True)
-    if errors:
-        raise AssertionError(f"{path}: {errors}")
 
     problems = []
     tau = sections["table2"]["tau"]["alpaca/gpt4"]["pairwise"]
@@ -1715,8 +1667,163 @@ def phase_benchmarks(kernels) -> tuple:
                         f"wrappers' {launches}")
     if problems:
         raise AssertionError(f"phase 9: {problems}")
-    log(f"  {path.relative_to(ROOT)}: torch_check_bench --card passed")
     return _bench_summary(sections), launches
+
+
+#: each engine twin's runs that serve, and the decode kernel each runs:
+#: every other run it reports (the paged kernel's parity section)
+#: compares a kernel with its plain version
+TWIN_RUNS = {
+    "paged_decode": {"contiguous": "ring_decode_attention",
+                     "paged": "paged_decode_attention",
+                     "tight_budget": "paged_decode_attention"},
+    "chunked_prefill": {"calibration": "paged_decode_attention",
+                        "unchunked": "paged_decode_attention",
+                        "chunked": "paged_decode_attention"},
+    "prefix_caching": {"uncached": "paged_decode_attention",
+                       "cached": "paged_decode_attention"},
+}
+DECODE_KERNELS = ("paged_decode_attention", "ring_decode_attention")
+
+
+def _twin_problems(name: str, section: dict, total: dict, layers: int):
+    """Launch-count and bar violations of one engine twin's section:
+    the prefill kernel in every layer of every prefill and extend
+    dispatch, the run's decode kernel in a multiple of the layers, no
+    other kernel; the twin's parts add up to the wrappers' counts."""
+    problems = []
+    real = section["real"]
+    parts = {run: real[run] for run in TWIN_RUNS[name]}
+    if "kernel" in section:
+        parts["kernel parity"] = section["kernel"]
+    for run, part in parts.items():
+        counts = part["launches"]
+        decode = TWIN_RUNS[name].get(run)
+        if decode is None:
+            continue
+        dispatches = part["prefill_dispatches"] + part["extend_dispatches"]
+        if counts["flash_attention"] != layers * dispatches:
+            problems.append(f"{name} {run}: {counts['flash_attention']} "
+                            f"prefill launches for {dispatches} dispatches "
+                            f"of {layers} layers")
+        if counts[decode] == 0 or counts[decode] % layers:
+            problems.append(f"{name} {run}: {counts[decode]} {decode} "
+                            f"launches")
+        strays = {k: v for k, v in counts.items()
+                  if v and k not in ("flash_attention", decode)}
+        if strays:
+            problems.append(f"{name} {run}: another path's kernel "
+                            f"launched: {strays}")
+    summed = {k: sum(p["launches"][k] for p in parts.values())
+              for k in total}
+    if summed != total:
+        problems.append(f"{name}: the twin's counts {summed} differ from "
+                        f"the wrappers' {total}")
+    if section["width"] != "published" or section["real"]["dtype"] != \
+            "float32":
+        problems.append(f"{name} did not serve published width in f32")
+    if section["real_identical_outputs"] is not True:
+        problems.append(f"{name}: the two routes' tokens differ")
+    return problems
+
+
+def phase_serving_twins(kernels) -> tuple:
+    """The serving benchmarks' engine halves on the card: the
+    ``paged_decode``, ``chunked_prefill`` and ``prefix_caching`` twins at
+    published ``llama3_2_3b`` width in f32 (``--full``, the reference's
+    default sizes), every count of ``kernels`` set to 0 just before each
+    twin and read just after (each twin reports its runs' own counts);
+    the kernel microbench twin; and ``examples/torch_serve_e2e.py --full``
+    as a smoke test of the entry point. The sections go to
+    ``BENCH_FILE``. Holds the reference's bars (identical tokens across
+    the two routes, zero KV tokens copied on the paged hit path,
+    grow-preemptions recovering, incremental reservation admitting
+    >= 1.5x) and each kernel's launches. Returns the summary, the launches
+    by twin and kernel, and the microbench's entries."""
+    from benchmarks import (torch_chunked_prefill, torch_kernel_bench,
+                            torch_paged_decode, torch_prefix_caching)
+    from repro_torch.configs import get_config
+
+    twins = {"paged_decode": torch_paged_decode,
+             "chunked_prefill": torch_chunked_prefill,
+             "prefix_caching": torch_prefix_caching}
+    problems, summary, by_twin = [], {}, {}
+    for name, mod in twins.items():
+        t0 = time.perf_counter()
+        for k in kernels:
+            k.launches = 0
+        section = mod.main(["--full", "--json", str(BENCH_FILE)])
+        total = {k.__name__: k.launches for k in kernels}
+        free_memory()
+        wall = time.perf_counter() - t0
+        layers = get_config(section["real"]["arch"]).num_layers
+        problems += _twin_problems(name, section, total, layers)
+        real = section["real"]
+        by_twin[name] = {k: sum(real[run]["launches"][k]
+                                for run in TWIN_RUNS[name]) for k in total}
+        summary[name] = {"wall_s": wall, "launches": by_twin[name],
+                         "real_identical_outputs":
+                             section["real_identical_outputs"]}
+        log(f"  {name} twin: {wall:.1f} s, launches {by_twin[name]}")
+    data = json.loads(BENCH_FILE.read_text())
+    pd = data["paged_decode"]
+    tight = pd["real"]["tight_budget"]
+    summary["paged_decode"].update(
+        concurrency_ratio=pd["concurrency_ratio"],
+        real_prefix_tokens_copied=pd["real_prefix_tokens_copied"],
+        real_grow_preemptions=tight["grow_preemptions"],
+        kernel_max_abs_err=pd["kernel"]["max_abs_err"])
+    if not pd["concurrency_ratio"] >= 1.5:
+        problems.append(f"paged_decode: concurrency ratio "
+                        f"{pd['concurrency_ratio']} < 1.5")
+    if pd["real_prefix_tokens_copied"] != 0:
+        problems.append("paged_decode: the paged hit path copied KV")
+    if not (tight["grow_failures"] > 0 and tight["grow_preemptions"] > 0):
+        problems.append("paged_decode: the tight budget never preempted")
+    ch = data["chunked_prefill"]["real"]
+    summary["chunked_prefill"].update({
+        f"{mode}_{k}": ch[mode][k] for mode in ("unchunked", "chunked")
+        for k in ("itl_p50_s", "itl_p99_s", "itl_max_s", "ttft_p99_bg_s",
+                  "ttft_mean_burst_s", "extend_dispatches")})
+    pc = data["prefix_caching"]["real"]
+    summary["prefix_caching"].update({
+        f"{mode}_{k}": pc[mode][k] for mode in ("uncached", "cached")
+        for k in ("ttft_mean_warm_s", "prefix_hit_rate",
+                  "prefill_tokens_saved", "prefix_installs")})
+
+    t0 = time.perf_counter()
+    bench = torch_kernel_bench.main(["--json", str(BENCH_FILE)])
+    free_memory()
+    summary["kernels_wall_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "torch_serve_e2e.py"),
+         "--full", "--requests", "8", "--max-len", "16"],
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    summary["serve_e2e_wall_s"] = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        log(f"  serve_e2e: {line}")
+    rows = [line for line in proc.stdout.splitlines()
+            if line.strip().startswith(("fcfs", "pars", "oracle"))]
+    if proc.returncode != 0 or len(rows) != 3:
+        problems.append(f"examples/torch_serve_e2e.py --full: rc "
+                        f"{proc.returncode}, {len(rows)} policy rows; "
+                        f"{proc.stderr[-2000:]}")
+    if problems:
+        raise AssertionError(f"phase 9 (serving twins): {problems}")
+    return summary, by_twin, bench["kernels"]
+
+
+def gate_bench_file() -> None:
+    """``BENCH_FILE`` must pass ``torch_check_bench --card``."""
+    from benchmarks import torch_check_bench
+
+    errors = torch_check_bench.check(BENCH_FILE, card=True)
+    if errors:
+        raise AssertionError(f"{BENCH_FILE}: {errors}")
+    log(f"  {BENCH_FILE.relative_to(ROOT)}: torch_check_bench --card passed")
 
 
 # the kernels of src/repro_torch/kernels/csrc, as the profiler names them
@@ -1905,10 +2012,22 @@ def main() -> int:
     log(f"== phase 9: the paper's benchmarks on the card "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     benchmarks, admission = phase_benchmarks(everything)
+    log(f"== phase 9: the serving benchmarks' engine twins at published "
+        f"width (at {time.perf_counter() - t_start:.1f} s)")
+    benchmarks["serving_twins"], by_twin, bench_rows = phase_serving_twins(
+        everything)
+    gate_bench_file()
     for e in entries:
-        if admission[e["name"]]:
-            e["launches_by_path"]["prefill_admission"] = admission[e["name"]]
-            e["launches"] += admission[e["name"]]
+        for path, counts in (("prefill_admission", admission),
+                             *by_twin.items()):
+            if counts[e["name"]]:
+                e["launches_by_path"][path] = counts[e["name"]]
+                e["launches"] += counts[e["name"]]
+    # the microbench's shapes: prefill at S 512, ring decode over 8,192
+    # rows, rwkv mode over 1,024 tokens
+    for row in bench_rows:
+        e = next(e for e in entries if e["name"] == row["name"])
+        e.update({f"bench_{k}": v for k, v in row.items() if k != "name"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"training": training}))
     print(json.dumps({"benchmarks": benchmarks}))

@@ -11,7 +11,8 @@ benchmarks they twin, at a tiny scale.
   skipped).
 - ``torch_check_bench`` passes on a ``torch_run`` into a temporary file and
   fails when a section or a device entry is removed.
-- Each twin's default device raises without a card.
+- Each twin that runs on a device raises at its default device without a
+  card.
 
 Both packages draw the same output lengths: the reference's per-process
 salted ``hash()`` seed is replaced by the port's stable one
@@ -223,15 +224,19 @@ def test_pars_bert_base_width_is_the_papers_config(monkeypatch, backbone):
 
 def test_check_bench_gates_a_torch_run(tiny, tmp_path):
     path = tmp_path / "BENCH_torch.json"
-    sections = torch_run.main(["--device", "cpu", "--json", str(path)])
+    sections = torch_run.main(["--device", "cpu", "--smoke", "--json",
+                               str(path)])
     assert set(sections) == set(torch_run.BENCHES)
     assert check_bench.check(path) == []
     data = json.loads(path.read_text())
-    assert all(s["device"] == "cpu" for s in data.values())
+    assert all(s["device"] == ("simulator" if name in
+                               check_bench.SIMULATOR_SECTIONS else "cpu")
+               for name, s in data.items())
     assert data["table2"]["predictor"] == "mini"
     assert data["prefill_admission"]["predictor"] is None
     # the CPU's sections are refused where card numbers are claimed
-    assert len(check_bench.check(path, card=True)) == len(data)
+    assert len(check_bench.check(path, card=True)) == \
+        len(data) - len(check_bench.SIMULATOR_SECTIONS)
 
     def broken(edit):
         d = json.loads(path.read_text())
@@ -251,7 +256,8 @@ def test_check_bench_gates_a_torch_run(tiny, tmp_path):
 def test_twins_raise_without_a_card():
     """Each twin's command line, with its default device, under
     ``CUDA_VISIBLE_DEVICES=""``: CUDA is not available, and it says so."""
-    mods = [f"benchmarks.{m}" for m in torch_run.MODULES.values()]
+    mods = [f"benchmarks.{m}" for name, m in torch_run.MODULES.items()
+            if name not in port_common.SERVING_BENCHES]   # no device
     mods += ["benchmarks.torch_run"]
     code = ("import runpy, sys\n"
             "for mod in sys.argv[1:]:\n"

@@ -5,7 +5,11 @@ The machine with the card has no JAX, so ``src/repro_torch``,
 example twins (``benchmarks/torch_*.py``, ``examples/torch_*.py``) import
 neither ``jax`` nor anything of ``repro``, nor ``benchmarks.common`` (which
 imports JAX); modules that need no framework are copies, held here equal to
-their source with ``repro.`` rewritten to ``repro_torch.``.
+their source with ``repro.`` rewritten to ``repro_torch.``. The simulator
+serving twins are their reference benches with ``benchmarks.common`` also
+rewritten to ``benchmarks.torch_common``, and the engine twins' simulator
+halves are the reference's functions; both drop the reference's issue tags
+from their comments.
 """
 import ast
 import os
@@ -53,6 +57,18 @@ REPAIRS = {
          ".encode()))\n"),
     ],
 }
+# benchmark twins copied whole: the reference's text with its shared
+# module's and its package's names rewritten and its issue tags dropped
+# (``_rewrite_bench``)
+BENCH_COPIES = ["router", "iterative_rank", "fault_tolerance",
+                "workload_harness"]
+# functions the engine twins copy from their reference benches
+BENCH_FUNCTION_COPIES = [
+    ("paged_decode", "run_sim"), ("chunked_prefill", "_stats"),
+    ("chunked_prefill", "_row"), ("chunked_prefill", "run_sim"),
+    ("prefix_caching", "_stats"), ("prefix_caching", "_row"),
+    ("prefix_caching", "run_sim"),
+]
 FORBIDDEN = {"jax", "jaxlib", "repro"}
 # modules forbidden by their full name (the JAX benchmarks' shared module)
 FORBIDDEN_MODULES = {"benchmarks.common"}
@@ -60,6 +76,19 @@ FORBIDDEN_MODULES = {"benchmarks.common"}
 
 def _rewrite(text):
     return text.replace("repro.", "repro_torch.")
+
+
+def _drop_issue_tags(text):
+    """The reference benches tag their bars with the development issue that
+    set them ("ISSUE acceptance bar", "Acceptance bar (ISSUE)"); the
+    copies keep the bars and drop the tag."""
+    return text.replace(" (ISSUE)", "").replace("ISSUE acceptance",
+                                                "acceptance")
+
+
+def _rewrite_bench(text):
+    return _drop_issue_tags(_rewrite(text.replace("benchmarks.common",
+                                                  "benchmarks.torch_common")))
 
 
 def _port_sources():
@@ -153,6 +182,24 @@ def test_whole_copy_equals_its_source(rel):
         assert expected.count(old) == 1, f"{rel}: repair target drifted"
         expected = expected.replace(old, new)
     assert (PORT / rel).read_text() == expected
+
+
+@pytest.mark.parametrize("name", BENCH_COPIES)
+def test_benchmark_twin_equals_its_source(name):
+    bench = ROOT / "benchmarks"
+    assert (bench / f"torch_{name}.py").read_text() == \
+        _rewrite_bench((bench / f"{name}.py").read_text())
+
+
+@pytest.mark.parametrize("bench,function", BENCH_FUNCTION_COPIES)
+def test_engine_twin_function_equals_its_source(bench, function):
+    import importlib
+    import inspect
+
+    ref = importlib.import_module(f"benchmarks.{bench}")
+    port = importlib.import_module(f"benchmarks.torch_{bench}")
+    assert inspect.getsource(getattr(port, function)) == \
+        _drop_issue_tags(inspect.getsource(getattr(ref, function)))
 
 
 def test_sample_lengths_equal_the_reference_under_a_stable_seed(
