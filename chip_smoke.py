@@ -24,7 +24,11 @@ failed check raises and the script exits non-zero:
    Hymba's heads and in ``rwkv`` mode at RWKV-6 7B's served prefill shape
    (8 x 128 tokens) and at 4 x 256. Paged decode also at the MoE and VLM
    paths' served shapes (OLMoE's 16 KV heads of group 1, Qwen2-VL's 8 of
-   group 8) and prefill at H = KH = 16.
+   group 8) and prefill at H = KH = 16. Whisper's instances: the prefill
+   kernel without the causal mask at its encoder's shape (B 4, H = KH =
+   6, S 1,500, dh 64: a partial last query tile) and its cross-attention's
+   (64 queries over 1,500 keys), and ring decode over 1,500-row cross
+   lanes with every row visible (also against unmasked attention).
    Times the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (``library_ms``, timed here
    only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
@@ -60,7 +64,15 @@ failed check raises and the script exits non-zero:
    command-line launcher (``repro_torch.launch.serve --full``) serves a
    short burst of each architecture: under FCFS, but under PARS for
    rwkv6_7b, training its full-width predictor first; for qwen2_vl_72b it
-   must refuse, saying that the published model does not fit.
+   must refuse, saying that the published model does not fit. Then
+   ``whisper_tiny`` at its published widths through ``build(cfg)`` (the
+   reference's inference path; neither engine serves the family): f32,
+   TF32 off, ``prefill`` and 8 greedy ``decode_step``s on the card against
+   the CPU (logits at 1e-3, tokens equal) and against the full forward;
+   then bf16, 4 requests of 64-token prompts and 32 greedy tokens, every
+   launch count zeroed just before: exactly 12 prefill kernels (4
+   encoder, 4 self, 4 cross) and 8 ring decode kernels a decode step, no
+   other kernel; ms a token.
 5. Profiles, after every unprofiled run (bursts that followed a profiler
    session in the same process were seen to run slower): each FCFS burst
    once more under the profiler, giving device time by kernel (the port's
@@ -90,6 +102,16 @@ failed check raises and the script exits non-zero:
    steps on one batch of 4 x 64 (the loss falls, grad norms are finite;
    ms per step, tokens/s, peak memory, share of the bf16 peak), and the
    train launcher (``repro_torch.launch.train --full``) for two steps.
+   Then the hybrid, SSM and encoder-decoder families: at full width in
+   f32 (``hymba_1_5b`` and ``rwkv6_7b`` cut to 4 layers, ``whisper_tiny``
+   whole), the training forward within 1e-3 of the kernel route, one
+   step's loss and grad norm within 1e-3 relative of the same step on the
+   CPU in f64; then bf16 with remat, ten steps on one batch of 4 x 64 of
+   full ``hymba_1_5b``, ``rwkv6_7b`` cut to 12 of its 32 layers and whole
+   ``whisper_tiny`` (the loss falls; ms a step, tokens/s, peak memory,
+   device time by kernel); on ``hymba_1_5b`` the forward peaks of one
+   gradient pass under remat none, dots and full read none >= dots >=
+   full.
 9. The paper's benchmarks on the card, through the port: Tables I–IV, the
    cross-model study and the PARS+ ablation (``benchmarks.torch_run``,
    FAST scale, the mini predictor, every predictor trained on the card),
@@ -125,7 +147,8 @@ failed check raises and the script exits non-zero:
    oracle). The sections go to ``chiprun_out/BENCH_torch.json`` and must
    pass ``benchmarks.torch_check_bench --card``.
 
-The last lines are JSON objects of training numbers, of the benchmarks'
+The last lines are JSON objects of Whisper's numbers, of training
+numbers, of the benchmarks'
 numbers (tau per table cell, speedups, dispatches, wall per bench, the
 serving twins' latencies and launches), of per-kernel numbers (the
 microbench's shapes under ``bench_*`` keys) and then ``{"ok": true,
@@ -135,6 +158,7 @@ card is visible or the repository's files cannot be imported.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import functools
 import gc
 import json
@@ -576,6 +600,129 @@ def phase_moe_vlm_instances(dev) -> dict:
         f"{t['library_cold_ms']:.5f} ms; bound {bound_ms:.5f} ms "
         f"({bound_by})")
     out["flash_attention"].update({f"olmoe_{k}": v for k, v in t.items()})
+    return out
+
+
+def phase_whisper_instances(dev) -> dict:
+    """Whisper's three kernel instances at ``whisper_tiny``'s shapes, each
+    held against its plain version (f32 at 2e-5, bf16 at 2e-2) and timed as
+    the record's rows are (back-to-back; device-only L2-warm and L2-cold),
+    beside SDPA called the same way (``is_causal=False``) and the bound:
+    the prefill kernel without the causal mask over the encoder's 1,500
+    frames (B 4, H = KH = 6, dh 64; 1,500 is not a multiple of the 64-row
+    query tile, so the last tile is partial) and for the decoder's
+    cross-attention (64 prompt rows over the 1,500 encoder rows), and ring
+    decode over 1,500-row cross lanes at ``pos = F - 1``, every row
+    visible (also held against unmasked attention over the lane). Returns
+    keys for the two kernels' entries."""
+    from repro_torch.kernels.flash_decode.ops import (
+        ring_decode_attention, ring_decode_attention_plain)
+    from repro_torch.kernels.flash_prefill.ops import (
+        flash_attention, flash_attention_plain)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h, dh, f = 4, 6, 64, 1500
+    bf = torch.bfloat16
+    zero = torch.zeros(b, dtype=torch.int32, device=dev)
+    full = torch.full((b,), f, dtype=torch.int32, device=dev)
+    out = {"flash_attention": {}, "ring_decode_attention": {}}
+    for label, sq in (("whisper_encoder", f), ("whisper_cross", 64)):
+        log(f"prefill causal=False ({label}): B={b} H=KH={h} Sq={sq} "
+            f"Skv={f} dh={dh}")
+        q32 = torch.randn(b, h, sq, dh, device=dev)
+        k32 = torch.randn(b, h, f, dh, device=dev)
+        v32 = torch.randn(b, h, f, dh, device=dev)
+        for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+            t = getattr(torch, dt)
+            args = (q32.to(t), k32.to(t), v32.to(t), zero, full)
+            out_k = flash_attention(*args, causal=False)
+            torch.cuda.synchronize()
+            err = check_close(f"prefill {label} causal=False {dt}", out_k,
+                              flash_attention_plain(*args, causal=False), tol)
+        q, k, v = q32.to(bf), k32.to(bf), v32.to(bf)
+        bytes_moved = 2 * (2 * b * h * sq * dh + 2 * b * h * f * dh) + 8 * b
+        bound_ms, bound_by = bound(bytes_moved, 4 * dh * b * h * sq * f)
+        t = {"max_abs_err": err,
+             "ms": cuda_ms(lambda: flash_attention(q, k, v, zero, full,
+                                                   causal=False), 100),
+             "plain_ms": cuda_ms(lambda: flash_attention_plain(
+                 q, k, v, zero, full, causal=False), 10),
+             "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=False),
+                                   100),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+
+        def kernel(i, q=q, k=k, v=v):
+            a = (q, k, v) if i == 0 else (q.clone(), k.clone(), v.clone())
+            return lambda: flash_attention(*a, zero, full, causal=False)
+
+        def library(i, q=q, k=k, v=v):
+            a = (q, k, v) if i == 0 else (q.clone(), k.clone(), v.clone())
+            return lambda: sdpa(*a, is_causal=False)
+
+        t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
+        t["library_device_ms"], t["library_cold_ms"] = device_times(
+            library, bytes_moved)
+        log(f"  prefill {label} bf16: back-to-back {t['ms']:.4f} ms kernel, "
+            f"{t['plain_ms']:.4f} ms plain, {t['library_ms']:.4f} ms SDPA; "
+            f"device-only kernel {t['device_ms']:.5f} ms warm, "
+            f"{t['cold_ms']:.5f} ms L2-cold; SDPA "
+            f"{t['library_device_ms']:.5f} / {t['library_cold_ms']:.5f} ms; "
+            f"bound {bound_ms:.5f} ms ({bound_by})")
+        out["flash_attention"].update({f"{label}_{k}": v
+                                       for k, v in t.items()})
+
+    log(f"ring decode (whisper cross lanes): B={b} KH={h} G=1 dh={dh} W={f} "
+        f"pos={f - 1} (every row visible)")
+    q32 = torch.randn(b, h, dh, device=dev)
+    kl32 = torch.randn(b, h, f, dh, device=dev)
+    vl32 = torch.randn(b, h, f, dh, device=dev)
+    slots = torch.as_tensor(np.random.default_rng(SEED).permutation(b),
+                            dtype=torch.int32, device=dev)
+    ps = torch.full((b,), f - 1, dtype=torch.int32, device=dev)
+    idx = slots.long()
+    for dt, tol in (("float32", 2e-5), ("bfloat16", 2e-2)):
+        t = getattr(torch, dt)
+        args = (q32.to(t), kl32.to(t), vl32.to(t), slots, ps)
+        out_k = ring_decode_attention(*args)
+        torch.cuda.synchronize()
+        err = check_close(f"ring decode whisper cross lanes {dt}", out_k,
+                          ring_decode_attention_plain(*args), tol)
+        unmasked = flash_attention_plain(
+            args[0][:, :, None], args[1][idx], args[2][idx], zero, full,
+            causal=False)[:, :, 0]
+        check_close(f"ring decode whisper cross lanes vs unmasked attention "
+                    f"{dt}", out_k, unmasked, tol)
+    q, kl, vl = q32.to(bf), kl32.to(bf), vl32.to(bf)
+    qs, ke, ve = q[:, :, None, :], kl[idx].contiguous(), vl[idx].contiguous()
+    bytes_moved = 2 * b * h * f * dh * 2 + 2 * b * h * dh * 2 + 2 * b * 4
+    bound_ms, bound_by = bound(bytes_moved, 4 * b * h * f * dh)
+    t = {"max_abs_err": err,
+         "ms": cuda_ms(lambda: ring_decode_attention(q, kl, vl, slots, ps),
+                       200),
+         "plain_ms": cuda_ms(lambda: ring_decode_attention_plain(
+             q, kl, vl, slots, ps), 20),
+         "library_ms": cuda_ms(lambda: sdpa(qs, ke, ve), 200),
+         "bound_ms": bound_ms, "bound_by": bound_by}
+
+    def kernel(i):
+        a = (q, kl, vl) if i == 0 else (q.clone(), kl.clone(), vl.clone())
+        return lambda: ring_decode_attention(*a, slots, ps)
+
+    def library(i):
+        a = (qs, ke, ve) if i == 0 else (qs.clone(), ke.clone(), ve.clone())
+        return lambda: sdpa(*a)
+
+    t["device_ms"], t["cold_ms"] = device_times(kernel, bytes_moved)
+    t["library_device_ms"], t["library_cold_ms"] = device_times(
+        library, bytes_moved)
+    log(f"  ring decode whisper cross lanes bf16: back-to-back "
+        f"{t['ms']:.4f} ms kernel, {t['plain_ms']:.4f} ms plain, "
+        f"{t['library_ms']:.4f} ms SDPA; device-only kernel "
+        f"{t['device_ms']:.5f} ms warm, {t['cold_ms']:.5f} ms L2-cold; SDPA "
+        f"{t['library_device_ms']:.5f} / {t['library_cold_ms']:.5f} ms; "
+        f"bound {bound_ms:.5f} ms ({bound_by})")
+    out["ring_decode_attention"].update({f"whisper_cross_{k}": v
+                                         for k, v in t.items()})
     return out
 
 
@@ -1555,6 +1702,315 @@ def phase_train_lm(dev) -> dict:
                                  for t, c, k in host[:6]]}}}
 
 
+def phase_whisper(dev, kernels) -> dict:
+    """Whisper at its published widths (``whisper_tiny``: 4 encoder and 4
+    decoder layers, d 384, 6 heads of 64, vocab 51,865, 1,500 frames; no
+    cut) through ``build(cfg)``, the reference's inference path (its engine
+    cannot serve the family). f32, TF32 off: the card's logits of
+    ``prefill`` and 8 greedy ``decode_step``s against the CPU's at 1e-3,
+    the greedy tokens equal, and every step's logits equal to the card's
+    full forward over the whole sequence at that position (atol 2e-4,
+    rtol 2e-3: the reference's ``test_arch_smoke``). Then bf16: 4 requests
+    of 64-token prompts, 32 greedy tokens (the prefill's and 31 decode
+    steps'), every launch count set to 0 just before and read just after:
+    the prefill kernel exactly 12 times (4 encoder, 4 self, 4 cross), ring
+    decode exactly 8 times a decode step (4 self, 4 cross), no other
+    kernel. ``kernels`` are the four wrappers."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_decode.ops import ring_decode_attention
+    from repro_torch.kernels.flash_prefill.ops import flash_attention
+    from repro_torch.models import build
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("whisper_tiny").replace(dtype="float32")
+    bundle = build(cfg)
+    params = bundle.init(SEED, device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    b, s, steps = 2, 24, 8
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    frames = torch.randn(b, cfg.encoder_seq_len, cfg.d_model,
+                         generator=gen) * 0.02
+
+    def run(tree, device):
+        lg, cache = bundle.prefill(tree, prompt.to(device), s + steps,
+                                   frames=frames.to(device))
+        logits, toks = [lg[:, -1].cpu()], []
+        nxt = lg[:, -1].argmax(-1)
+        for _ in range(steps):
+            toks.append(nxt.cpu())
+            lg1, cache = bundle.decode_step(tree, cache, nxt[:, None])
+            logits.append(lg1.cpu())
+            nxt = lg1.argmax(-1)
+        return torch.stack(logits, 1), torch.stack(toks, 1)
+
+    lg, toks = run(params, dev)
+    full, _, _ = tfm.forward_seq(params, cfg,
+                                 torch.cat([prompt, toks], 1).to(dev),
+                                 frames=frames.to(dev))
+    full = full[:, s - 1:].cpu()
+    torch.testing.assert_close(lg, full, atol=2e-4, rtol=2e-3)
+    log(f"  whisper_tiny f32: prefill + {steps} decode steps' logits equal "
+        f"the full forward's (max_abs_err "
+        f"{(lg - full).abs().max().item():.3e}, atol 2e-4, rtol 2e-3)")
+    ref, ref_toks = run(_tree_to(params, "cpu"), torch.device("cpu"))
+    err = check_close(f"whisper_tiny f32 logits card vs CPU, prefill and "
+                      f"{steps} decode steps", lg, ref, 1e-3)
+    if not torch.equal(toks, ref_toks):
+        raise AssertionError("whisper_tiny greedy tokens differ between the "
+                             "card and the CPU")
+    log(f"  whisper_tiny greedy tokens equal the CPU's over {steps} steps")
+    del params
+    free_memory()
+
+    cfg = get_config("whisper_tiny")
+    bundle = build(cfg)
+    params = bundle.init(SEED, device=dev)
+    b, s, n_tok = 4, 64, 32
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev)
+    frames = (torch.randn(b, cfg.encoder_seq_len, cfg.d_model, generator=gen,
+                          device=dev) * 0.02).to(torch.bfloat16)
+    with torch.no_grad():          # a warm-up request, not counted
+        bundle.prefill(params, prompt[:1], s + n_tok, frames=frames[:1])
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    lg, cache = bundle.prefill(params, prompt, s + n_tok, frames=frames)
+    nxt = lg[:, -1].argmax(-1)
+    out = [nxt]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for _ in range(n_tok - 1):
+        lg1, cache = bundle.decode_step(params, cache, nxt[:, None])
+        nxt = lg1.argmax(-1)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k.__name__: k.launches for k in kernels}
+    want = {k.__name__: 0 for k in kernels}
+    want[flash_attention.__name__] = cfg.encoder_layers + 2 * cfg.num_layers
+    want[ring_decode_attention.__name__] = 2 * cfg.num_layers * (n_tok - 1)
+    if launches != want:
+        raise AssertionError(f"whisper_tiny bf16 launches {launches}, "
+                             f"expected {want}")
+    if not bool(torch.isfinite(lg1).all()) or len(out) != n_tok:
+        raise AssertionError("whisper_tiny bf16: non-finite logits")
+    step_ms = 1e3 * (t2 - t1) / (n_tok - 1)
+    log(f"  whisper_tiny bf16, {b} requests x {s}-token prompts, {n_tok} "
+        f"greedy tokens: prefill {1e3 * (t1 - t0):.1f} ms, decode "
+        f"{step_ms:.2f} ms a step ({step_ms / b:.3f} ms a token); launches "
+        f"{launches} (exact)")
+    del params, cache
+    free_memory()
+    return {"f32_logits_max_abs_err": err, "bf16": {
+        "requests": b, "prompt": s, "tokens": n_tok,
+        "prefill_ms": 1e3 * (t1 - t0), "decode_step_ms": step_ms,
+        "ms_per_token": step_ms / b, "launches": launches}}
+
+
+def _remat_memory(cfg, params, batch, remat) -> dict:
+    """Device bytes above the parameters of one loss-and-gradient pass
+    under ``remat``: the forward's peak (what the policy keeps for
+    backward, plus one layer's temporaries) and the whole pass's peak."""
+    from repro_torch.bridge import flatten, unflatten
+    from repro_torch.models.model import lm_loss
+
+    free_memory()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = {k: p.detach().requires_grad_(True)
+              for k, p in flatten(params).items()}
+    loss, _ = lm_loss(unflatten(leaves), cfg, batch, remat=remat)
+    torch.cuda.synchronize()
+    forward = torch.cuda.max_memory_allocated() - before
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    whole = torch.cuda.max_memory_allocated() - before
+    del grads, loss, leaves
+    return {"forward_peak": forward, "pass_peak": whole}
+
+
+# rwkv6_7b trains cut to at most this many of its 32 layers, fewer where
+# its bf16 weights, gradients, Adam's f32 moments and the update's
+# temporaries (allowed 18 bytes a parameter) would not fit the card
+TRAIN_DEPTH_CAP = 12
+
+
+def phase_train_families(dev) -> dict:
+    """The hybrid, SSM and encoder-decoder families train on the card, as
+    phase 8 trains llama. f32, TF32 off, at full width (``hymba_1_5b`` and
+    ``rwkv6_7b`` cut to 4 layers, ``whisper_tiny`` whole): the training
+    forward (plain attention and linear-attention scan) within 1e-3 of the
+    kernel route's logits, one train step's loss and grad norm on the card
+    within 1e-3 relative of the same step on the CPU in f64
+    (:func:`f64_upcasts`); the CPU's f32 step is run and logged beside it.
+    At RWKV-6's full width the f32 step is conditioned at about 1e-3 (the
+    per-head group norm amplifies rounding layer by layer), so an f32 CPU
+    run is no reference at that tolerance: its grad norm was 1.29e-3 from
+    the f64 step's, the card's 1.3e-4. Then bf16 with ``remat="full"``,
+    ten steps of the launcher's optimizer on one repeated 4 x 64 batch:
+    ``hymba_1_5b`` at its 32 layers, ``rwkv6_7b`` at the deepest depth up
+    to 12 that fits (the cut is printed), ``whisper_tiny`` whole; the loss
+    must fall and every grad norm be finite; ms a step, tokens/s, peak
+    memory, and one profiled step's device time by kernel. Once, on
+    ``hymba_1_5b`` over 4 x 512 tokens: the peak memory of one gradient
+    pass's forward (what each policy keeps for backward) under remat
+    ``none``, ``dots`` and ``full``, which must read none >= dots >= full,
+    and of the whole pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import example_batch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.training import Adam, cosine_schedule
+    from repro_torch.training.train_loop import make_train_step
+
+    def optimizer(steps):                # launch/train.py's
+        return Adam(learning_rate=cosine_schedule(3e-4, 5, steps),
+                    clip_norm=1.0)
+
+    out = {}
+    cpu = torch.device("cpu")
+    for arch in ("hymba_1_5b", "rwkv6_7b", "whisper_tiny"):
+        t_arch = time.perf_counter()
+        cfg = get_config(arch).replace(dtype="float32")
+        if not cfg.is_encdec:
+            cfg = cfg.replace(num_layers=4)
+        params = tfm.init_params(cfg, SEED, device=dev)
+        batch = example_batch(cfg, 2, 32, 1, device=dev)
+        extras = {"frames": batch["frames"]} if "frames" in batch else {}
+        with torch.no_grad():
+            train_logits, _, _ = tfm.forward_seq(
+                params, cfg, batch["tokens"], attn_impl="chunked", **extras)
+            kernel_logits, _, _ = tfm.forward_seq(params, cfg,
+                                                  batch["tokens"], **extras)
+        err = check_close(f"{arch} f32 training forward (plain route) vs "
+                          f"kernel route", train_logits, kernel_logits, 1e-3)
+        del train_logits, kernel_logits
+        metrics = {}
+        host = _tree_to(params, cpu)
+        for where in ("card", "cpu", "cpu_f64"):
+            f64 = where == "cpu_f64"
+            with f64_upcasts() if f64 else contextlib.nullcontext():
+                p = (params if where == "card" else _tree_to(host, cpu)
+                     if not f64 else _tree_to(host, cpu, torch.float64))
+                b = {k: v.to(dev if where == "card" else cpu)
+                     for k, v in batch.items()}
+                if f64:
+                    b = {k: v.double() if v.is_floating_point() else v
+                         for k, v in b.items()}
+                opt = optimizer(10)
+                t0 = time.perf_counter()
+                _, _, m = make_train_step(cfg, opt, remat="none")(
+                    p, opt.init(p), b)
+                metrics[where] = {k: float(m[k])
+                                  for k in ("loss", "grad_norm")}
+            log(f"  {arch} f32 train step on the {where}: {metrics[where]} "
+                f"in {time.perf_counter() - t0:.1f} s")
+            del p, b, opt
+            if where == "card":
+                del params
+                free_memory()
+        del host
+        truth = metrics["cpu_f64"]
+        for k in ("loss", "grad_norm"):
+            a, c = metrics["card"][k], truth[k]
+            if not abs(a - c) <= 1e-3 * abs(c):
+                raise AssertionError(f"{arch} train step {k}: card {a} vs "
+                                     f"CPU (f64) {c}")
+        log(f"  {arch} grad norm relative to the CPU's f64 step: card "
+            f"{abs(metrics['card']['grad_norm'] / truth['grad_norm'] - 1):.2e}"
+            f", CPU f32 "
+            f"{abs(metrics['cpu']['grad_norm'] / truth['grad_norm'] - 1):.2e}")
+
+        cfg = get_config(arch)
+        cut = None
+        if arch == "rwkv6_7b":
+            have = torch.cuda.get_device_properties(dev).total_memory
+            depth = next(n for n in range(min(TRAIN_DEPTH_CAP,
+                                              cfg.num_layers), 0, -1)
+                         if tfm.param_count(cfg.replace(num_layers=n)) * 18
+                         < have)
+            cut = f"{depth} of {cfg.num_layers} layers"
+            cfg = cfg.replace(num_layers=depth)
+        steps, b, s = 10, 4, 64
+        params = tfm.init_params(cfg, SEED, device=dev)
+        n_params = sum(t.numel() for t in _leaves(params))
+        opt = optimizer(steps)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat="full")
+        batch = example_batch(cfg, b, s, 1, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, norms, secs = [], [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))      # waits for the step
+            norms.append(float(m["grad_norm"]))
+            secs.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        ms = 1e3 * float(np.mean(secs[1:]))
+        log(f"  {arch} bf16 remat=full ({cut or 'no cut'}; "
+            f"{n_params / 1e9:.3f} B parameters), batch {b} x {s}: losses "
+            f"{[round(x, 4) for x in losses]}, grad norms "
+            f"{[round(x, 3) for x in norms]}; {ms:.1f} ms/step after the "
+            f"first ({1e3 * secs[0]:.1f} ms), {b * s / (ms / 1e3):.0f} "
+            f"tokens/s, peak {peak / 1e9:.2f} GB")
+        if not all(np.isfinite(norms)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{arch} bf16 training: losses {losses}, "
+                                 f"grad norms {norms}")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            float(m["loss"])
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        rows = sorted(device_rows(prof), reverse=True)
+        busy = sum(r[0] for r in rows)
+        log(f"  {arch} profiled step: device busy {busy:.1f} ms of "
+            f"{wall_ms:.1f} ms wall")
+        for t, count, key in rows[:8]:
+            log(f"    {t:9.2f} ms {t / max(busy, 1e-9):6.1%} {count:6d} calls"
+                f"  {key[:90]}")
+        out[arch] = {
+            "f32": {"logits_max_abs_err": err, **{
+                f"{k}_{d}": v for d, m in metrics.items()
+                for k, v in m.items()}},
+            "bf16": {"cut": cut, "params": n_params, "batch": b, "seq": s,
+                     "losses": losses, "grad_norms": norms,
+                     "first_step_ms": 1e3 * secs[0], "ms_per_step": ms,
+                     "tokens_per_s": b * s / (ms / 1e3),
+                     "peak_memory_bytes": peak,
+                     "profiled_step": {
+                         "wall_ms": wall_ms, "device_busy_ms": busy,
+                         "top": [{"ms": t, "calls": c, "kernel": k[:90]}
+                                 for t, c, k in rows[:8]]}}}
+        if arch == "hymba_1_5b":
+            del state
+            # 4 x 512 tokens, where the activations a policy keeps outweigh
+            # the gradients' own peak at the end of backward
+            long = example_batch(cfg, 4, 512, 2, device=dev)
+            peaks = {r: _remat_memory(cfg, params, long, r)
+                     for r in ("none", "dots", "full")}
+            log("  hymba_1_5b one gradient pass over 4 x 512 tokens, bytes "
+                "above the parameters: " + ", ".join(
+                    f"{r} forward peak {p['forward_peak'] / 1e9:.3f} GB, "
+                    f"pass peak {p['pass_peak'] / 1e9:.3f} GB"
+                    for r, p in peaks.items()))
+            fwd = [peaks[r]["forward_peak"] for r in ("none", "dots", "full")]
+            if not fwd[0] >= fwd[1] >= fwd[2]:
+                raise AssertionError(f"remat forward peaks not none >= dots "
+                                     f">= full: {peaks}")
+            out[arch]["remat_memory_bytes"] = peaks
+        del params
+        state = None
+        free_memory()
+        log(f"  {arch} training took {time.perf_counter() - t_arch:.1f} s")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 9: the paper's benchmarks on the card
 # ---------------------------------------------------------------------------
@@ -1886,10 +2342,27 @@ def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
     log(f"  profiling took {time.perf_counter() - t0:.1f} s")
 
 
-def _tree_to(tree, device):
-    """A copy of ``tree`` on ``device``."""
-    return {k: _tree_to(v, device) if isinstance(v, dict)
-            else v.to(device, copy=True) for k, v in tree.items()}
+def _tree_to(tree, device, dtype=None):
+    """A copy of ``tree`` on ``device`` (floating leaves in ``dtype``)."""
+    return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
+            else v.to(device, dtype if dtype and v.is_floating_point()
+                      else v.dtype, copy=True) for k, v in tree.items()}
+
+
+@contextlib.contextmanager
+def f64_upcasts():
+    """For a reference run on the CPU: every f32 tensor and upcast the port
+    makes (``torch.float32``, ``Tensor.float()``, the default dtype) is f64
+    until the block ends."""
+    saved = torch.Tensor.float, torch.float32, torch.get_default_dtype()
+    torch.Tensor.float = lambda self, *a, **k: self.to(torch.float64)
+    torch.float32 = torch.float64
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.Tensor.float, torch.float32 = saved[:2]
+        torch.set_default_dtype(saved[2])
 
 
 def _leaves(tree):
@@ -1936,6 +2409,8 @@ def main() -> int:
                phase_linear_attention_kernel(dev)]
     for name, keys in phase_moe_vlm_instances(dev).items():
         next(e for e in entries if e["name"] == name).update(keys)
+    for name, keys in phase_whisper_instances(dev).items():
+        next(e for e in entries if e["name"] == name).update(keys)
 
     log(f"== phase 3: parity at full width, 4 layers, f32 "
         f"(at {time.perf_counter() - t_start:.1f} s)")
@@ -1978,6 +2453,10 @@ def main() -> int:
             dev, arch, kernels, idle,
             launcher_policy="pars" if arch == "rwkv6_7b" else "fcfs",
             depth=depth, policies=policies)
+    log(f"== phase 4: whisper_tiny through build() "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    whisper = phase_whisper(dev, everything)
+    served["whisper_tiny"] = whisper["bf16"]["launches"]
     # torch.profiler runs only now, so that no unprofiled burst follows a
     # profiler session (bursts that did were seen to run slower)
     log(f"== phase 5: profiles (at {time.perf_counter() - t_start:.1f} s)")
@@ -2009,6 +2488,10 @@ def main() -> int:
         f" s)")
     training["lm"] = phase_train_lm(dev)
     free_memory()
+    log(f"== phase 8: training the hybrid, SSM and encoder-decoder families "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    training["families"] = phase_train_families(dev)
+    free_memory()
     log(f"== phase 9: the paper's benchmarks on the card "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     benchmarks, admission = phase_benchmarks(everything)
@@ -2029,6 +2512,7 @@ def main() -> int:
         e = next(e for e in entries if e["name"] == row["name"])
         e.update({f"bench_{k}": v for k, v in row.items() if k != "name"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"whisper": whisper}))
     print(json.dumps({"training": training}))
     print(json.dumps({"benchmarks": benchmarks}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,20 +1,21 @@
 """Training launcher: the LM's train step on one card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 20
-    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --full --steps 10
 
-Twin of ``repro/launch/train.py`` without a mesh: one device, the dense,
-MoE and VLM families (a VLM batch carries its stub vision prefix). The
-smoke config runs in f32 with ``remat="none"``; ``--full`` takes the
-published config in its dtype (bf16 for ``llama3_2_3b``) with
-``remat="full"``, where its weights, gradients and Adam's two f32 moments
-(12 bytes a bf16 parameter) fit the device: of the published configs only
-the dense ``llama3_2_3b`` does on one H100, and ``--full`` says so for the
-others. Seeded random weights, a fresh random batch every step
-(``example_batch``, seed ``1 + step``), Adam with a cosine schedule (3e-4,
-5 warmup steps) and global-norm clipping at 1.0, as the reference.
+Twin of ``repro/launch/train.py`` without a mesh: one device, every family
+(a VLM batch carries its stub vision prefix, an audio batch its stub
+frames). The smoke config runs in f32 with ``remat="none"``; ``--full``
+takes the published config in its dtype (bf16) with ``remat="full"``,
+where its weights, gradients and Adam's two f32 moments (12 bytes a bf16
+parameter) fit the device, and says so, before allocating, where they do
+not (``tfm.require_fit``: ``rwkv6_7b``'s 7.5 B parameters need 90 GB, more
+than an 80 GB card holds). Seeded random
+weights, a fresh random batch every step (``example_batch``, seed
+``1 + step``), Adam with a cosine schedule (3e-4, 5 warmup steps) and
+global-norm clipping at 1.0, as the reference.
 """
 from __future__ import annotations
 

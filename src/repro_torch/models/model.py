@@ -1,18 +1,20 @@
-"""Public model API: the LM loss and example batches.
+"""Public model API: build, the LM loss, prefill/decode entry points and
+example batches.
 
-Port of ``repro/models/model.py`` for the families the port runs. The loss
-runs the training forward (``forward_seq`` on the plain, differentiable
-attention). ``build`` and ``ModelBundle`` wait for ROADMAP item A8's
-example twin; ``batch_spec`` and ``decode_specs`` are the reference's
-dry-run tooling and wait for item A13.
+Port of ``repro/models/model.py``. :func:`build` bundles a config's
+callables as the reference's does: the loss runs the training route
+(``forward_seq`` on the plain, differentiable attention and scan), prefill
+and decode run the kernels. ``batch_spec`` and ``decode_specs`` are the
+reference's dry-run tooling and wait for ROADMAP item A13.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import VLM, ModelConfig
+from repro_torch.configs.base import AUDIO, VLM, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 
@@ -41,15 +43,76 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     """``(loss, metrics)``: token-mean CE plus the auxiliary losses (the
     MoE family's load-balance and router z-losses, zero for the others);
     metrics hold ``ce`` and each aux. A VLM batch's ``vision_embeds`` and
-    ``mrope_positions`` go to the forward."""
+    ``mrope_positions``, and an audio batch's ``frames``, go to the
+    forward."""
     logits, _, aux = tfm.forward_seq(
         params, cfg, batch["tokens"],
         vision_embeds=batch.get("vision_embeds"),
         mrope_positions=batch.get("mrope_positions"),
+        frames=batch.get("frames"),
         attn_impl=attn_impl, remat=remat)
     ce = cross_entropy(logits, batch["targets"], batch["loss_mask"])
     loss = ce + aux["load_balance_loss"] + aux["router_z_loss"]
     return loss, {"ce": ce, **aux}
+
+
+# ---------------------------------------------------------------------------
+# Bundle
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ModelBundle:
+    cfg: ModelConfig
+    init: Callable[..., Params]
+    loss_fn: Callable[..., Tuple[torch.Tensor, Dict]]
+    prefill: Callable[..., Tuple[torch.Tensor, tfm.Cache]]
+    decode_step: Callable[..., Tuple[torch.Tensor, tfm.Cache]]
+    init_cache: Callable[..., tfm.Cache]
+
+
+def build(cfg: ModelConfig, *, attn_impl: str = "chunked",
+          remat: str = "full") -> ModelBundle:
+    """The reference's bundle of a config's callables:
+
+    * ``init(seed=0, *, device="cuda", param_dtype=None)``: parameters;
+    * ``loss_fn(params, batch)``: :func:`lm_loss` on the training route
+      (``attn_impl``, ``"naive"`` or ``"chunked"``, and ``remat``);
+    * ``prefill(params, tokens, cache_len, **extras)``: ``(logits, cache)``
+      of ``forward_seq`` on the kernels, building a fresh cache of
+      ``cache_len`` positions (``extras``: ``frames``, ``vision_embeds``,
+      ``mrope_positions``);
+    * ``decode_step(params, cache, token)``: ``(logits (B, V), cache)``;
+    * ``init_cache(batch, max_len, pos=0, dtype=None, *, device="cuda")``:
+      an empty contiguous or paged cache with every row at ``pos``."""
+    tfm.check_supported(cfg)
+    if attn_impl not in ("naive", "chunked"):
+        raise ValueError(f"attn_impl={attn_impl!r}: the loss runs 'naive' "
+                         f"or 'chunked' (the kernels have no backward)")
+
+    def init(seed: int = 0, *, device: DeviceLike = "cuda",
+             param_dtype: Optional[torch.dtype] = None) -> Params:
+        return tfm.init_params(cfg, seed, device=device,
+                               param_dtype=param_dtype)
+
+    def loss_fn(params, batch):
+        return lm_loss(params, cfg, batch, attn_impl=attn_impl, remat=remat)
+
+    def prefill(params, tokens, cache_len, **extras):
+        logits, cache, _ = tfm.forward_seq(
+            params, cfg, tokens, build_cache=True, cache_len=cache_len,
+            attn_impl="kernel", **extras)
+        return logits, cache
+
+    def decode_step(params, cache, token):
+        return tfm.decode_step(params, cfg, cache, token)
+
+    def init_cache(batch, max_len, pos=0, dtype=None, *,
+                   device: DeviceLike = "cuda"):
+        cache = tfm.init_cache(cfg, batch, max_len, dtype=dtype,
+                               device=device)
+        cache["pos"].fill_(pos)
+        return cache
+
+    return ModelBundle(cfg, init, loss_fn, prefill, decode_step, init_cache)
 
 
 # ---------------------------------------------------------------------------
@@ -63,7 +126,9 @@ def example_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0, *,
     family, as the reference: the first ``vision_prefix_len`` positions
     are ``vision_embeds`` (normal, times 0.02, in the model's dtype) in
     place of tokens, masked out of the loss, with linear
-    ``mrope_positions`` (3, batch, seq)."""
+    ``mrope_positions`` (3, batch, seq). For the audio family, ``frames``
+    (batch, encoder_seq_len, d_model), normal times 0.02 in the model's
+    dtype."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -81,4 +146,8 @@ def example_batch(cfg: ModelConfig, batch: int, seq: int, seed: int = 0, *,
         out["mrope_positions"] = torch.arange(
             seq, dtype=torch.int32, device=dev).expand(3, batch, seq)
         mask[:, :p] = 0
+    if cfg.family == AUDIO:
+        out["frames"] = (torch.randn(
+            batch, cfg.encoder_seq_len, cfg.d_model, generator=gen,
+            device=dev) * 0.02).to(getattr(torch, cfg.dtype))
     return {**out, "targets": ids(seq), "loss_mask": mask}

@@ -7,8 +7,10 @@ the reference's parameterization, ``log w = -MAX_LOG_DECAY * sigmoid(w0 +
 lora(x))``, so the per-step log-decay lies in (-1, 0): the chunked scan's
 numerics contract (``models/linear_attn.py``).
 
-Sequence mode (:func:`time_mix`) runs the chunked linear-attention kernel in
-``rwkv`` mode, from a zero state (prefill); the one-token step
+Sequence mode (:func:`time_mix`) runs from a zero state, on the chunked
+linear-attention kernel in ``rwkv`` mode on the serving route and on the
+plain differentiable scan on the training routes (``ssm.linear_scan``);
+the one-token step
 (:func:`time_mix_step`) is plain tensor code, as the reference computes it
 outside any kernel. The decay adapter, ``decay_base``, ``bonus`` and
 ``gn_scale`` stay f32 whatever the model's dtype, and the log-decay is
@@ -22,10 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 from repro_torch.models.common import dense_init, group_norm_heads
 from repro_torch.models.linear_attn import (MAX_LOG_DECAY,
                                             linear_attention_step)
+from repro_torch.models.ssm import linear_scan
 
 DECAY_LORA = 64
 CHUNK = 64      # the reference's chunk_size; 64 * MAX_LOG_DECAY <= 80
@@ -85,10 +87,12 @@ def _heads(x: torch.Tensor, h: int, dh: int) -> torch.Tensor:
     return x.reshape(b, t, h, dh).transpose(1, 2)
 
 
-def time_mix(p: dict, x: torch.Tensor, prev: torch.Tensor, cfg: ModelConfig
+def time_mix(p: dict, x: torch.Tensor, prev: torch.Tensor, cfg: ModelConfig,
+             *, attn_impl: str = "kernel"
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sequence-mode time-mix from a zero state. x: (B, T, d) ->
-    ``(out (B, T, d), last_x (B, d), state (B, H, dh, dh) f32)``."""
+    ``(out (B, T, d), last_x (B, d), state (B, H, dh, dh) f32)``; the scan
+    on the route ``attn_impl`` names."""
     b, t, _ = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
     xs = _shift(x, prev)
@@ -99,8 +103,8 @@ def time_mix(p: dict, x: torch.Tensor, prev: torch.Tensor, cfg: ModelConfig
     v = _heads(xv @ p["w_v"], h, dh)
     g = xg @ p["w_g"]
     lw = _heads(_log_decay(p, xw), h, dh)
-    out, state = linear_attention(r, k, v, lw, p["bonus"], mode="rwkv",
-                                  chunk=CHUNK)
+    out, state = linear_scan(r, k, v, lw, attn_impl=attn_impl, mode="rwkv",
+                             chunk=CHUNK, bonus=p["bonus"])
     out = group_norm_heads(out.transpose(1, 2), p["gn_scale"])
     out = (out.reshape(b, t, h * dh) * F.silu(g)) @ p["w_o"]
     return out, x[:, -1], state

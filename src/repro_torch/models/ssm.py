@@ -6,7 +6,10 @@ Port of ``repro/models/ssm.py``::
     y_t = C_t h_t ,   y = y * silu(z) @ W_out
 
 Sequence mode (:func:`apply_ssm`) runs the chunked linear-attention kernel
-in ``ssd`` mode (scalar per-head decay); the one-token step
+in ``ssd`` mode (scalar per-head decay) on the serving route
+(``attn_impl="kernel"``), and the plain, differentiable chunked scan
+(``models/linear_attn.py``) on the training routes (``"naive"``,
+``"chunked"``), as the kernel has no backward; the one-token step
 (:func:`ssm_step`) is plain tensor code, as the reference has no kernel for
 it. B/C are shared across heads (as in Mamba-2). A depthwise causal conv
 keeps a ``conv_width - 1`` tail as decode state. The log-decay is clamped to
@@ -23,6 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 from repro_torch.models.common import dense_init
 from repro_torch.models.linear_attn import (MAX_LOG_DECAY,
+                                            chunked_linear_attention,
                                             linear_attention_step)
 
 # Largest chunk of the SSD scan. The scan needs chunk * MAX_LOG_DECAY <= 80
@@ -89,9 +93,26 @@ def _gates(p: dict, xc: torch.Tensor, n: int):
     return b_in, c_out, dt, log_decay
 
 
-def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig):
+def linear_scan(q, k, v, log_decay, *, attn_impl: str, mode: str,
+                chunk: int, bonus=None):
+    """The chunked linear-attention scan of a sequence-mode block: the
+    kernel's wrapper on the serving route (``attn_impl="kernel"``), the
+    plain differentiable scan on the training routes (``"naive"``,
+    ``"chunked"``). The route is the caller's choice, never the device's."""
+    if attn_impl == "kernel":
+        return linear_attention(q, k, v, log_decay, bonus, mode=mode,
+                                chunk=chunk)
+    if attn_impl not in ("naive", "chunked"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    return chunked_linear_attention(q, k, v, log_decay, bonus=bonus,
+                                    mode=mode, chunk_size=chunk)
+
+
+def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              attn_impl: str = "kernel"):
     """Sequence mode from a zero state. x: (B, T, d) -> (y (B, T, d),
-    conv_tail (B, K-1, Di), state (B, nh, N, head_dim) f32)."""
+    conv_tail (B, K-1, Di), state (B, nh, N, head_dim) f32). The scan runs
+    on the route ``attn_impl`` names (:func:`linear_scan`)."""
     b, t, _ = x.shape
     s = cfg.ssm
     d_inner, nh, n = _dims(cfg)
@@ -108,8 +129,8 @@ def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig):
     q = c_out[:, None].expand(b, nh, t, n)
     kk = b_in[:, None].expand(b, nh, t, n)
     lw = log_decay.transpose(1, 2)[..., None]                 # (B, nh, T, 1)
-    y, state = linear_attention(q, kk, v, lw, mode="ssd",
-                                chunk=min(s.chunk_size, MAX_SSD_CHUNK))
+    y, state = linear_scan(q, kk, v, lw, attn_impl=attn_impl, mode="ssd",
+                           chunk=min(s.chunk_size, MAX_SSD_CHUNK))
     y = y.transpose(1, 2).reshape(b, t, d_inner)
     return (y * F.silu(z)) @ p["w_out"], conv_tail, state
 

@@ -1,19 +1,20 @@
-"""Decoder-only transformer, dense, MoE, VLM, hybrid and SSM families:
-parameters, prefill, chunked continuation and decode over a paged or a
-contiguous cache.
+"""Multi-family transformer, dense, MoE, VLM, hybrid, SSM and
+encoder-decoder: parameters, prefill, chunked continuation and decode over
+a paged or a contiguous cache, and the training forward.
 
-Port of ``repro/models/transformer.py`` for the DENSE family, the MOE
-family (the FFN a capacity-bounded mixture of experts, ``models/moe.py``,
-plus a shared dense MLP where ``d_ff > 0``), the VLM family (Qwen2-VL's
-language backbone: M-RoPE positions, stub vision embeddings prepended to
-the tokens), the HYBRID family (attention and a Mamba-2/SSD head bank in
-every layer, their outputs averaged) and the SSM family (attention-free
-RWKV-6 time-mix and channel-mix, ``models/rwkv6.py``); the
-encoder-decoder (audio) family waits for ROADMAP item A11. Parameters keep
-the reference's pytree layout as nested dicts of tensors, with every layer
-leaf stacked on a leading ``num_layers`` axis, so bridged JAX parameters
-drop in unchanged; the layer loop is a Python loop where JAX used
-``lax.scan``.
+Port of ``repro/models/transformer.py`` for every family of the reference:
+DENSE; MOE (the FFN a capacity-bounded mixture of experts,
+``models/moe.py``, plus a shared dense MLP where ``d_ff > 0``); VLM
+(Qwen2-VL's language backbone: M-RoPE positions, stub vision embeddings
+prepended to the tokens); HYBRID (attention and a Mamba-2/SSD head bank in
+every layer, their outputs averaged); SSM (attention-free RWKV-6 time-mix
+and channel-mix, ``models/rwkv6.py``); and AUDIO (Whisper: a bidirectional
+encoder over stub frame embeddings, :func:`encode`, and a decoder with
+learned positions and cross-attention onto the encoder's rows).
+Parameters keep the reference's pytree layout as nested dicts of tensors,
+with every layer leaf stacked on a leading ``num_layers`` axis, so bridged
+JAX parameters drop in unchanged; the layer loop is a Python loop where JAX
+used ``lax.scan``.
 
 Two decode caches, one per engine mode:
 
@@ -30,7 +31,9 @@ Two decode caches, one per engine mode:
        "slots": (B,) int32 lane of each sequence,
        "pos": (B,) int32 tokens resident per sequence,
        HYBRID: "conv_tail": (L, S, conv_width - 1, d_inner),
-               "ssm_state": (L, S, nheads, state, head_dim) f32}
+               "ssm_state": (L, S, nheads, state, head_dim) f32,
+       AUDIO: "cross_k", "cross_v": (L, S, KH, F, dh) encoder K/V,
+              F = encoder_seq_len}
 
   A lane is an append buffer while ``pos < W`` and a ring after. The SSM
   family keeps no K/V lanes, only per-slot recurrent state::
@@ -46,16 +49,21 @@ copy per step) and returns a dict with the advanced ``pos``. Per-row ``pos``
 lets one call serve sequences at different offsets (the reference ran one
 row per ``vmap`` lane with a scalar ``pos``).
 
-Attention runs on the port's kernels: prefill attention for
-:func:`forward_seq` (``q_start = 0`` over the prompt's own K/V) and
-:func:`forward_chunk` (per-row offsets over lanes gathered from the cache),
-paged or ring decode attention for :func:`decode_step` (no gather). The
-HYBRID family's SSM runs the chunked linear-attention kernel in prefill
-(``ssd`` mode), as does the SSM family's time-mix (``rwkv`` mode).
-The kernels have no backward (their wrappers refuse operands that require
-grad): training runs :func:`forward_seq` with ``attn_impl="naive"`` or
-``"chunked"``, the reference's plain attention, for the dense, MoE and VLM
-families.
+Two routes, chosen by the caller's ``attn_impl``:
+
+* ``"kernel"`` (serving) runs the port's kernels: prefill attention for
+  :func:`forward_seq` (``q_start = 0`` over the prompt's own K/V; without
+  the causal mask for the encoder and for cross-attention onto its rows)
+  and :func:`forward_chunk` (per-row offsets over lanes gathered from the
+  cache), paged or ring decode attention for :func:`decode_step` (no
+  gather; cross-attention is ring decode over the encoder lanes with every
+  row visible), and the chunked linear-attention kernel for HYBRID's SSM
+  (``ssd`` mode) and the SSM family's time-mix (``rwkv`` mode).
+* ``"naive"`` or ``"chunked"`` (training) runs the reference's plain,
+  differentiable attention and linear-attention scan for every family; the
+  kernels have no backward, and their wrappers refuse operands that
+  require grad. ``remat`` recomputes each decoder layer in backward
+  (``"full"``) or all but its weight products (``"dots"``).
 
 An MoE layer's output for a token depends on the other tokens of its
 dispatch (expert capacity): :func:`forward_seq` routes a call's rows
@@ -66,14 +74,17 @@ programs do (one row at a time under ``vmap``).
 """
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.bridge import flatten, unflatten
-from repro_torch.configs.base import DENSE, HYBRID, MOE, SSM, VLM, ModelConfig
+from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
+                                      ModelConfig)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
                                                   ring_decode_attention)
@@ -92,63 +103,73 @@ Cache = Dict[str, torch.Tensor]
 
 # The families whose token mixing is attention alone.
 ATTENTION_FAMILIES = (DENSE, MOE, VLM)
-# The ROADMAP item (section A) that ports each family this module rejects.
-_ROADMAP_ITEM = {"audio": "A11 (encoder-decoder)"}
+FAMILIES = (*ATTENTION_FAMILIES, HYBRID, SSM, AUDIO)
+POS_EMBS = ("rope", "mrope", "learned", "none")
+REMATS = ("none", "dots", "full")
+# Rows of the decoder's learned position table (the reference's); positions
+# past it wrap around.
+LEARNED_POSITIONS = 8192
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not run yet."""
-    if cfg.family not in (*ATTENTION_FAMILIES, HYBRID, SSM) or cfg.is_encdec:
-        item = _ROADMAP_ITEM.get(cfg.family, "A11 (encoder-decoder)")
-        raise NotImplementedError(
-            f"the port runs the dense, moe, vlm, hybrid and ssm families; "
-            f"{cfg.family} waits for ROADMAP item {item}")
-    if cfg.pos_emb not in ("rope", "mrope") and not (
-            cfg.family == SSM and cfg.pos_emb == "none"):
-        raise NotImplementedError(
-            f"pos_emb={cfg.pos_emb!r}: the port's attention decoders use "
-            f"rope or mrope (the ssm family none); learned positions wait "
-            f"for ROADMAP item A11")
+    """Raise ``NotImplementedError`` for a family or positional code that
+    neither the reference nor the port defines."""
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"unknown family {cfg.family!r}; the port "
+                                  f"runs {', '.join(FAMILIES)}")
+    if cfg.pos_emb not in POS_EMBS:
+        raise NotImplementedError(f"unknown pos_emb {cfg.pos_emb!r}; the "
+                                  f"port runs {', '.join(POS_EMBS)}")
 
 
 def default_paged(cfg: ModelConfig) -> bool:
     """The reference engine's choice: block-structured KV for attention-only
-    append caches; hybrid, ssm and sliding-window models keep per-slot
-    lanes or state."""
+    append caches; hybrid, ssm, encoder-decoder and sliding-window models
+    keep per-slot lanes or state."""
     return (cfg.family in ATTENTION_FAMILIES and not cfg.is_encdec
             and not cfg.sliding_window)
 
 
 def param_count(cfg: ModelConfig) -> int:
-    """Parameters :func:`init_params` makes for an attention-family
-    ``cfg``, from its widths alone (nothing is allocated), so that a
-    launcher can tell whether a published config fits the card."""
-    if cfg.family not in ATTENTION_FAMILIES:
-        raise ValueError(f"param_count covers the attention families, not "
-                         f"{cfg.family}")
+    """Parameters :func:`init_params` makes for ``cfg``, from its widths
+    alone (nothing is allocated), so that a launcher can tell whether a
+    published config fits the card."""
     d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
     q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
     norm = d * (2 if cfg.norm == "layernorm" else 1)
-    layer = 2 * d * q + 2 * d * kv + 2 * norm
-    if cfg.use_bias:
-        layer += q + 2 * kv + d
-    if f:
-        layer += (3 if gated(cfg.activation) else 2) * d * f
-        layer += f + d if cfg.use_bias else 0
-    if cfg.moe is not None:
-        e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
-        layer += d * e + (3 if gated(cfg.activation) else 2) * e * d * fe
+    attn = 2 * d * q + 2 * d * kv + (q + 2 * kv + d if cfg.use_bias else 0)
+    mlp = ((3 if gated(cfg.activation) else 2) * d * f
+           + (f + d if cfg.use_bias else 0)) if f else 0
+    if cfg.family == SSM:
+        r = rwkv.DECAY_LORA
+        time_mix = 5 * d + 5 * d * q + 3 * q + d * r + r * q
+        channel_mix = 2 * d + 2 * d * f + d * d
+        layer = 2 * norm + time_mix + channel_mix
+    else:
+        layer = 2 * norm + attn + mlp
+        if cfg.moe is not None:
+            e, fe = cfg.moe.num_experts, cfg.moe.expert_d_ff
+            layer += d * e + (3 if gated(cfg.activation) else 2) * e * d * fe
+        if cfg.family == HYBRID:
+            d_inner, nh, n = ssd._dims(cfg)
+            layer += (2 * d * d_inner + cfg.ssm.conv_width * d_inner
+                      + 2 * d_inner * n + d_inner * nh + 2 * nh + d_inner * d)
+        if cfg.is_encdec:
+            layer += attn + norm                        # cross, ln_cross
     head = 0 if cfg.tie_embeddings else d * cfg.vocab_size
-    return cfg.vocab_size * d + norm + head + L * layer
+    n_params = cfg.vocab_size * d + norm + head + L * layer
+    if cfg.pos_emb == "learned":
+        n_params += LEARNED_POSITIONS * d
+    if cfg.is_encdec:
+        n_params += (cfg.encoder_layers * (2 * norm + attn + mlp)
+                     + cfg.encoder_seq_len * d + norm)
+    return n_params
 
 
 def require_fit(cfg, device: torch.device, bytes_per_param: int) -> None:
-    """Exit with a message, before anything is allocated, where an
-    attention-family config's parameters at ``bytes_per_param`` bytes each
-    exceed the device's memory (the card's, or the host's for the CPU).
-    The hybrid and SSM configs (at most 7.5 B parameters) fit."""
-    if cfg.family not in ATTENTION_FAMILIES:
-        return
+    """Exit with a message, before anything is allocated, where ``cfg``'s
+    parameters at ``bytes_per_param`` bytes each exceed the device's memory
+    (the card's, or the host's for the CPU)."""
     n = param_count(cfg)
     if device.type == "cuda":
         have = torch.cuda.get_device_properties(device).total_memory
@@ -169,7 +190,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 param_dtype: Optional[torch.dtype] = None) -> Params:
     """Random parameters in the reference's layout, drawn on ``device`` from
     a ``torch.Generator`` seeded with ``seed`` (the reference's
-    distributions, not its bits: parity tests bridge JAX parameters)."""
+    distributions, not its bits: parity tests bridge JAX parameters). The
+    AUDIO family adds each decoder layer's ``cross`` attention and
+    ``ln_cross``, and an ``encoder`` subtree (stacked layers, its own
+    ``pos_embed`` of ``encoder_seq_len`` rows, ``final_norm``); learned
+    positions add a ``pos_embed`` of :data:`LEARNED_POSITIONS` rows."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = param_dtype or getattr(torch, cfg.dtype)
@@ -177,40 +202,50 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
-    def dense(shape, fan_in=None):
-        return dense_init(gen, (L,) + shape, in_axis_size=fan_in or shape[0],
+    def dense(shape, n=L):
+        return dense_init(gen, (n,) + shape, in_axis_size=shape[0],
                           dtype=dtype)
 
-    def stacked_norm():
-        return {k: v.expand(L, -1).contiguous() for k, v in
+    def stacked_norm(n=L):
+        return {k: v.expand(n, -1).contiguous() for k, v in
                 init_norm(d, cfg.norm, dtype, dev).items()}
 
-    def zeros(n):
-        return torch.zeros(L, n, dtype=dtype, device=dev)
+    def zeros(width, n=L):
+        return torch.zeros(n, width, dtype=dtype, device=dev)
+
+    def attn_block(n=L):
+        attn = {"wq": dense((d, h * dh), n), "wk": dense((d, kh * dh), n),
+                "wv": dense((d, kh * dh), n), "wo": dense((h * dh, d), n)}
+        if cfg.use_bias:
+            attn.update(bq=zeros(h * dh, n), bk=zeros(kh * dh, n),
+                        bv=zeros(kh * dh, n), bo=zeros(d, n))
+        return attn
+
+    def mlp_block(n=L):
+        mlp = {"w_up": dense((d, f), n), "w_down": dense((f, d), n)}
+        if gated(cfg.activation):
+            mlp["w_gate"] = dense((d, f), n)
+        if cfg.use_bias:
+            mlp.update(b_up=zeros(f, n), b_down=zeros(d, n))
+        return mlp
 
     if cfg.family == SSM:       # attention-free: time-mix, channel-mix
         layers = {"ln1": stacked_norm(), "ln2": stacked_norm(),
                   "tm": rwkv.init_time_mix(gen, cfg, dtype, L),
                   "cm": rwkv.init_channel_mix(gen, cfg, dtype, L)}
     else:
-        attn = {"wq": dense((d, h * dh)), "wk": dense((d, kh * dh)),
-                "wv": dense((d, kh * dh)), "wo": dense((h * dh, d))}
-        if cfg.use_bias:
-            attn.update(bq=zeros(h * dh), bk=zeros(kh * dh),
-                        bv=zeros(kh * dh), bo=zeros(d))
-        layers = {"ln1": stacked_norm(), "ln2": stacked_norm(), "attn": attn}
+        layers = {"ln1": stacked_norm(), "ln2": stacked_norm(),
+                  "attn": attn_block()}
         if f:                   # the dense MLP, or MoE's shared expert
-            mlp = {"w_up": dense((d, f)), "w_down": dense((f, d))}
-            if gated(cfg.activation):
-                mlp["w_gate"] = dense((d, f))
-            if cfg.use_bias:
-                mlp.update(b_up=zeros(f), b_down=zeros(d))
-            layers["mlp"] = mlp
+            layers["mlp"] = mlp_block()
         if cfg.moe is not None:
             layers["moe"] = init_moe(gen, d, cfg.moe, cfg.activation, dtype,
                                      L)
         if cfg.family == HYBRID:
             layers["ssm"] = ssd.init_ssm(gen, cfg, dtype, L)
+        if cfg.is_encdec:
+            layers["cross"] = attn_block()
+            layers["ln_cross"] = stacked_norm()
     params: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, d), dtype),
         "final_norm": init_norm(d, cfg.norm, dtype, dev),
@@ -218,6 +253,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, cfg.vocab_size), dtype=dtype)
+    if cfg.pos_emb == "learned":
+        params["pos_embed"] = embed_init(gen, (LEARNED_POSITIONS, d), dtype)
+    if cfg.is_encdec:
+        e = cfg.encoder_layers
+        enc = {"ln1": stacked_norm(e), "ln2": stacked_norm(e),
+               "attn": attn_block(e)}
+        if f:
+            enc["mlp"] = mlp_block(e)
+        params["encoder"] = {
+            "layers": enc,
+            "pos_embed": embed_init(gen, (cfg.encoder_seq_len, d), dtype),
+            "final_norm": init_norm(d, cfg.norm, dtype, dev)}
     return params
 
 
@@ -248,7 +295,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``mb = max_len / block_size``. Contiguous: row b owns lane b, of width
     ``W = min(max_len, sliding_window)`` (the ring a window needs, never
     wider than the window); the SSM family, contiguous only, holds per-slot
-    recurrent state and no lanes."""
+    recurrent state and no lanes; the AUDIO family adds each slot's
+    ``cross_k`` / ``cross_v`` lanes of ``encoder_seq_len`` rows, which its
+    prefill fills with the encoder's K/V."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -259,11 +308,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     if paged:
         if not default_paged(cfg):
             raise ValueError(
-                f"paged KV needs an attention-family model without a "
-                f"sliding window (got {cfg.family}, window "
+                f"paged KV needs an attention-family decoder-only model "
+                f"without a sliding window (got {cfg.family}, window "
                 f"{cfg.sliding_window}): recurrent state is not "
-                f"block-structured and window lanes are shorter than the "
-                f"positions they cover")
+                f"block-structured, window lanes are shorter than the "
+                f"positions they cover, and the reference keeps "
+                f"encoder-decoder caches contiguous")
         if max_len % block_size:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"block_size={block_size}")
@@ -294,6 +344,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                          dtype=dt, device=dev)
         cache["ssm_state"] = torch.zeros(L, batch, nh, n, s.head_dim,
                                          dtype=torch.float32, device=dev)
+    if cfg.is_encdec:
+        shape = (L, batch, kh, cfg.encoder_seq_len, dh)
+        cache["cross_k"] = torch.zeros(shape, dtype=dt, device=dev)
+        cache["cross_v"] = torch.zeros(shape, dtype=dt, device=dev)
     return cache
 
 
@@ -306,24 +360,36 @@ def _linear(x: torch.Tensor, p: Params, w: str, b: str) -> torch.Tensor:
 
 
 def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    return (_q(p, x, cfg), *_kv(p, x, cfg))
+
+
+def _q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b, s, _ = x.shape
-    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    return (_linear(x, p, "wq", "bq").reshape(b, s, h, dh),
-            _linear(x, p, "wk", "bk").reshape(b, s, kh, dh),
+    return _linear(x, p, "wq", "bq").reshape(b, s, cfg.num_heads,
+                                             cfg.head_dim)
+
+
+def _kv(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    b, s, _ = x.shape
+    kh, dh = cfg.num_kv_heads, cfg.head_dim
+    return (_linear(x, p, "wk", "bk").reshape(b, s, kh, dh),
             _linear(x, p, "wv", "bv").reshape(b, s, kh, dh))
 
 
 def _rope_qk(q, k, cfg: ModelConfig, positions, mrope_pos=None):
     """Rotate q and k: RoPE at ``positions`` (B, S), or M-RoPE at
     ``mrope_pos`` (3, B, S), the text positions broadcast to all three
-    streams where none are given (the reference's decode and chunk)."""
+    streams where none are given (the reference's decode and chunk).
+    Learned positions (added at the embedding) and none rotate nothing."""
     if cfg.pos_emb == "mrope":
         if mrope_pos is None:
             mrope_pos = positions[None].expand(3, *positions.shape)
         return (apply_mrope(q, mrope_pos, cfg.rope_theta),
                 apply_mrope(k, mrope_pos, cfg.rope_theta))
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    if cfg.pos_emb == "rope":
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    return q, k
 
 
 def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -332,9 +398,10 @@ def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return _linear(activate(up, gate, cfg.activation), p, "w_down", "b_down")
 
 
-def _attn_proj(lp: Params, out: torch.Tensor) -> torch.Tensor:
+def _attn_proj(lp: Params, out: torch.Tensor, name: str = "attn"
+               ) -> torch.Tensor:
     b, s = out.shape[:2]
-    return _linear(out.reshape(b, s, -1), lp["attn"], "wo", "bo")
+    return _linear(out.reshape(b, s, -1), lp[name], "wo", "bo")
 
 
 _NO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0}
@@ -374,40 +441,137 @@ def _heads_first(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).contiguous()
 
 
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor, start,
+           vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Token embeddings (B, S, d), ``vision_embeds`` prepended; learned
+    positions add table rows ``(start + i) mod LEARNED_POSITIONS`` (the
+    reference's modular wrap), ``start`` an int or per-row (B,)."""
+    x = params["embed"][tokens]
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(x.dtype), x], 1)
+    if cfg.pos_emb == "learned":
+        table = params["pos_embed"]
+        ids = positions_for(x.shape[0], start, x.shape[1], x.device)
+        x = x + table[ids.long() % table.shape[0]].to(x.dtype)
+    return x
+
+
+def _bidirectional(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                   ) -> torch.Tensor:
+    """Attention of q (B, Sq, H, dh) over every row of the heads-first k/v
+    (B, KH, Skv, dh), no mask: the prefill kernel with ``causal=False``."""
+    b, skv = k.shape[0], k.shape[2]
+    return prefill_attention(
+        q, k, v, torch.zeros(b, dtype=torch.int32, device=q.device),
+        torch.full((b,), skv, dtype=torch.int32, device=q.device),
+        causal=False)
+
+
+# ===========================================================================
+# Whisper encoder
+# ===========================================================================
+def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
+           attn_impl: str = "kernel", kv_chunk: int = 1024) -> torch.Tensor:
+    """Bidirectional encoder over stub frame embeddings (B, F, d) ->
+    (B, F, d): learned positions, then pre-norm layers of unmasked
+    self-attention and an MLP, then the encoder's final norm. Its attention
+    runs on the prefill kernel without the causal mask
+    (``attn_impl="kernel"``) or on the plain attention (training)."""
+    enc = params["encoder"]
+    b, f, _ = frames.shape
+    x = frames + enc["pos_embed"][:f].to(frames.dtype)
+    positions = positions_for(b, 0, f, x.device)
+    for lp in unstack_layers(enc):
+        q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
+        if attn_impl == "kernel":
+            out = _bidirectional(q, _heads_first(k), _heads_first(v))
+        else:
+            out = attention(q, k, v, positions, positions, causal=False,
+                            impl=attn_impl, kv_chunk=kv_chunk)
+        x = x + _attn_proj(lp, out)
+        x = x + _mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg.norm), cfg)
+    return apply_norm(enc["final_norm"], x, cfg.norm)
+
+
 # ===========================================================================
 # Top level
 # ===========================================================================
+def _cross_plain(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
+                 cfg: ModelConfig, positions: torch.Tensor, attn_impl: str,
+                 kv_chunk: int) -> torch.Tensor:
+    """The decoder's cross-attention on the plain attention: queries from
+    ``ln_cross(x)``, K/V from the encoder's rows, no mask."""
+    q = _q(lp["cross"], apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
+    k, v = _kv(lp["cross"], enc_out, cfg)
+    pos_kv = positions_for(k.shape[0], 0, k.shape[1], k.device)
+    out = attention(q, k, v, positions, pos_kv, causal=False,
+                    impl=attn_impl, kv_chunk=kv_chunk)
+    return _attn_proj(lp, out, "cross")
+
+
 def _plain_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, mrope_pos: Optional[torch.Tensor],
-                 attn_impl: str, kv_chunk: int):
-    """One attention-family layer on the plain, differentiable attention:
-    ``(x, aux)``."""
-    q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
+                 enc_out: Optional[torch.Tensor], attn_impl: str,
+                 kv_chunk: int):
+    """One decoder layer of any family on the plain, differentiable
+    attention and linear-attention scan: ``(x, aux)``."""
+    xn = apply_norm(lp["ln1"], x, cfg.norm)
+    if cfg.family == SSM:
+        return _rwkv_seq(lp, x, xn, cfg, None, 0, attn_impl), _NO_AUX
+    q, k, v = _qkv(lp["attn"], xn, cfg)
     q, k = _rope_qk(q, k, cfg, positions, mrope_pos)
     out = attention(q, k, v, positions, positions, causal=True,
                     window=cfg.sliding_window, impl=attn_impl,
                     kv_chunk=kv_chunk)
-    return _ffn_residual(lp, x + _attn_proj(lp, out), cfg, per_row=False)
+    mix = _attn_proj(lp, out)
+    if cfg.family == HYBRID:
+        ssm_out, _, _ = ssd.apply_ssm(lp["ssm"], xn, cfg, attn_impl=attn_impl)
+        mix = 0.5 * (mix + ssm_out)
+    x = x + mix
+    if enc_out is not None:
+        x = x + _cross_plain(lp, x, enc_out, cfg, positions, attn_impl,
+                             kv_chunk)
+    return _ffn_residual(lp, x, cfg, per_row=False)
+
+
+# The ops whose outputs ``remat="dots"`` keeps: the weight products, which
+# have no batch dimension (the reference's
+# ``checkpoint_dots_with_no_batch_dims``); attention's batched products and
+# everything elementwise are recomputed in backward.
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, remat: str):
+    """``fn`` recomputed in backward as ``remat`` says: whole (``"full"``),
+    all but its weight products (``"dots"``), or not at all."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    context = {"context_fn": _dots_context} if remat == "dots" else {}
+    return functools.partial(checkpoint, fn, use_reentrant=False, **context)
 
 
 def _forward_plain(params: Params, cfg: ModelConfig, x: torch.Tensor,
                    positions: torch.Tensor,
-                   mrope_pos: Optional[torch.Tensor], attn_impl: str,
+                   mrope_pos: Optional[torch.Tensor],
+                   enc_out: Optional[torch.Tensor], attn_impl: str,
                    kv_chunk: int, remat: str):
-    """The training forward over embedded inputs ``x``: attention-family
-    layers on the plain attention, each recomputed in backward under
-    ``remat="full"``; the auxiliary losses summed over layers."""
-    if cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(
-            f"attn_impl={attn_impl!r} runs the attention families; training "
-            f"the {cfg.family} family (through the plain SSD scan) waits for "
-            f"ROADMAP item A8 (hybrid training)")
+    """The training forward over embedded inputs ``x``: every decoder layer
+    on the plain route, recomputed in backward as ``remat`` says; the
+    auxiliary losses summed over layers."""
     aux = dict(_NO_AUX)
+    layer = _remat(_plain_layer, remat)
     for lp in unstack_layers(params):
-        args = (lp, x, cfg, positions, mrope_pos, attn_impl, kv_chunk)
-        x, layer_aux = (checkpoint(_plain_layer, *args, use_reentrant=False)
-                        if remat == "full" and torch.is_grad_enabled()
-                        else _plain_layer(*args))
+        x, layer_aux = layer(lp, x, cfg, positions, mrope_pos, enc_out,
+                             attn_impl, kv_chunk)
         aux = _add_aux(aux, layer_aux)
     return _final(params, cfg, x), None, aux
 
@@ -415,6 +579,7 @@ def _forward_plain(params: Params, cfg: ModelConfig, x: torch.Tensor,
 def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 vision_embeds: Optional[torch.Tensor] = None,
                 mrope_positions: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None,
                 build_cache: bool = False, cache_len: int = 0,
                 cache: Optional[Cache] = None, attn_impl: str = "kernel",
                 kv_chunk: int = 1024, remat: str = "none"
@@ -426,32 +591,37 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     VLM family's stub patch embeddings), ``aux`` the MoE's auxiliary
     losses summed over layers (zero for the other families) and its
     ``dropped_slots``. ``mrope_positions`` (3, B, S') are M-RoPE's position
-    streams, the linear positions broadcast where none are given.
+    streams, the linear positions broadcast where none are given. The
+    encoder-decoder family needs ``frames`` (B, F, d), the stub frame
+    embeddings its encoder reads (:func:`encode`); every decoder layer
+    attends the encoder's rows after its self-attention.
 
-    ``attn_impl="kernel"`` (serving) runs the prefill kernel, which has no
+    ``attn_impl="kernel"`` (serving) runs the kernels, which have no
     backward. With ``cache`` the prompt's K/V rows ``[0, S')`` are written
     into it through its tables or into its slots' lanes (a prompt longer
     than a lane keeps its last W rows at their ring slots), HYBRID's conv
-    tail and SSM state, and the SSM family's state and last normed rows
-    (``tm_prev``, ``cm_prev``), land in the slots, and ``pos`` becomes S'
-    (the serving engine's first-chunk prefill); ``build_cache=True`` does
-    the same into a fresh ``init_cache(cfg, B, cache_len)``. A cache with
-    fewer tables or slots than B rows takes the leading rows' state only:
-    the rows past them are computed (an MoE dispatch's padding lanes,
-    which route with the others) and written nowhere.
+    tail and SSM state, the SSM family's state and last normed rows
+    (``tm_prev``, ``cm_prev``), and the encoder's K/V (``cross_k``,
+    ``cross_v``) land in the slots, and ``pos`` becomes S' (the serving
+    engine's first-chunk prefill); ``build_cache=True`` does the same into
+    a fresh ``init_cache(cfg, B, cache_len)``. A cache with fewer tables or
+    slots than B rows takes the leading rows' state only: the rows past
+    them are computed (an MoE dispatch's padding lanes, which route with
+    the others) and written nowhere.
 
     ``attn_impl="naive"`` or ``"chunked"`` (training) runs the reference's
     plain, differentiable attention (:func:`models.attention.attention`,
-    chunks of ``kv_chunk`` keys) for the attention families, and builds no
-    cache. ``remat="full"`` recomputes each layer's activations in backward
-    (``torch.utils.checkpoint``); the reference's ``"dots"`` policy is not
-    ported."""
+    chunks of ``kv_chunk`` keys) and linear-attention scan, and builds no
+    cache. ``remat="full"`` recomputes each decoder layer's activations in
+    backward (``torch.utils.checkpoint``), ``"dots"`` all of them but the
+    weight products' outputs."""
     check_supported(cfg)
-    if remat not in ("none", "full"):
-        raise ValueError(f"remat={remat!r}: the port takes 'none' or 'full'")
-    x = params["embed"][tokens]
-    if vision_embeds is not None:
-        x = torch.cat([vision_embeds.to(x.dtype), x], 1)
+    if remat not in REMATS:
+        raise ValueError(f"remat={remat!r}: one of {REMATS}")
+    if cfg.is_encdec and frames is None:
+        raise ValueError(f"{cfg.arch_id}: the encoder-decoder family reads "
+                         f"frames (B, encoder_seq_len, d_model)")
+    x = _embed(params, cfg, tokens, 0, vision_embeds)
     b, s, _ = x.shape
     dev = x.device
     positions = positions_for(b, 0, s, dev)
@@ -461,13 +631,16 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         if cache is not None or build_cache:
             raise ValueError(f"attn_impl={attn_impl!r} builds no cache; "
                              f"prefill into a cache runs the kernel path")
+        enc_out = (encode(params, cfg, frames, attn_impl=attn_impl,
+                          kv_chunk=kv_chunk) if cfg.is_encdec else None)
         return _forward_plain(params, cfg, x, positions, mrope_positions,
-                              attn_impl, kv_chunk, remat)
+                              enc_out, attn_impl, kv_chunk, remat)
     if remat != "none":
         raise ValueError("remat needs the plain attention: the kernel path "
                          "has no backward")
     if cache is None and build_cache:
         cache = init_cache(cfg, b, cache_len, dtype=x.dtype, device=dev)
+    enc_out = encode(params, cfg, frames) if cfg.is_encdec else None
     # rows the cache holds (its tables or slots); rows past them compute
     n = b if cache is None else len(cache.get("tables", cache.get("slots")))
     q_start = torch.zeros(b, dtype=torch.int32, device=dev)
@@ -476,7 +649,7 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     for layer, lp in enumerate(unstack_layers(params)):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
         if cfg.family == SSM:
-            x = _rwkv_seq(lp, x, xn, cfg, cache, layer)
+            x = _rwkv_seq(lp, x, xn, cfg, cache, layer, attn_impl)
             continue
         q, k, v = _qkv(lp["attn"], xn, cfg)
         q, k = _rope_qk(q, k, cfg, positions, mrope_positions)
@@ -498,7 +671,10 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 slots = cache["slots"].long()
                 cache["conv_tail"][layer][slots] = tail[:n]
                 cache["ssm_state"][layer][slots] = state[:n]
-        x, layer_aux = _ffn_residual(lp, x + mix, cfg, per_row=False)
+        x = x + mix
+        if enc_out is not None:
+            x = x + _cross_seq(lp, x, enc_out, cfg, cache, layer)
+        x, layer_aux = _ffn_residual(lp, x, cfg, per_row=False)
         aux = _add_aux(aux, layer_aux)
     logits = _final(params, cfg, x)
     if cache is not None:
@@ -506,15 +682,32 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     return logits, cache, aux
 
 
+def _cross_seq(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
+               cfg: ModelConfig, cache: Optional[Cache], layer: int
+               ) -> torch.Tensor:
+    """The decoder's cross-attention on the prefill kernel (no mask, the
+    prompt's rows over the encoder's F rows); with a cache, the encoder's
+    K/V land in the slots' cross lanes."""
+    q = _q(lp["cross"], apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
+    k, v = (_heads_first(t) for t in _kv(lp["cross"], enc_out, cfg))
+    if cache is not None:
+        slots = cache["slots"].long()
+        cache["cross_k"][layer][slots] = k[:len(slots)]
+        cache["cross_v"][layer][slots] = v[:len(slots)]
+    return _attn_proj(lp, _bidirectional(q, k, v), "cross")
+
+
 def _rwkv_seq(lp: Params, x: torch.Tensor, xn: torch.Tensor,
-              cfg: ModelConfig, cache: Optional[Cache], layer: int
-              ) -> torch.Tensor:
+              cfg: ModelConfig, cache: Optional[Cache], layer: int,
+              attn_impl: str) -> torch.Tensor:
     """One SSM layer over a prompt from a zero state (both token shifts
-    start from zeros); with a cache, the final state and the last rows of
-    the layer's normed inputs land in the slots."""
+    start from zeros), its scan on the route ``attn_impl`` names; with a
+    cache, the final state and the last rows of the layer's normed inputs
+    land in the slots."""
     prev = torch.zeros(x.shape[0], cfg.d_model, dtype=x.dtype,
                        device=x.device)
-    out, last_tm, state = rwkv.time_mix(lp["tm"], xn, prev, cfg)
+    out, last_tm, state = rwkv.time_mix(lp["tm"], xn, prev, cfg,
+                                        attn_impl=attn_impl)
     x = x + out
     xn2 = apply_norm(lp["ln2"], x, cfg.norm)
     out2, last_cm = rwkv.channel_mix(lp["cm"], xn2, prev)
@@ -563,13 +756,13 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     Returns
     ``(logits (B, C, V), cache)`` with ``pos`` advanced by C."""
     check_supported(cfg)
-    if cfg.family not in ATTENTION_FAMILIES:
+    if cfg.family not in ATTENTION_FAMILIES or cfg.is_encdec:
         raise NotImplementedError(
             f"forward_chunk supports attention-family models; "
             f"{cfg.family} carries recurrent cross-chunk state")
     b, c = tokens.shape
-    x = params["embed"][tokens]
     pos0 = cache["pos"].to(torch.int32)
+    x = _embed(params, cfg, tokens, pos0)
     positions = pos0[:, None] + torch.arange(c, dtype=torch.int32,
                                              device=x.device)[None, :]
     kv_len = pos0 + c
@@ -605,13 +798,17 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     the ring decode kernel attends the lane under the ring and window mask.
     A wrap past W overwrites the oldest row: the reference's ring
     semantics. HYBRID's SSM advances its conv tail and state by one token,
-    as the SSM family advances its state and token shifts. M-RoPE takes
-    ``pos`` in all three streams. Each row's token is its own MoE dispatch,
-    as under the reference engine's ``vmap``.
-    Returns ``(logits (B, V), cache)`` with ``pos`` advanced by one."""
+    as the SSM family advances its state and token shifts. The
+    encoder-decoder family then attends its slot's cross lanes, every
+    encoder row visible (the ring decode kernel at ``pos = F - 1`` over an
+    F-row lane: no row masked, none written). M-RoPE takes ``pos`` in all
+    three streams; learned positions add table row ``pos mod 8192``. Each
+    row's token is its own MoE dispatch, as under the reference engine's
+    ``vmap``. Returns ``(logits (B, V), cache)`` with ``pos`` advanced by
+    one."""
     check_supported(cfg)
-    x = params["embed"][token]
     pos = cache["pos"].to(torch.int32)
+    x = _embed(params, cfg, token, pos)
     positions = pos[:, None]
     paged = "tables" in cache
     if paged:
@@ -621,6 +818,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     else:
         slots = cache["slots"].to(torch.int32)
         rows = slots.long()
+    if "cross_k" in cache:      # every encoder row visible
+        cross_pos = torch.full_like(pos, cache["cross_k"].shape[3] - 1)
     for layer, lp in enumerate(unstack_layers(params)):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
         if cfg.family == SSM:
@@ -648,5 +847,12 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
             tails[rows] = tail
             states[rows] = state
             mix = 0.5 * (mix + ssm_out[:, None])
-        x, _ = _ffn_residual(lp, x + mix, cfg, per_row=True)
+        x = x + mix
+        if "cross_k" in cache:
+            q = _q(lp["cross"], apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
+            out = ring_decode_attention(q[:, 0], cache["cross_k"][layer],
+                                        cache["cross_v"][layer], slots,
+                                        cross_pos)
+            x = x + _attn_proj(lp, out[:, None], "cross")
+        x, _ = _ffn_residual(lp, x, cfg, per_row=True)
     return _final(params, cfg, x)[:, 0], {**cache, "pos": pos + 1}

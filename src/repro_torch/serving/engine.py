@@ -66,7 +66,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.configs.base import MOE, ModelConfig
+from repro_torch.configs.base import AUDIO, MOE, ModelConfig
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
@@ -97,6 +97,14 @@ class RealBackend:
                  record_tokens: bool = False, paged: bool = True,
                  device: DeviceLike = "cuda"):
         tfm.check_supported(cfg)
+        if cfg.family == AUDIO or cfg.is_encdec:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the engine does not serve the audio "
+                f"family, as the reference's cannot: its prefill "
+                f"(_prefill_bucket) calls forward_seq without frames, so "
+                f"the encoder has nothing to read; run Whisper through "
+                f"models.build(cfg).prefill(..., frames=...) and "
+                f"decode_step")
         self.device = resolve_device(device)
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, the "

@@ -1,10 +1,10 @@
 """The port's config registry, and the dense configs it serves beyond llama.
 
 ``repro_torch.configs`` holds every architecture of the reference's
-registry, field for field (published and smoke configs), and refuses the
-family the port does not run yet (audio), naming its ROADMAP item. The
-attention families' parameters have the reference's leaves (paths, shapes,
-dtypes), counted from the widths alone by ``param_count``. The f32
+registry, field for field (published and smoke configs). The attention
+families' and the encoder-decoder family's parameters have the reference's
+leaves (paths, shapes, dtypes), counted from the widths alone by
+``param_count``. The f32
 ``nemotron_4_15b`` (squared ReLU, layernorm) and ``command_r_35b``
 (layernorm, tied head, rope theta 8e6) smoke configs give the JAX model's
 logits at 1e-4 through prefill and decode, and nemotron's greedy tokens on
@@ -35,7 +35,7 @@ from repro_torch.serving.engine import Engine
 torch.set_num_threads(1)
 TOL = dict(atol=1e-4, rtol=1e-4)
 DENSE_EXTRA = ["nemotron_4_15b", "command_r_35b"]
-# families the port does not run yet -> the ROADMAP item named on refusal
+# the family the port ran last (ROADMAP A11, encoder-decoder) -> its item
 UNPORTED = {"whisper_tiny": "A11"}
 # the MoE and VLM configs (ROADMAP A9)
 MOE_VLM = ["olmoe_1b_7b", "moonshot_v1_16b_a3b", "kimi_k2_1t_a32b",
@@ -58,10 +58,23 @@ def test_smoke_config_equals_the_reference(arch):
 
 @pytest.mark.parametrize("arch", sorted(UNPORTED))
 def test_unported_families_are_refused_naming_their_item(arch):
+    """The last family to be ported, the encoder-decoder (its item now
+    done), is no longer refused: ``init_params`` builds the reference's
+    leaves, the decoder's ``cross`` and ``ln_cross``, its learned
+    ``pos_embed`` and the ``encoder`` subtree included, and ``param_count``
+    counts them."""
     cfg = configs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP item {UNPORTED[arch]}"):
-        tfm.init_params(cfg, device="cpu")
+    tfm.check_supported(cfg)
+    assert not tfm.default_paged(cfg)
+    ref = _flatten(jtfm.init_params(jax.random.PRNGKey(0),
+                                    jconfigs.get_smoke_config(arch)))
+    mine = bridge.flatten(tfm.init_params(cfg, device="cpu"))
+    assert {k: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for k, v in mine.items()} == \
+        {k: (v.shape, str(v.dtype)) for k, v in ref.items()}
+    assert {"encoder/pos_embed", "pos_embed",
+            "layers/cross/wq", "layers/ln_cross/scale"} <= set(mine)
+    assert tfm.param_count(cfg) == sum(v.numel() for v in mine.values())
 
 
 @pytest.mark.parametrize("arch", MOE_VLM + ["llama3_2_3b"] + DENSE_EXTRA)

@@ -216,7 +216,7 @@ def test_engine_refuses_what_the_slice_does_not_port(setup, hymba,
                                                      monkeypatch):
     _jcfg, _jparams, cfg, params = setup
     sched = Scheduler(policy=fcfs(), max_batch=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A11"):
+    with pytest.raises(NotImplementedError, match="without frames"):
         Engine(cfg.replace(family="audio"), params, sched, device="cpu")
     hcfg, hparams = hymba[2], hymba[3]
     for kw in (dict(prefill_chunk_tokens=16), dict(prefix_caching=True)):

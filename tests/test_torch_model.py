@@ -303,8 +303,10 @@ def test_rope_and_per_row_positions_match():
 @pytest.mark.parametrize("family", [None, "hybrid", "moe", "vlm", "ssm",
                                     "audio"])
 def test_only_the_dense_family_is_ported(family):
-    """The dense, MoE, VLM, hybrid and ssm families run; the audio family
-    (encoder-decoder) raises, naming its ROADMAP item."""
+    """Every family runs: the dense, MoE, VLM, hybrid, ssm and audio
+    (encoder-decoder) families' published widths, and what each builds;
+    learned positions are accepted for any family (the reference's
+    ``_embed``), and only an unknown family or positional code raises."""
     if family is None:
         cfg = get_config("llama3_2_3b")
         assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
@@ -336,8 +338,12 @@ def test_only_the_dense_family_is_ported(family):
         assert params["layers"]["tm"]["decay_a"].dtype == torch.float32
         with pytest.raises(ValueError, match="paged KV needs"):
             tfm.init_cache(smoke, 1, 64, paged=True, device="cpu")
-        with pytest.raises(NotImplementedError, match="A11"):
-            tfm.check_supported(smoke.replace(pos_emb="learned"))
+        learned = smoke.replace(pos_emb="learned")
+        tfm.check_supported(learned)
+        assert tfm.init_params(learned, device="cpu")["pos_embed"].shape == (
+            tfm.LEARNED_POSITIONS, smoke.d_model)
+        with pytest.raises(NotImplementedError, match="unknown pos_emb"):
+            tfm.check_supported(smoke.replace(pos_emb="alibi"))
         return
     if family == "moe":
         cfg = get_config("olmoe_1b_7b")
@@ -361,9 +367,21 @@ def test_only_the_dense_family_is_ported(family):
         tfm.check_supported(cfg)
         assert tfm.default_paged(cfg)
         return
-    cfg = get_smoke_config("llama3_2_3b").replace(family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP item A11"):
-        tfm.init_params(cfg, device="cpu")
+    cfg = get_config("whisper_tiny")
+    assert (cfg.num_layers, cfg.encoder_layers, cfg.d_model, cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab_size,
+            cfg.encoder_seq_len, cfg.pos_emb) == (
+        4, 4, 384, 6, 6, 64, 1536, 51865, 1500, "learned")
+    tfm.check_supported(cfg)
+    assert not tfm.default_paged(cfg)
+    smoke = get_smoke_config("whisper_tiny")
+    cache = tfm.init_cache(smoke, 2, 16, device="cpu")
+    assert cache["cross_k"].shape == (2, 2, 4, 64, 32)   # (L, S, KH, F, dh)
+    assert cache["k"].shape == (2, 2, 4, 16, 32)
+    with pytest.raises(ValueError, match="paged KV needs"):
+        tfm.init_cache(smoke, 1, 16, paged=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        tfm.init_params(smoke.replace(family="speech"), device="cpu")
 
 
 def test_cuda_is_the_default_and_never_falls_back(monkeypatch):

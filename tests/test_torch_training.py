@@ -320,8 +320,14 @@ def test_training_forward_refuses_what_it_does_not_run(model):
     _jcfg, _jparams, cfg, params = model
     toks = torch.zeros(1, 4, dtype=torch.long)
     from repro_torch.models import transformer as tfm
+    # "dots" (the reference's policy) runs: the forward is "none"'s
+    dots, _, _ = tfm.forward_seq(params, cfg, toks, attn_impl="chunked",
+                                 remat="dots")
+    none, _, _ = tfm.forward_seq(params, cfg, toks, attn_impl="chunked")
+    assert torch.equal(dots, none)
     with pytest.raises(ValueError, match="remat"):
-        tfm.forward_seq(params, cfg, toks, attn_impl="chunked", remat="dots")
+        tfm.forward_seq(params, cfg, toks, attn_impl="chunked",
+                        remat="offload")
     with pytest.raises(ValueError, match="no cache"):
         tfm.forward_seq(params, cfg, toks, attn_impl="chunked",
                         build_cache=True, cache_len=16)
