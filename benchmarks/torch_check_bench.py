@@ -7,9 +7,11 @@ their load-bearing keys non-null, and that every section names the device
 it ran on. Sections at the paper's predictor width
 (``<name>@pars_bert_base``) are held to the same keys. The simulator serving
 twins (``SIMULATOR_SECTIONS``) ran on no device: their sections must say
-``"simulator"``, and no other section may. With ``--card`` a section
-measured on the CPU is refused, so a file that claims card numbers holds
-only card numbers.
+``"simulator"``, and no other section may. The optional ``roofline``
+section (``DERIVED_SECTIONS``) is derived from traced steps, not measured:
+it must say ``"derived"``, and no other section may. With ``--card`` a
+section measured on the CPU is refused, so a file that claims card numbers
+holds only card numbers.
 
     python -m benchmarks.torch_check_bench [--card] [--path FILE]
 """
@@ -20,8 +22,8 @@ import json
 import sys
 from pathlib import Path
 
-from benchmarks.torch_common import (BENCH_TORCH_JSON, SERVING_BENCHES,
-                                     SIMULATOR)
+from benchmarks.torch_common import (BENCH_TORCH_JSON, DERIVED,
+                                     SERVING_BENCHES, SIMULATOR)
 
 #: section name -> keys that must be present and non-null
 REQUIRED_SECTIONS = {
@@ -51,8 +53,15 @@ REQUIRED_SECTIONS = {
                        "width"),
     "kernels": ("kernels",),
 }
+#: sections a file may hold but need not: section name -> its keys
+OPTIONAL_SECTIONS = {
+    "roofline": ("combos", "bottlenecks", "rows"),
+}
 #: the sections that ran the simulator only: labelled ``SIMULATOR``
 SIMULATOR_SECTIONS = frozenset(SERVING_BENCHES)
+#: the sections derived from traced steps, measured on no device
+#: (``benchmarks/torch_roofline.py``): labelled ``DERIVED``
+DERIVED_SECTIONS = frozenset({"roofline"})
 #: keys every section carries (``section_meta``); ``predictor`` may be null
 #: for the benches that train none
 META_KEYS = ("device", "scale", "wall_s")
@@ -71,12 +80,13 @@ def check(path=BENCH_TORCH_JSON, card: bool = False) -> list:
         return [f"{path} is not valid JSON: {e}"]
     errors = [f"section missing: {s}" for s in REQUIRED_SECTIONS
               if s not in data]
+    known = {**REQUIRED_SECTIONS, **OPTIONAL_SECTIONS}
     for section, payload in data.items():
         bench = section.split("@")[0]
-        if bench not in REQUIRED_SECTIONS:
+        if bench not in known:
             errors.append(f"unknown section: {section}")
             continue
-        for key in (*REQUIRED_SECTIONS[bench], *META_KEYS):
+        for key in (*known[bench], *META_KEYS):
             if payload.get(key) is None:
                 errors.append(f"{section}.{key} missing or null")
         if "predictor" not in payload:
@@ -88,6 +98,11 @@ def check(path=BENCH_TORCH_JSON, card: bool = False) -> list:
         if bench not in SIMULATOR_SECTIONS and device == SIMULATOR:
             errors.append(f"{section} ran on a device, but says "
                           f"{SIMULATOR!r}")
+        if bench in DERIVED_SECTIONS and device != DERIVED:
+            errors.append(f"{section} is derived from traced steps, but "
+                          f"its device says {device!r}")
+        if bench not in DERIVED_SECTIONS and device == DERIVED:
+            errors.append(f"{section} was measured, but says {DERIVED!r}")
         if card and device == "cpu":
             errors.append(f"{section} was measured on the CPU")
     return errors

@@ -126,15 +126,19 @@ def emit(name: str, us_per_call: float, derived: str) -> None:
 
 #: the device label of a section that ran the simulator only (no device)
 SIMULATOR = "simulator"
+#: the device label of a section derived from traced steps, measured on no
+#: device (the roofline)
+DERIVED = "derived"
 
 
 def device_label(device: DeviceLike) -> str:
     """What a section ran on: for a card, its name and power limit as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
     prints them (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"); ``SIMULATOR``
-    for the simulator; else "cpu"."""
-    if device == SIMULATOR:
-        return SIMULATOR
+    for the simulator; ``DERIVED`` for numbers derived from traced steps;
+    else "cpu"."""
+    if device in (SIMULATOR, DERIVED):
+        return device
     dev = resolve_device(device)
     if dev.type != "cuda":
         return "cpu"

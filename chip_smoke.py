@@ -146,6 +146,18 @@ failed check raises and the script exits non-zero:
    ``examples/torch_serve_e2e.py --full`` (8 requests under FCFS, PARS and
    oracle). The sections go to ``chiprun_out/BENCH_torch.json`` and must
    pass ``benchmarks.torch_check_bench --card``.
+10. The roofline on the card: the dry-run's analysis
+    (``repro_torch.launch.dryrun``: each step traced once on ``meta``
+    tensors over a placeholder process group, on the (1, 1) mesh) of the
+    four bf16 train steps phase 8 timed, with phase 8's configs. Each
+    roofline time (the larger of its compute and memory terms over the
+    H100's datasheet rates) must be at or below its step's measured
+    device-busy time; the terms, the bottleneck, the measured ms and
+    device-busy ms and their ratios to the roofline, and the predicted
+    peak memory against ``torch.cuda.max_memory_allocated`` are printed.
+    No step runs on the card. Then one production combination
+    (``llama3_2_3b`` ``train_4k`` on the 256-rank mesh) is traced and its
+    row printed with its ``trace_s``.
 
 The last lines are JSON objects of Whisper's numbers, of training
 numbers, of the benchmarks'
@@ -1690,7 +1702,8 @@ def phase_train_lm(dev) -> dict:
                 f"{k}_{d}": v for d, m in metrics.items()
                 for k, v in m.items()}},
             "llama3_2_3b_bf16": {
-                "params": n_params, "batch": b, "seq": s, "losses": losses,
+                "params": n_params, "layers": cfg.num_layers, "batch": b,
+                "seq": s, "losses": losses,
                 "grad_norms": norms, "first_step_ms": 1e3 * secs[0],
                 "ms_per_step": ms, "tokens_per_s": tokens_s,
                 "peak_memory_bytes": peak, "bf16_peak_share": share,
@@ -1978,7 +1991,8 @@ def phase_train_families(dev) -> dict:
             "f32": {"logits_max_abs_err": err, **{
                 f"{k}_{d}": v for d, m in metrics.items()
                 for k, v in m.items()}},
-            "bf16": {"cut": cut, "params": n_params, "batch": b, "seq": s,
+            "bf16": {"cut": cut, "params": n_params,
+                     "layers": cfg.num_layers, "batch": b, "seq": s,
                      "losses": losses, "grad_norms": norms,
                      "first_step_ms": 1e3 * secs[0], "ms_per_step": ms,
                      "tokens_per_s": b * s / (ms / 1e3),
@@ -2008,6 +2022,82 @@ def phase_train_families(dev) -> dict:
         state = None
         free_memory()
         log(f"  {arch} training took {time.perf_counter() - t_arch:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the roofline on the card
+# ---------------------------------------------------------------------------
+def phase_roofline(training: dict) -> dict:
+    """The dry-run's analysis (``launch/dryrun.py``: the step traced once on
+    ``meta`` tensors over a placeholder process group) of the four bf16
+    train steps phase 8 timed, on the (1, 1) mesh with phase 8's configs
+    (4 x 64, ``remat="full"``), held against what phase 8 measured: the
+    roofline time (the larger of its compute and memory terms over the
+    H100's datasheet rates) must not exceed the profiled step's device-busy
+    time, since a lower bound above a measurement means the count is
+    wrong. Prints each term, the bottleneck, the measured ms a step and
+    device-busy ms and their ratios to the roofline, and the trace's peak
+    live bytes against ``torch.cuda.max_memory_allocated``. Runs no step
+    on the card. Then traces one production combination (``llama3_2_3b``
+    ``train_4k`` on the 256-rank mesh) and prints its row."""
+    from repro_torch.configs import INPUT_SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.analysis import analyze, model_flops_estimate
+    from repro_torch.launch.dryrun import lower_combo, step_cost
+    from repro_torch.launch.mesh import make_cpu_mesh, placeholder_world
+
+    measured = {"llama3_2_3b": training["lm"]["llama3_2_3b_bf16"],
+                **{arch: training["families"][arch]["bf16"]
+                   for arch in ("hymba_1_5b", "rwkv6_7b", "whisper_tiny")}}
+    out = {}
+    for arch, m in measured.items():
+        cfg = get_config(arch)
+        if not cfg.is_encdec:
+            cfg = cfg.replace(num_layers=m["layers"])
+        shape = InputShape("card_train", m["seq"], m["batch"], "train")
+        with placeholder_world(1):
+            cost, trace_s = step_cost(cfg, shape, make_cpu_mesh(),
+                                      remat="full")
+        rl = analyze(cost, arch=arch, shape=shape.name, mesh_name="card1x1",
+                     n_devices=1, model_flops=model_flops_estimate(cfg,
+                                                                   shape))
+        bound_ms = 1e3 * rl.t_bound
+        busy = m["profiled_step"]["device_busy_ms"]
+        ms = m["ms_per_step"]
+        peak = m["peak_memory_bytes"]
+        row = {"layers": cfg.num_layers, "t_compute_ms": 1e3 * rl.t_compute,
+               "t_memory_ms": 1e3 * rl.t_memory, "bound_ms": bound_ms,
+               "bottleneck": rl.bottleneck, "ms_per_step": ms,
+               "device_busy_ms": busy, "step_over_bound": ms / bound_ms,
+               "busy_over_bound": busy / bound_ms,
+               "predicted_peak_bytes": cost.peak_bytes,
+               "measured_peak_bytes": peak,
+               "peak_predicted_over_measured": cost.peak_bytes / peak,
+               "flops": cost.flops, "bytes": cost.bytes, "trace_s": trace_s}
+        log(f"  {arch} ({cfg.num_layers} layers) 4 x 64 bf16 remat=full: "
+            f"t_compute {row['t_compute_ms']:.3f} ms, t_memory "
+            f"{row['t_memory_ms']:.3f} ms -> {rl.bottleneck}; measured "
+            f"{ms:.1f} ms a step ({row['step_over_bound']:.2f}x the "
+            f"roofline), device busy {busy:.1f} ms "
+            f"({row['busy_over_bound']:.2f}x); peak predicted "
+            f"{cost.peak_bytes / 1e9:.2f} GB, measured {peak / 1e9:.2f} GB "
+            f"(ratio {row['peak_predicted_over_measured']:.3f}); traced in "
+            f"{trace_s:.1f} s")
+        if bound_ms > busy:
+            raise AssertionError(f"{arch}: the roofline ({bound_ms:.3f} ms) "
+                                 f"exceeds the measured device-busy time "
+                                 f"({busy:.3f} ms): the count is wrong")
+        out[arch] = row
+    cost, meta = lower_combo("llama3_2_3b", "train_4k")
+    cfg = get_config("llama3_2_3b")
+    rl = analyze(cost, arch="llama3_2_3b", shape="train_4k",
+                 mesh_name=meta["mesh"], n_devices=meta["n_devices"],
+                 model_flops=model_flops_estimate(cfg,
+                                                  INPUT_SHAPES["train_4k"]))
+    log(f"  production combination: {rl.row()} mem/dev "
+        f"{rl.memory_gb_per_device:.2f} GB, trace_s {meta['trace_s']:.1f}")
+    out["production"] = {**rl.asdict(), "trace_s": meta["trace_s"]}
     return out
 
 
@@ -2511,6 +2601,11 @@ def main() -> int:
     for row in bench_rows:
         e = next(e for e in entries if e["name"] == row["name"])
         e.update({f"bench_{k}": v for k, v in row.items() if k != "name"})
+    log(f"== phase 10: the roofline on the card, against phase 8's steps "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    t0 = time.perf_counter()
+    training["roofline"] = phase_roofline(training)
+    log(f"  phase 10 took {time.perf_counter() - t0:.1f} s")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"whisper": whisper}))
     print(json.dumps({"training": training}))

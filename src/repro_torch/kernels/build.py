@@ -128,6 +128,19 @@ def refuse_grad(what: str, *tensors) -> None:
             f"plain attention (forward_seq(..., attn_impl='chunked'))")
 
 
+# devices whose tensors a wrapper hands to its kernel's plain version: the
+# CPU's, and ``meta``, whose tensors hold no values (a shape-only trace)
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def plain_device(t: torch.Tensor) -> bool:
+    """Whether a wrapper computes ``t``'s call with its plain version: a
+    tensor on the CPU or on ``meta``, or a DTensor whose local shard is.
+    Any other device goes on to the CUDA checks, which launch or raise."""
+    local = getattr(t, "_local_tensor", t)
+    return local.device.type in PLAIN_DEVICES
+
+
 def require_cuda_operands(what: str, *tensors: torch.Tensor) -> None:
     """Kernel wrappers take CUDA tensors on one device, contiguous."""
     index = tensors[0].get_device()

@@ -19,9 +19,10 @@ Port of ``repro/kernels/flash_decode``:
   lane rows, like paged decode: two device kernels a call, or one when the
   lane fits a single split.
 
-Each source note says what bounds its kernel and how. On a CPU tensor a
+Each source note says what bounds its kernel and how. On a CPU or ``meta``
+tensor (a shape-only trace: no values, so no kernel to stand in for) a
 wrapper computes its plain version; on a CUDA tensor it launches its kernel
-or raises. ``<wrapper>.launches`` counts kernel launches, and nothing else.
+or raises, as on any other device. ``<wrapper>.launches`` counts kernel launches, and nothing else.
 """
 from __future__ import annotations
 
@@ -99,7 +100,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``launches`` counts calls. Refuses operands that require grad (no
     backward)."""
     build.refuse_grad("paged_decode_attention", q, k_pool, v_pool)
-    if q.is_cpu:
+    if build.plain_device(q):
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths)
     what = "paged_decode_attention"
@@ -189,7 +190,7 @@ def ring_decode_attention(q: torch.Tensor, k_lanes: torch.Tensor,
     one split, the merge kernel; ``launches`` counts calls. Refuses operands
     that require grad (no backward)."""
     build.refuse_grad("ring_decode_attention", q, k_lanes, v_lanes)
-    if q.device.type == "cpu":
+    if build.plain_device(q):
         return ring_decode_attention_plain(q, k_lanes, v_lanes, slots, pos,
                                            window=window)
     what = "ring_decode_attention"

@@ -20,8 +20,9 @@ The kernel gives it zeros when its 64-row query tile walks no key tile
 V over the key tiles that query tile walks (32 rows each in bf16, 64 in
 f32), rows past ``Skv`` counting as zeros.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor it
-launches the kernel or raises. ``flash_attention.launches`` counts kernel
+On a CPU or ``meta`` tensor (a shape-only trace) the wrapper computes the
+plain version; on a CUDA tensor it launches the kernel or raises, as on any
+other device. ``flash_attention.launches`` counts kernel
 launches, and nothing else.
 """
 from __future__ import annotations
@@ -115,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> (B, H, Sq, dh). KV head of query head h is ``h // (H // KH)``.
     Refuses operands that require grad (no backward)."""
     build.refuse_grad("flash_attention", q, k, v)
-    if q.is_cpu:
+    if build.plain_device(q):
         return flash_attention_plain(q, k, v, q_start, kv_len, causal=causal,
                                      window=window)
     what = "flash_attention"

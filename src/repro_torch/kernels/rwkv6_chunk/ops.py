@@ -9,8 +9,9 @@ The kernel lives in ``kernels/csrc/rwkv6_chunk.cu``; its source note says
 what bounds it and how.
 
 The plain version is the port's ``models.linear_attn
-.chunked_linear_attention``. On a CPU tensor the wrapper computes it; on a
-CUDA tensor it launches the kernel or raises. ``linear_attention.launches``
+.chunked_linear_attention``. On a CPU or ``meta`` tensor (a shape-only
+trace) the wrapper computes it; on a CUDA tensor it launches the kernel or
+raises, as on any other device. ``linear_attention.launches``
 counts kernel launches, and nothing else.
 """
 from __future__ import annotations
@@ -130,7 +131,7 @@ def linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if pad:
         q, k, v = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
         log_decay = F.pad(log_decay, (0, 0, 0, pad))
-    if q.device.type == "cpu":
+    if build.plain_device(q):
         out, state = chunked_linear_attention(q, k, v, log_decay, bonus=bonus,
                                               mode=mode, chunk_size=chunk)
         return out[:, :, :t], state

@@ -94,9 +94,10 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     g = h // kh
     qg = q.reshape(b, sq, kh, g, d).permute(0, 2, 3, 1, 4).float()
     scale = d ** -0.5
-    m = torch.full((b, kh, g, sq, 1), NEG_INF, device=q.device)
-    l = torch.zeros((b, kh, g, sq, 1), device=q.device)
-    acc = torch.zeros((b, kh, g, sq, d), device=q.device)
+    # made like qg, so that under sharding they are placed as it is
+    m = torch.full_like(qg[..., :1], NEG_INF)
+    l = torch.zeros_like(qg[..., :1])
+    acc = torch.zeros_like(qg)
     for c0 in range(0, skv, kv_chunk):
         kc, vc = k[:, c0:c0 + kv_chunk], v[:, c0:c0 + kv_chunk]
         s = torch.einsum("bkgqd,bckd->bkgqc", qg, kc.float()) * scale

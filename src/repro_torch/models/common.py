@@ -19,10 +19,37 @@ from repro_torch.configs.base import ACT_GELU, ACT_SILU, ACT_SQ_RELU
 # ---------------------------------------------------------------------------
 # Initialization
 # ---------------------------------------------------------------------------
+class ShapeOnly:
+    """Stands in for a ``torch.Generator`` on the ``meta`` device, which has
+    none: the initializers given it make shape-only tensors and draw
+    nothing."""
+    device = torch.device("meta")
+
+
+def generator(device: torch.device, seed: int):
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``, or
+    :class:`ShapeOnly` for ``meta``."""
+    if device.type == "meta":
+        return ShapeOnly()
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def randn(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    """Standard normal f32 draws on ``gen``'s device (shape only on
+    ``meta``)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(tuple(shape), device="meta")
+    return torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                       device=gen.device)
+
+
 def dense_init(gen: torch.Generator, shape: Sequence[int],
                in_axis_size: Optional[int] = None,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Truncated-normal (±2σ) fan-in init, drawn in f32 on ``gen``'s device."""
+    """Truncated-normal (±2σ) fan-in init, drawn in f32 on ``gen``'s device
+    (shape only on ``meta``)."""
+    if isinstance(gen, ShapeOnly):
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
     w = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
@@ -32,9 +59,7 @@ def dense_init(gen: torch.Generator, shape: Sequence[int],
 
 def embed_init(gen: torch.Generator, shape: Sequence[int],
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    w = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
-                    device=gen.device)
-    return w.mul_(0.02).to(dtype)
+    return randn(gen, shape).mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -59,8 +59,10 @@ def chunked_linear_attention(
     f32 = torch.float32
     qf, kf, vf = (_chunk(x.to(f32), c) for x in (q, k, v))
     lw = _chunk(log_decay.to(f32).expand(b, h, t, log_decay.shape[-1]), c)
+    # made like q (under sharding, placed as it is)
     state = (initial_state.to(f32) if initial_state is not None
-             else torch.zeros(b, h, dk, dv, dtype=f32, device=q.device))
+             else torch.zeros_like(qf[:, :, 0, :1].transpose(-1, -2)
+                                   .expand(b, h, dk, dv)))
     # strict-lower mask (j < t) for the intra-chunk attention matrix
     tri = torch.tril(torch.ones(c, c, dtype=f32, device=q.device), -1)
 

@@ -5,7 +5,7 @@ Port of ``repro/models/model.py``. :func:`build` bundles a config's
 callables as the reference's does: the loss runs the training route
 (``forward_seq`` on the plain, differentiable attention and scan), prefill
 and decode run the kernels. ``batch_spec`` and ``decode_specs`` are the
-reference's dry-run tooling and wait for ROADMAP item A13.
+dry-run's inputs (``launch/dryrun.py``): shape-only ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -14,9 +14,11 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import AUDIO, VLM, ModelConfig
+from repro_torch.configs.base import (AUDIO, VLM, InputShape, ModelConfig,
+                                      config_for_shape)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding.annotate import splits, with_sharding
 
 Params = Dict[str, Any]
 
@@ -28,11 +30,19 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   mask: torch.Tensor) -> torch.Tensor:
     """Masked token-mean CE in f32. logits: (B,S,V); targets/mask: (B,S).
 
-    The gold logit is gathered (the reference selects it with a one-hot
-    einsum, for vocab sharding; the value is the same)."""
-    lf = logits.float()
+    The gold logit is gathered. Where sharding rules split the vocab dim it
+    is selected, as the reference always selects it, with a one-hot einsum,
+    which keeps that dim split (a gather over it would all-gather the f32
+    logits); the value is the same."""
+    lf = with_sharding(logits.float(), ("batch", None, "vocab"))
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    if not splits("vocab", lf.shape[-1]):
+        gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    else:
+        vocab = torch.arange(lf.shape[-1], device=lf.device)
+        onehot = (targets.long()[..., None] == vocab).float()
+        onehot = with_sharding(onehot, ("batch", None, "vocab"))
+        gold = torch.einsum("bsv,bsv->bs", lf, onehot)
     nll = (lse - gold) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -113,6 +123,54 @@ def build(cfg: ModelConfig, *, attn_impl: str = "chunked",
         return cache
 
     return ModelBundle(cfg, init, loss_fn, prefill, decode_step, init_cache)
+
+
+# ---------------------------------------------------------------------------
+# Input specs
+# ---------------------------------------------------------------------------
+def _act_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def batch_spec(cfg: ModelConfig, shape: InputShape) -> Dict[str, torch.Tensor]:
+    """Training/prefill batch of (arch × input shape) as ``meta`` tensors:
+    int32 ``tokens`` and ``targets``, an f32 ``loss_mask``; the VLM
+    family's ``vision_embeds`` (B, P, d) take the first P positions and
+    ``mrope_positions`` (3, B, S) are int32; the audio family adds
+    ``frames`` (B, encoder_seq_len, d) in the activation dtype."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    spec: Dict[str, torch.Tensor] = {}
+    if cfg.family == VLM:
+        p = cfg.vision_prefix_len
+        spec["tokens"] = _meta((b, s - p), i32)
+        spec["vision_embeds"] = _meta((b, p, cfg.d_model), _act_dtype(cfg))
+        spec["mrope_positions"] = _meta((3, b, s), i32)
+    elif cfg.family == AUDIO:
+        spec["tokens"] = _meta((b, s), i32)
+        spec["frames"] = _meta((b, cfg.encoder_seq_len, cfg.d_model),
+                               _act_dtype(cfg))
+    else:
+        spec["tokens"] = _meta((b, s), i32)
+    spec["targets"] = _meta((b, s), i32)
+    spec["loss_mask"] = _meta((b, s), torch.float32)
+    return spec
+
+
+def decode_specs(cfg: ModelConfig, shape: InputShape):
+    """``(cache, token)`` of a decode-shape dry-run as ``meta`` tensors:
+    the contiguous cache of ``global_batch`` rows and ``seq_len``
+    positions (the reference's layout is contiguous) and an int32 (B, 1)
+    token."""
+    cfg = config_for_shape(cfg, shape)
+    b = shape.global_batch
+    cache = tfm.init_cache(cfg, b, shape.seq_len, paged=False,
+                           device="meta")
+    return cache, _meta((b, 1), torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,7 @@ kernels; without a profiler the ranges are not entered.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Tuple
 
 import torch
@@ -33,6 +34,8 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import activate, dense_init, gated
+from repro_torch.sharding.annotate import (current_mesh_rules, resolve_spec,
+                                           with_sharding)
 
 
 def init_moe(gen: torch.Generator, d_model: int, moe: MoEConfig,
@@ -76,22 +79,107 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
     own groups and capacity: what the reference engine's continuation and
     decode programs compute, which route one row at a time under ``vmap``.
     Raises where the group size does not divide the dispatch, as the
-    reference asserts."""
+    reference asserts.
+
+    Under sharding rules (DTensor operands) the dispatch groups shard over
+    the reference's group axes (``"moe_group_dp"``) and the experts over
+    ``"expert"``: each rank routes its own groups, runs its own experts on
+    them, and the combine's partial sums over the expert axis are reduced
+    afterwards (``local_map``), the reference's program for its
+    ``(G, E, C, d)`` layout."""
     b, s, d = x.shape
     tokens = s if per_row else b * s
     tg = min(moe.group_size, tokens)
     if tokens % tg:
         raise ValueError(f"tokens={tokens} not divisible by group={tg}")
     g = b * s // tg
+    e = moe.num_experts
+    xg = with_sharding(x.reshape(g, tg, d), ("moe_group_dp", None, None))
+    weights = (p["router"], p["w_up"], p.get("w_gate"), p["w_down"])
+    if not _sharded(xg):
+        y, frac, mean_p, z, dropped = _dispatch(xg, *weights, moe=moe,
+                                                activation=activation,
+                                                first=0, experts=e)
+    else:
+        y, frac, mean_p, z, dropped = _sharded_dispatch(
+            xg, *weights, moe=moe, activation=activation)
+    lb = e * torch.sum(frac * mean_p)
+    return y.reshape(b, s, d), {
+        "load_balance_loss": lb * moe.aux_loss_coef,
+        "router_z_loss": z * moe.router_z_coef, "dropped_slots": dropped}
+
+
+def _sharded(x: torch.Tensor) -> bool:
+    if current_mesh_rules() is None:
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _sharded_dispatch(xg, router, w_up, w_gate, w_down, *, moe: MoEConfig,
+                      activation: str):
+    """:func:`_dispatch` on each rank's groups and experts (``local_map``):
+    groups as ``xg`` is placed, the router replicated, the experts split
+    over ``"expert"`` where it divides them (each rank takes its own
+    contiguous run). The combined output is a partial sum over the expert
+    axis, the routing statistics means over the group axes."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, rules = current_mesh_rules()
+    names = mesh.mesh_dim_names
+    e = moe.num_experts
+    expert_axes = resolve_spec(("expert",), (e,), mesh, rules)[0]
+    expert_axes = (() if expert_axes is None else (expert_axes,)
+                   if isinstance(expert_axes, str) else expert_axes)
+    group_dims = [n for n, pl in zip(names, xg.placements)
+                  if isinstance(pl, Shard)]
+    n_split = 1
+    for n in expert_axes:
+        n_split *= mesh.size(names.index(n))
+    experts = e // n_split
+    first = 0
+    for n in expert_axes:           # this rank's run of experts
+        first = first * mesh.size(names.index(n)) + mesh.get_local_rank(n)
+    first *= experts
+
+    def on(axes, inside, outside=Replicate()):
+        return tuple(inside if n in axes else outside for n in names)
+    groups = tuple(xg.placements)
+    weight = on(expert_axes, Shard(0))
+    outs = (tuple(Partial() if n in expert_axes else pl
+                  for n, pl in zip(names, groups)),       # y
+            on(group_dims, Partial("avg")),                # frac
+            on(group_dims, Partial("avg")),                # mean_p
+            on(group_dims, Partial("avg")),                # z
+            on(group_dims, Partial()))                     # dropped
+    fn = local_map(
+        functools.partial(_dispatch, moe=moe, activation=activation,
+                          first=first, experts=experts),
+        out_placements=outs,
+        in_placements=(groups, on((), None), weight,
+                       None if w_gate is None else weight, weight),
+        device_mesh=mesh, redistribute_inputs=True)
+    return fn(xg, router, w_up, w_gate, w_down)
+
+
+def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
+              w_gate, w_down: torch.Tensor, *, moe: MoEConfig,
+              activation: str, first: int, experts: int):
+    """The capacity-bounded dispatch of groups ``xg`` (G, T, d) through
+    experts ``first .. first + experts - 1`` (the expert weights hold those
+    alone): ``(y (G, T, d), top-1 fraction (E,), mean probability (E,),
+    z-loss, dropped slots)``. Slots routed to other experts contribute
+    nothing to ``y``."""
+    g, tg, d = xg.shape
     e, k = moe.num_experts, moe.top_k
     cap = _capacity(tg, moe)
-    dev = x.device
+    dev = xg.device
 
     with _span("moe.router"):
         # router logits in f32 from operands in the activation dtype (the
         # reference's preferred_element_type=f32), then the softmax
-        logits = (x.reshape(g, tg, d).float()
-                  @ p["router"].to(x.dtype).float())
+        logits = xg.float() @ router.to(xg.dtype).float()
         probs = torch.softmax(logits, -1)                      # (G, T, E)
         # top-k with lax.top_k's tie order (the lower index first): a
         # stable descending sort; the k gates normalised before any drop
@@ -105,31 +193,32 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
         onehot = F.one_hot(expert, e)
         pos = ((onehot.cumsum(1) - 1) * onehot).sum(-1)  # place in expert
         keep = pos < cap
-        # row of each kept slot in the (E, G*C) expert rows; dropped slots
-        # point at one spare row past the end, zero in the output
+        here = keep & (expert >= first) & (expert < first + experts)
+        # row of each kept slot in the (experts, G*C) expert rows; dropped
+        # slots and other ranks' experts point at one spare row past the
+        # end, zero in the output
         group = torch.arange(g, device=dev)[:, None]
-        row = torch.where(keep, (expert * g + group) * cap + pos,
-                          e * g * cap)
+        row = torch.where(here, ((expert - first) * g + group) * cap + pos,
+                          experts * g * cap)
         token = group * tg + torch.arange(tg, device=dev).repeat(k)[None]
     with _span("moe.dispatch"):
-        xe = x.new_zeros(e * g * cap + 1, d)
-        xe[row.reshape(-1)] = x.reshape(-1, d)[token.reshape(-1)]
-        xe = xe[:-1].view(e, g * cap, d)
+        xe = xg.new_zeros(experts * g * cap + 1, d)
+        xe[row.reshape(-1)] = xg.reshape(-1, d)[token.reshape(-1)]
+        xe = xe[:-1].view(experts, g * cap, d)
     with _span("moe.experts"):
-        up = torch.bmm(xe, p["w_up"])
-        gate = torch.bmm(xe, p["w_gate"]) if "w_gate" in p else None
-        ye = torch.bmm(activate(up, gate, activation), p["w_down"])
+        up = torch.bmm(xe, w_up)
+        gate = torch.bmm(xe, w_gate) if w_gate is not None else None
+        ye = torch.bmm(activate(up, gate, activation), w_down)
     with _span("moe.combine"):
         ye = torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)])
         # weights cast to the activation dtype (as the reference's combine
         # einsum), products summed in f32
-        w = (gate_vals.transpose(1, 2).reshape(g, k * tg) * keep).to(x.dtype)
+        w = (gate_vals.transpose(1, 2).reshape(g, k * tg) * here).to(
+            xg.dtype)
         y = (ye[row].float() * w.float()[..., None]).view(g, k, tg, d)
-        y = y.sum(1).to(x.dtype).reshape(b, s, d)
+        y = y.sum(1).to(xg.dtype)
 
     top1 = F.one_hot(gate_idx[..., 0], e).float()
-    lb = e * torch.sum(top1.mean((0, 1)) * probs.mean((0, 1)))
     z = torch.logsumexp(logits, -1).square().mean()
-    return y, {"load_balance_loss": lb * moe.aux_loss_coef,
-               "router_z_loss": z * moe.router_z_coef,
-               "dropped_slots": (~keep).sum()}
+    return (y, top1.mean((0, 1)), probs.mean((0, 1)), z,
+            (~keep).sum())

@@ -25,9 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import dense_init, group_norm_heads
-from repro_torch.models.linear_attn import (MAX_LOG_DECAY,
-                                            linear_attention_step)
-from repro_torch.models.ssm import linear_scan
+from repro_torch.models.linear_attn import MAX_LOG_DECAY
+from repro_torch.models.ssm import linear_scan, scan_step
+from repro_torch.sharding.annotate import with_sharding
 
 DECAY_LORA = 64
 CHUNK = 64      # the reference's chunk_size; 64 * MAX_LOG_DECAY <= 80
@@ -98,7 +98,8 @@ def time_mix(p: dict, x: torch.Tensor, prev: torch.Tensor, cfg: ModelConfig,
     xs = _shift(x, prev)
     mix = p["mix"].to(x.dtype)
     xr, xk, xv, xw, xg = (x + mix[i] * (xs - x) for i in range(5))
-    r = _heads(xr @ p["w_r"], h, dh)
+    r = with_sharding(_heads(xr @ p["w_r"], h, dh),
+                      ("batch", "heads", None, None))
     k = _heads(xk @ p["w_k"], h, dh)
     v = _heads(xv @ p["w_v"], h, dh)
     g = xg @ p["w_g"]
@@ -124,8 +125,7 @@ def time_mix_step(p: dict, x: torch.Tensor, prev: torch.Tensor,
     v = (xv @ p["w_v"]).reshape(b, h, dh)
     g = xg @ p["w_g"]
     lw = _log_decay(p, xw).reshape(b, h, dh)
-    out, state = linear_attention_step(state, r, k, v, lw, bonus=p["bonus"],
-                                       mode="rwkv")
+    out, state = scan_step(state, r, k, v, lw, bonus=p["bonus"], mode="rwkv")
     out = group_norm_heads(out, p["gn_scale"]).reshape(b, h * dh)
     out = (out * F.silu(g)) @ p["w_o"]
     return out, x, state

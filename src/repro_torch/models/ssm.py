@@ -24,10 +24,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import dense_init, randn
 from repro_torch.models.linear_attn import (MAX_LOG_DECAY,
                                             chunked_linear_attention,
                                             linear_attention_step)
+from repro_torch.sharding import local
+from repro_torch.sharding.annotate import splits, with_sharding
 
 # Largest chunk of the SSD scan. The scan needs chunk * MAX_LOG_DECAY <= 80
 # (models/linear_attn.py): past that, exp of the in-chunk log-decay sum
@@ -57,8 +59,7 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, dtype: torch.dtype,
         return dense_init(gen, (L,) + shape, in_axis_size=fan_in or shape[0],
                           dtype=dtype)
 
-    conv = torch.randn(L, s.conv_width, d_inner, generator=gen,
-                       dtype=torch.float32, device=dev) * (1.0 / s.conv_width)
+    conv = randn(gen, (L, s.conv_width, d_inner)) * (1.0 / s.conv_width)
     return {
         "w_in": dense((d, 2 * d_inner)),                     # x | z
         "conv": conv.to(dtype),
@@ -81,12 +82,18 @@ def _conv(x: torch.Tensor, w: torch.Tensor, tail: torch.Tensor
     return F.silu(out), xp[:, -(k - 1):]
 
 
+def _whole_rows(y: torch.Tensor) -> torch.Tensor:
+    return with_sharding(y, ("batch",) + (None,) * (y.ndim - 1))
+
+
 def _gates(p: dict, xc: torch.Tensor, n: int):
     """Post-conv projections. xc: (B, T, Di) -> (B, C per step, dt f32,
     log-decay f32)."""
-    bc = xc @ p["w_bc"]
+    # row-parallel products over d_inner: under sharding rules their
+    # partial sums are reduced here, rows whole per batch shard
+    bc = _whole_rows(xc @ p["w_bc"])
     b_in, c_out = bc[..., :n], bc[..., n:]                   # (B, T, N) each
-    pre = (xc @ p["w_dt"]).float() + p["dt_bias"]
+    pre = _whole_rows(xc @ p["w_dt"]).float() + p["dt_bias"]
     dt = torch.logaddexp(pre, torch.zeros_like(pre))         # softplus
     log_decay = torch.clamp(-torch.exp(p["a_log"]) * dt, -MAX_LOG_DECAY,
                             -1e-6)
@@ -104,8 +111,27 @@ def linear_scan(q, k, v, log_decay, *, attn_impl: str, mode: str,
                                 chunk=chunk)
     if attn_impl not in ("naive", "chunked"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}")
-    return chunked_linear_attention(q, k, v, log_decay, bonus=bonus,
-                                    mode=mode, chunk_size=chunk)
+    # rows and heads are independent: under sharding, each rank's own
+    return local.rows_and_heads(
+        _scan, (q, k, v, log_decay, bonus), ((0, 1),) * 4 + ((None, 0),), 2,
+        [(0, 1), (0, 1)], mode=mode, chunk_size=chunk)
+
+
+def _scan(q, k, v, log_decay, bonus, **kw):
+    return chunked_linear_attention(q, k, v, log_decay, bonus=bonus, **kw)
+
+
+def scan_step(state, q, k, v, log_decay, *, bonus=None, mode: str):
+    """:func:`linear_attention_step`, on each rank's own rows and heads
+    under sharding."""
+    return local.rows_and_heads(_step, (state, q, k, v, log_decay, bonus),
+                                ((0, 1),) * 5 + ((None, 0),), 0,
+                                [(0, 1), (0, 1)], mode=mode)
+
+
+def _step(state, q, k, v, log_decay, bonus, **kw):
+    return linear_attention_step(state, q, k, v, log_decay, bonus=bonus,
+                                 **kw)
 
 
 def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -121,10 +147,15 @@ def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     tail = torch.zeros(b, s.conv_width - 1, d_inner, dtype=x.dtype,
                        device=x.device)
     xc, conv_tail = _conv(xi, p["conv"], tail)
+    xc = with_sharding(xc, ("batch", None, "d_inner"))
     b_in, c_out, dt, log_decay = _gates(p, xc, n)
     # fold dt into v (rounded to the model dtype first, as the reference);
     # B and C are shared by every head
-    v = (xc.reshape(b, t, nh, s.head_dim)
+    # a shard of d_inner must hold whole heads; where they do not divide,
+    # the heads' view reads gathered rows
+    xh = xc if splits("d_inner", nh) else with_sharding(xc, ("batch", None,
+                                                             None))
+    v = (xh.reshape(b, t, nh, s.head_dim)
          * dt[..., None].to(x.dtype)).transpose(1, 2)         # (B, nh, T, hd)
     q = c_out[:, None].expand(b, nh, t, n)
     kk = b_in[:, None].expand(b, nh, t, n)
@@ -132,7 +163,15 @@ def apply_ssm(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y, state = linear_scan(q, kk, v, lw, attn_impl=attn_impl, mode="ssd",
                            chunk=min(s.chunk_size, MAX_SSD_CHUNK))
     y = y.transpose(1, 2).reshape(b, t, d_inner)
-    return (y * F.silu(z)) @ p["w_out"], conv_tail, state
+    return _out(y * F.silu(z), p), conv_tail, state
+
+
+def _out(y: torch.Tensor, p: dict) -> torch.Tensor:
+    """The output projection. Under sharding rules its input is placed with
+    ``d_inner`` split first, as ``w_out``'s rows are, so that backward
+    brings the gradient back whole before the heads' view."""
+    return with_sharding(y, ("batch",) + (None,) * (y.ndim - 2)
+                         + ("d_inner",)) @ p["w_out"]
 
 
 def ssm_step(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -147,10 +186,11 @@ def ssm_step(p: dict, x: torch.Tensor, cfg: ModelConfig,
     window = torch.cat([conv_tail, xi[:, None]], dim=1)       # (B, K, Di)
     xc = F.silu(torch.einsum("bkd,kd->bd", window, p["conv"]))
     b_in, c_out, dt, log_decay = _gates(p, xc[:, None], n)
-    v = xc.reshape(b, nh, s.head_dim) * dt[:, 0, :, None].to(x.dtype)
+    xh = xc if splits("d_inner", nh) else with_sharding(xc, ("batch", None))
+    v = xh.reshape(b, nh, s.head_dim) * dt[:, 0, :, None].to(x.dtype)
     q = c_out[:, 0, None].expand(b, nh, n)
     kk = b_in[:, 0, None].expand(b, nh, n)
-    y, state = linear_attention_step(state, q, kk, v,
-                                     log_decay[:, 0, :, None], mode="ssd")
+    y, state = scan_step(state, q, kk, v, log_decay[:, 0, :, None],
+                         mode="ssd")
     y = y.reshape(b, d_inner)
-    return (y * F.silu(z)) @ p["w_out"], window[:, 1:], state
+    return _out(y * F.silu(z), p), window[:, 1:], state

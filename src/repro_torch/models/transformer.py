@@ -86,17 +86,18 @@ from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
-                                                  ring_decode_attention)
+from repro_torch.kernels.flash_decode.ops import paged_decode_attention
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models import ssm as ssd
-from repro_torch.models.attention import (attention, gather_lane,
-                                          prefill_attention, prefill_cache,
-                                          update_cache, write_paged)
+from repro_torch.models.attention import (gather_lane, prefill_attention,
+                                          write_paged)
 from repro_torch.models.common import (activate, apply_mrope, apply_norm,
                                        apply_rope, dense_init, embed_init,
-                                       gated, init_norm, positions_for)
+                                       gated, generator, init_norm,
+                                       positions_for)
 from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.sharding import local as sharded
+from repro_torch.sharding.annotate import gather_fsdp, splits, with_sharding
 
 Params = Dict[str, Any]
 Cache = Dict[str, torch.Tensor]
@@ -198,7 +199,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = param_dtype or getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     L, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
@@ -363,17 +364,35 @@ def _qkv(p: Params, x: torch.Tensor, cfg: ModelConfig):
     return (_q(p, x, cfg), *_kv(p, x, cfg))
 
 
+def _residual(y: torch.Tensor) -> torch.Tensor:
+    """A block's output as it joins the residual stream: under sharding
+    rules, whole rows per batch shard. The port's tag, where the
+    reference leaves the partitioner to place it: a row-parallel product's
+    partial sums are reduced here (Megatron's all-reduce), before the next
+    norm."""
+    return with_sharding(y, ("batch", None, None))
+
+
+def _split_heads(y: torch.Tensor, n: int, dh: int, name: str
+                 ) -> torch.Tensor:
+    """(B, S, n*dh) -> (B, S, n, dh). Under sharding rules that leave the
+    ``n`` heads unsplit, the projection's output is first gathered along
+    its feature dim: a shard of it would cut a head."""
+    b, s, _ = y.shape
+    if not splits(name, n):
+        y = with_sharding(y, ("batch", None, None))
+    return y.reshape(b, s, n, dh)
+
+
 def _q(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    b, s, _ = x.shape
-    return _linear(x, p, "wq", "bq").reshape(b, s, cfg.num_heads,
-                                             cfg.head_dim)
+    return _split_heads(_linear(x, p, "wq", "bq"), cfg.num_heads,
+                        cfg.head_dim, "heads")
 
 
 def _kv(p: Params, x: torch.Tensor, cfg: ModelConfig):
-    b, s, _ = x.shape
     kh, dh = cfg.num_kv_heads, cfg.head_dim
-    return (_linear(x, p, "wk", "bk").reshape(b, s, kh, dh),
-            _linear(x, p, "wv", "bv").reshape(b, s, kh, dh))
+    return (_split_heads(_linear(x, p, "wk", "bk"), kh, dh, "kv_heads"),
+            _split_heads(_linear(x, p, "wv", "bv"), kh, dh, "kv_heads"))
 
 
 def _rope_qk(q, k, cfg: ModelConfig, positions, mrope_pos=None):
@@ -392,16 +411,33 @@ def _rope_qk(q, k, cfg: ModelConfig, positions, mrope_pos=None):
     return q, k
 
 
+def _tag_qk(q: torch.Tensor, k: torch.Tensor):
+    """The reference's activation tags on a full sequence's q and k."""
+    return (with_sharding(q, ("batch", None, "heads", None)),
+            with_sharding(k, ("batch", None, "kv_heads", None)))
+
+
+def _row_positions(batch: int, start, seq: int, device) -> torch.Tensor:
+    """:func:`positions_for`, placed with the batch under sharding rules."""
+    return with_sharding(positions_for(batch, start, seq, device),
+                         ("batch", None))
+
+
 def _mlp(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     up = _linear(x, p, "w_up", "b_up")
     gate = x @ p["w_gate"] if "w_gate" in p else None
-    return _linear(activate(up, gate, cfg.activation), p, "w_down", "b_down")
+    h = with_sharding(activate(up, gate, cfg.activation), ("batch", None, "ff"))
+    return _residual(_linear(h, p, "w_down", "b_down"))
 
 
 def _attn_proj(lp: Params, out: torch.Tensor, name: str = "attn"
                ) -> torch.Tensor:
     b, s = out.shape[:2]
-    return _linear(out.reshape(b, s, -1), lp[name], "wo", "bo")
+    # placed as wo's rows (heads first), so that backward brings the
+    # gradient back whole before the heads' view where the heads do not
+    # split
+    flat = with_sharding(out.reshape(b, s, -1), ("batch", None, "heads"))
+    return _residual(_linear(flat, lp[name], "wo", "bo"))
 
 
 _NO_AUX = {"load_balance_loss": 0.0, "router_z_loss": 0.0}
@@ -417,6 +453,7 @@ def _ffn_residual(lp: Params, x, cfg: ModelConfig, *, per_row: bool):
     if "moe" in lp:
         y, aux = apply_moe(lp["moe"], xn, cfg.moe, cfg.activation,
                            per_row=per_row)
+        y = _residual(y)
     if "mlp" in lp:
         y = y + _mlp(lp["mlp"], xn, cfg)
     return x + y, aux
@@ -427,8 +464,9 @@ def _add_aux(total: dict, aux: dict) -> dict:
 
 
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head
+    head = gather_fsdp(params["embed"]).T if cfg.tie_embeddings \
+        else gather_fsdp(params["lm_head"])
+    return with_sharding(x @ head, ("batch", None, "vocab"))
 
 
 def _final(params: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -446,14 +484,15 @@ def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor, start,
     """Token embeddings (B, S, d), ``vision_embeds`` prepended; learned
     positions add table rows ``(start + i) mod LEARNED_POSITIONS`` (the
     reference's modular wrap), ``start`` an int or per-row (B,)."""
-    x = params["embed"][tokens]
+    x = sharded.lookup(gather_fsdp(params["embed"]), tokens)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(x.dtype), x], 1)
     if cfg.pos_emb == "learned":
-        table = params["pos_embed"]
+        table = gather_fsdp(params["pos_embed"])
         ids = positions_for(x.shape[0], start, x.shape[1], x.device)
-        x = x + table[ids.long() % table.shape[0]].to(x.dtype)
-    return x
+        x = x + sharded.lookup(table, ids.long() % table.shape[0]).to(
+            x.dtype)
+    return with_sharding(x, ("batch", None, None))
 
 
 def _bidirectional(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -479,14 +518,15 @@ def encode(params: Params, cfg: ModelConfig, frames: torch.Tensor, *,
     (``attn_impl="kernel"``) or on the plain attention (training)."""
     enc = params["encoder"]
     b, f, _ = frames.shape
-    x = frames + enc["pos_embed"][:f].to(frames.dtype)
-    positions = positions_for(b, 0, f, x.device)
-    for lp in unstack_layers(enc):
+    x = frames + gather_fsdp(enc["pos_embed"])[:f].to(frames.dtype)
+    positions = _row_positions(b, 0, f, x.device)
+    for lp in map(gather_fsdp, unstack_layers(enc)):
         q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
+        q, k = _tag_qk(q, k)
         if attn_impl == "kernel":
             out = _bidirectional(q, _heads_first(k), _heads_first(v))
         else:
-            out = attention(q, k, v, positions, positions, causal=False,
+            out = sharded.attend(q, k, v, positions, positions, causal=False,
                             impl=attn_impl, kv_chunk=kv_chunk)
         x = x + _attn_proj(lp, out)
         x = x + _mlp(lp["mlp"], apply_norm(lp["ln2"], x, cfg.norm), cfg)
@@ -503,8 +543,9 @@ def _cross_plain(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
     ``ln_cross(x)``, K/V from the encoder's rows, no mask."""
     q = _q(lp["cross"], apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
     k, v = _kv(lp["cross"], enc_out, cfg)
-    pos_kv = positions_for(k.shape[0], 0, k.shape[1], k.device)
-    out = attention(q, k, v, positions, pos_kv, causal=False,
+    q, k = _tag_qk(q, k)
+    pos_kv = _row_positions(k.shape[0], 0, k.shape[1], k.device)
+    out = sharded.attend(q, k, v, positions, pos_kv, causal=False,
                     impl=attn_impl, kv_chunk=kv_chunk)
     return _attn_proj(lp, out, "cross")
 
@@ -514,19 +555,23 @@ def _plain_layer(lp: Params, x: torch.Tensor, cfg: ModelConfig,
                  enc_out: Optional[torch.Tensor], attn_impl: str,
                  kv_chunk: int):
     """One decoder layer of any family on the plain, differentiable
-    attention and linear-attention scan: ``(x, aux)``."""
+    attention and linear-attention scan: ``(x, aux)``. Under sharding rules
+    the layer's parameters are gathered over the FSDP axes here, inside
+    the recomputed region, so backward gathers them again rather than
+    keeping every layer's gathered copy."""
+    lp = gather_fsdp(lp)
     xn = apply_norm(lp["ln1"], x, cfg.norm)
     if cfg.family == SSM:
         return _rwkv_seq(lp, x, xn, cfg, None, 0, attn_impl), _NO_AUX
     q, k, v = _qkv(lp["attn"], xn, cfg)
-    q, k = _rope_qk(q, k, cfg, positions, mrope_pos)
-    out = attention(q, k, v, positions, positions, causal=True,
+    q, k = _tag_qk(*_rope_qk(q, k, cfg, positions, mrope_pos))
+    out = sharded.attend(q, k, v, positions, positions, causal=True,
                     window=cfg.sliding_window, impl=attn_impl,
                     kv_chunk=kv_chunk)
     mix = _attn_proj(lp, out)
     if cfg.family == HYBRID:
         ssm_out, _, _ = ssd.apply_ssm(lp["ssm"], xn, cfg, attn_impl=attn_impl)
-        mix = 0.5 * (mix + ssm_out)
+        mix = 0.5 * (mix + _residual(ssm_out))
     x = x + mix
     if enc_out is not None:
         x = x + _cross_plain(lp, x, enc_out, cfg, positions, attn_impl,
@@ -624,56 +669,63 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = _embed(params, cfg, tokens, 0, vision_embeds)
     b, s, _ = x.shape
     dev = x.device
-    positions = positions_for(b, 0, s, dev)
-    if attn_impl != "kernel":
-        if attn_impl not in ("naive", "chunked"):
-            raise ValueError(f"unknown attn_impl {attn_impl!r}")
-        if cache is not None or build_cache:
-            raise ValueError(f"attn_impl={attn_impl!r} builds no cache; "
-                             f"prefill into a cache runs the kernel path")
-        enc_out = (encode(params, cfg, frames, attn_impl=attn_impl,
-                          kv_chunk=kv_chunk) if cfg.is_encdec else None)
+    positions = _row_positions(b, 0, s, dev)
+    if attn_impl not in ("kernel", "naive", "chunked"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    plain = attn_impl != "kernel"
+    enc_out = (encode(params, cfg, frames, attn_impl=attn_impl,
+                      kv_chunk=kv_chunk) if cfg.is_encdec else None)
+    if plain and cache is None and not build_cache:
         return _forward_plain(params, cfg, x, positions, mrope_positions,
                               enc_out, attn_impl, kv_chunk, remat)
     if remat != "none":
-        raise ValueError("remat needs the plain attention: the kernel path "
-                         "has no backward")
+        raise ValueError("remat recomputes the training forward; the kernel "
+                         "path has no backward and a prefill into a cache "
+                         "takes none")
     if cache is None and build_cache:
         cache = init_cache(cfg, b, cache_len, dtype=x.dtype, device=dev)
-    enc_out = encode(params, cfg, frames) if cfg.is_encdec else None
     # rows the cache holds (its tables or slots); rows past them compute
     n = b if cache is None else len(cache.get("tables", cache.get("slots")))
     q_start = torch.zeros(b, dtype=torch.int32, device=dev)
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
     aux = dict(_NO_AUX)
-    for layer, lp in enumerate(unstack_layers(params)):
+    for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
         if cfg.family == SSM:
             x = _rwkv_seq(lp, x, xn, cfg, cache, layer, attn_impl)
             continue
         q, k, v = _qkv(lp["attn"], xn, cfg)
-        q, k = _rope_qk(q, k, cfg, positions, mrope_positions)
+        q, k = _tag_qk(*_rope_qk(q, k, cfg, positions, mrope_positions))
         if cache is not None and "tables" in cache:
             write_paged(cache["k"][layer], cache["tables"], positions[:n],
                         k[:n])
             write_paged(cache["v"][layer], cache["tables"], positions[:n],
                         v[:n])
         elif cache is not None:
-            prefill_cache(cache["k"][layer], cache["slots"], k[:n])
-            prefill_cache(cache["v"][layer], cache["slots"], v[:n])
-        out = prefill_attention(q, _heads_first(k), _heads_first(v), q_start,
-                                kv_len, window=cfg.sliding_window)
+            sharded.write_prompt(cache["k"][layer], cache["slots"], k[:n])
+            sharded.write_prompt(cache["v"][layer], cache["slots"], v[:n])
+        if plain:
+            out = sharded.attend(q, k, v, positions, positions, causal=True,
+                            window=cfg.sliding_window, impl=attn_impl,
+                            kv_chunk=kv_chunk)
+        else:
+            out = prefill_attention(q, _heads_first(k), _heads_first(v),
+                                    q_start, kv_len,
+                                    window=cfg.sliding_window)
         mix = _attn_proj(lp, out)
         if cfg.family == HYBRID:
-            ssm_out, tail, state = ssd.apply_ssm(lp["ssm"], xn, cfg)
-            mix = 0.5 * (mix + ssm_out)
+            ssm_out, tail, state = ssd.apply_ssm(lp["ssm"], xn, cfg,
+                                                 attn_impl=attn_impl)
+            mix = 0.5 * (mix + _residual(ssm_out))
             if cache is not None:
-                slots = cache["slots"].long()
-                cache["conv_tail"][layer][slots] = tail[:n]
-                cache["ssm_state"][layer][slots] = state[:n]
+                slots = cache["slots"]
+                sharded.put_rows(cache["conv_tail"][layer], slots, tail[:n])
+                sharded.put_rows(cache["ssm_state"][layer], slots,
+                                 state[:n])
         x = x + mix
         if enc_out is not None:
-            x = x + _cross_seq(lp, x, enc_out, cfg, cache, layer)
+            x = x + _cross_seq(lp, x, enc_out, cfg, cache, layer, positions,
+                               attn_impl, kv_chunk)
         x, layer_aux = _ffn_residual(lp, x, cfg, per_row=False)
         aux = _add_aux(aux, layer_aux)
     logits = _final(params, cfg, x)
@@ -683,18 +735,28 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def _cross_seq(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
-               cfg: ModelConfig, cache: Optional[Cache], layer: int
+               cfg: ModelConfig, cache: Optional[Cache], layer: int,
+               positions: torch.Tensor, attn_impl: str, kv_chunk: int
                ) -> torch.Tensor:
-    """The decoder's cross-attention on the prefill kernel (no mask, the
-    prompt's rows over the encoder's F rows); with a cache, the encoder's
-    K/V land in the slots' cross lanes."""
+    """The decoder's cross-attention on the prefill kernel, or on the plain
+    attention (``attn_impl``), no mask: the prompt's rows over the
+    encoder's F rows; with a cache, the encoder's K/V land in the slots'
+    cross lanes."""
     q = _q(lp["cross"], apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
-    k, v = (_heads_first(t) for t in _kv(lp["cross"], enc_out, cfg))
+    k, v = _kv(lp["cross"], enc_out, cfg)
+    q, k = _tag_qk(q, k)
+    if attn_impl != "kernel":
+        pos_kv = _row_positions(k.shape[0], 0, k.shape[1], k.device)
+        out = sharded.attend(q, k, v, positions, pos_kv, causal=False,
+                        impl=attn_impl, kv_chunk=kv_chunk)
+    k, v = _heads_first(k), _heads_first(v)
+    if attn_impl == "kernel":
+        out = _bidirectional(q, k, v)
     if cache is not None:
-        slots = cache["slots"].long()
-        cache["cross_k"][layer][slots] = k[:len(slots)]
-        cache["cross_v"][layer][slots] = v[:len(slots)]
-    return _attn_proj(lp, _bidirectional(q, k, v), "cross")
+        slots = cache["slots"]
+        sharded.put_rows(cache["cross_k"][layer], slots, k[:len(slots)])
+        sharded.put_rows(cache["cross_v"][layer], slots, v[:len(slots)])
+    return _attn_proj(lp, out, "cross")
 
 
 def _rwkv_seq(lp: Params, x: torch.Tensor, xn: torch.Tensor,
@@ -704,19 +766,19 @@ def _rwkv_seq(lp: Params, x: torch.Tensor, xn: torch.Tensor,
     start from zeros), its scan on the route ``attn_impl`` names; with a
     cache, the final state and the last rows of the layer's normed inputs
     land in the slots."""
-    prev = torch.zeros(x.shape[0], cfg.d_model, dtype=x.dtype,
-                       device=x.device)
+    prev = torch.zeros_like(x[:, 0])
     out, last_tm, state = rwkv.time_mix(lp["tm"], xn, prev, cfg,
                                         attn_impl=attn_impl)
-    x = x + out
+    x = x + _residual(out)
     xn2 = apply_norm(lp["ln2"], x, cfg.norm)
     out2, last_cm = rwkv.channel_mix(lp["cm"], xn2, prev)
+    out2 = _residual(out2)
     if cache is not None:
-        slots = cache["slots"].long()
+        slots = cache["slots"]
         n = len(slots)
-        cache["state"][layer][slots] = state[:n]
-        cache["tm_prev"][layer][slots] = last_tm[:n]
-        cache["cm_prev"][layer][slots] = last_cm[:n]
+        sharded.put_rows(cache["state"][layer], slots, state[:n])
+        sharded.put_rows(cache["tm_prev"][layer], slots, last_tm[:n])
+        sharded.put_rows(cache["cm_prev"][layer], slots, last_cm[:n])
     return x + out2
 
 
@@ -727,16 +789,17 @@ def _rwkv_step(lp: Params, x: torch.Tensor, xn: torch.Tensor,
     gathered, advanced and scattered back."""
     states, tm_prev, cm_prev = (cache[k][layer]
                                 for k in ("state", "tm_prev", "cm_prev"))
-    out, last_tm, state = rwkv.time_mix_step(lp["tm"], xn[:, 0],
-                                             tm_prev[rows], states[rows],
-                                             cfg)
-    x = x + out[:, None]
+    out, last_tm, state = rwkv.time_mix_step(
+        lp["tm"], xn[:, 0], sharded.take_rows(tm_prev, rows),
+        sharded.take_rows(states, rows), cfg)
+    x = x + _residual(out[:, None])
     xn2 = apply_norm(lp["ln2"], x, cfg.norm)
-    out2, last_cm = rwkv.channel_mix_step(lp["cm"], xn2[:, 0], cm_prev[rows])
-    states[rows] = state
-    tm_prev[rows] = last_tm
-    cm_prev[rows] = last_cm
-    return x + out2[:, None]
+    out2, last_cm = rwkv.channel_mix_step(lp["cm"], xn2[:, 0],
+                                          sharded.take_rows(cm_prev, rows))
+    sharded.put_rows(states, rows, state)
+    sharded.put_rows(tm_prev, rows, last_tm)
+    sharded.put_rows(cm_prev, rows, last_cm)
+    return x + _residual(out2[:, None])
 
 
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -767,7 +830,7 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                              device=x.device)[None, :]
     kv_len = pos0 + c
     paged = "tables" in cache
-    for layer, lp in enumerate(unstack_layers(params)):
+    for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
         q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
         q, k = _rope_qk(q, k, cfg, positions)
         k_all, v_all = cache["k"][layer], cache["v"][layer]
@@ -817,10 +880,10 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
                               * cache["k"].shape[2])
     else:
         slots = cache["slots"].to(torch.int32)
-        rows = slots.long()
+        rows = slots
     if "cross_k" in cache:      # every encoder row visible
         cross_pos = torch.full_like(pos, cache["cross_k"].shape[3] - 1)
-    for layer, lp in enumerate(unstack_layers(params)):
+    for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
         xn = apply_norm(lp["ln1"], x, cfg.norm)
         if cfg.family == SSM:
             x = _rwkv_step(lp, x, xn, cfg, cache, layer, rows)
@@ -834,25 +897,26 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
             out = paged_decode_attention(q[:, 0], k_all, v_all, tables,
                                          lengths)
         else:
-            update_cache(k_all, slots, k[:, 0], pos)
-            update_cache(v_all, slots, v[:, 0], pos)
-            out = ring_decode_attention(q[:, 0], k_all, v_all, slots, pos,
-                                        window=cfg.sliding_window)
+            sharded.write_token(k_all, slots, k[:, 0], pos)
+            sharded.write_token(v_all, slots, v[:, 0], pos)
+            out = sharded.ring_decode(q[:, 0], k_all, v_all, slots, pos,
+                                      window=cfg.sliding_window)
         mix = _attn_proj(lp, out[:, None])
         if cfg.family == HYBRID:
             tails = cache["conv_tail"][layer]
             states = cache["ssm_state"][layer]
-            ssm_out, tail, state = ssd.ssm_step(lp["ssm"], xn[:, 0], cfg,
-                                                tails[rows], states[rows])
-            tails[rows] = tail
-            states[rows] = state
-            mix = 0.5 * (mix + ssm_out[:, None])
+            ssm_out, tail, state = ssd.ssm_step(
+                lp["ssm"], xn[:, 0], cfg, sharded.take_rows(tails, rows),
+                sharded.take_rows(states, rows))
+            sharded.put_rows(tails, rows, tail)
+            sharded.put_rows(states, rows, state)
+            mix = 0.5 * (mix + _residual(ssm_out[:, None]))
         x = x + mix
         if "cross_k" in cache:
             q = _q(lp["cross"], apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
-            out = ring_decode_attention(q[:, 0], cache["cross_k"][layer],
-                                        cache["cross_v"][layer], slots,
-                                        cross_pos)
+            out = sharded.ring_decode(q[:, 0], cache["cross_k"][layer],
+                                      cache["cross_v"][layer], slots,
+                                      cross_pos)
             x = x + _attn_proj(lp, out[:, None], "cross")
         x, _ = _ffn_residual(lp, x, cfg, per_row=True)
     return _final(params, cfg, x)[:, 0], {**cache, "pos": pos + 1}

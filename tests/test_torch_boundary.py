@@ -38,6 +38,7 @@ WHOLE_COPIES = [
     "serving/core.py", "serving/faults.py", "serving/metrics.py",
     "serving/router.py", "serving/workloads.py", "serving/simulator.py",
     "data/__init__.py", "data/synthetic.py", "data/workload.py",
+    "launch/hlo_cost.py",
 ]
 # whole copies that repair a fault of their source: (source text, port text)
 # replacements, applied after the rewrite
@@ -151,7 +152,11 @@ def test_port_imports_with_jax_and_reference_unavailable():
             "import repro_torch.serving.simulator\n"
             "import repro_torch.serving.router\n"
             "import repro_torch.serving.workloads\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.cost\n"
+            "import repro_torch.launch.analysis, repro_torch.launch.hlo_cost\n"
+            "import repro_torch.sharding.specs, repro_torch.sharding.local\n"
             "import benchmarks.torch_run, benchmarks.torch_check_bench\n"
+            "import benchmarks.torch_roofline\n"
             "for name in benchmarks.torch_run.MODULES.values():\n"
             "    __import__('benchmarks.' + name)\n"
             + _NOTHING_BLOCKED_LOADED)
@@ -172,6 +177,21 @@ def test_table1_twin_runs_with_jax_and_reference_unavailable(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "table1_variability," in proc.stdout
     assert '"device": "cpu"' in out.read_text()
+
+
+def test_dryrun_runs_with_jax_and_reference_unavailable(tmp_path):
+    """``python -m repro_torch.launch.dryrun`` on one production combination
+    with JAX, the JAX package and ``benchmarks.common`` blocked."""
+    code = ("import runpy\n"
+            "sys.argv = ['dryrun', '--arch', 'whisper-tiny', '--shape', "
+            f"'decode_32k', '--out', {str(tmp_path)!r}]\n"
+            "runpy.run_module('repro_torch.launch.dryrun', "
+            "run_name='__main__')\n"
+            + _NOTHING_BLOCKED_LOADED)
+    proc = _run_blocked(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "dry-run: all combos traced" in proc.stdout
+    assert len(list(tmp_path.glob("*.json"))) == 1
 
 
 @pytest.mark.parametrize("rel", WHOLE_COPIES)

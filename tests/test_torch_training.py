@@ -328,9 +328,21 @@ def test_training_forward_refuses_what_it_does_not_run(model):
     with pytest.raises(ValueError, match="remat"):
         tfm.forward_seq(params, cfg, toks, attn_impl="chunked",
                         remat="offload")
-    with pytest.raises(ValueError, match="no cache"):
+    # a prefill into a cache takes no remat on either route
+    with pytest.raises(ValueError, match="remat"):
         tfm.forward_seq(params, cfg, toks, attn_impl="chunked",
-                        build_cache=True, cache_len=16)
+                        build_cache=True, cache_len=16, remat="full")
+    # the plain route builds the cache the kernel route builds (the
+    # dry-run's prefill)
+    plain, cache, _ = tfm.forward_seq(params, cfg, toks, attn_impl="chunked",
+                                      build_cache=True, cache_len=16)
+    kern, ref, _ = tfm.forward_seq(params, cfg, toks, build_cache=True,
+                                   cache_len=16)
+    torch.testing.assert_close(plain, kern, atol=1e-5, rtol=1e-5)
+    assert sorted(cache) == sorted(ref)
+    for key in cache:
+        torch.testing.assert_close(cache[key], ref[key], atol=1e-5,
+                                   rtol=1e-5)
 
 
 @pytest.mark.parametrize("window", [None, 40])
