@@ -73,14 +73,10 @@ failed check raises and the script exits non-zero:
    launch count zeroed just before: exactly 12 prefill kernels (4
    encoder, 4 self, 4 cross) and 8 ring decode kernels a decode step, no
    other kernel; ms a token.
-5. Profiles, after every unprofiled run (bursts that followed a profiler
-   session in the same process were seen to run slower): each FCFS burst
-   once more under the profiler, giving device time by kernel (the port's
-   own kernels listed wherever they rank) and the device's busy share of
-   the unprofiled run's wall time, and for OLMoE the device time of each
-   MoE stage (router, dispatch, expert products, combine); then the
-   device time of each kernel that one call of each kernel launches, at
-   the record's shapes.
+5. The device time of each kernel that one call of each kernel
+   launches, at the record's shapes, after every unprofiled run (bursts
+   that followed a profiler session in the same process were seen to run
+   slower), and each kernel's launches in the PARS bursts.
 6. Training the ranking predictor on the card: the mini predictor to the
    reference's bar (pairwise, held-out Kendall tau_b >= 0.45), one epoch
    each of the pointwise and listwise baselines, and the serve launcher's
@@ -169,7 +165,6 @@ card is visible or the repository's files cannot be imported.
 """
 from __future__ import annotations
 
-import bisect
 import contextlib
 import functools
 import gc
@@ -226,10 +221,6 @@ def kernel_ms(fn, calls: int = 50) -> dict:
     return times
 
 
-# the named ranges of models/moe.py, one per stage of an MoE layer
-MOE_STAGES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine")
-
-
 def _device_event(e) -> bool:
     """A kernel, copy or fill on the device (not a host event, and not the
     device-side span of a host range)."""
@@ -249,32 +240,6 @@ def device_rows(prof) -> list:
             t, n = by_name.get(e.name(), (0, 0))
             by_name[e.name()] = (t + e.duration_ns(), n + 1)
     return [(t / 1e6, n, name) for name, (t, n) in by_name.items()]
-
-
-def range_rows(prof, names) -> dict:
-    """``{name: (device ms, calls)}`` for the host ranges (``record_function``)
-    of ``names`` in a session that traced host activity: a kernel counts
-    for the range that holds the host operator which launched it (the
-    kernel's linked correlation id)."""
-    from torch.autograd import DeviceType
-
-    events = prof.profiler.kineto_results.events()
-    ranges = sorted((e.start_ns(), e.end_ns(), e.name()) for e in events
-                    if e.device_type() == DeviceType.CPU
-                    and e.is_user_annotation() and e.name() in names)
-    starts = [r[0] for r in ranges]
-    range_of = {}
-    for e in events:
-        if e.device_type() == DeviceType.CPU and not e.is_user_annotation():
-            i = bisect.bisect_right(starts, e.start_ns()) - 1
-            if i >= 0 and e.start_ns() < ranges[i][1]:
-                range_of[e.correlation_id()] = ranges[i][2]
-    ms = dict.fromkeys(names, 0.0)
-    for e in events:
-        name = range_of.get(e.linked_correlation_id())
-        if name is not None and _device_event(e):
-            ms[name] += e.duration_ns() / 1e6
-    return {n: (ms[n], sum(r[2] == n for r in ranges)) for n in names}
 
 
 def check_close(name: str, out, ref, tol: float) -> float:
@@ -1110,7 +1075,8 @@ def phase_parity(dev) -> float:
         cache = tfm.init_cache(cfg, 2, 64, device=device)
         lg, cache, _ = tfm.forward_seq(tree, cfg, toks[:, :20].to(device),
                                        cache=cache)
-        lg2, _ = tfm.forward_chunk(tree, cfg, toks[:, 20:].to(device), cache)
+        lg2, _, _ = tfm.forward_chunk(tree, cfg, toks[:, 20:].to(device),
+                                      cache)
         return lg.cpu(), lg2.cpu()
 
     lg, lg2 = run(params, dev)
@@ -1148,7 +1114,7 @@ def phase_recurrent_parity(dev, arch: str, steps: int) -> float:
         nxt = lg[:, -1].argmax(-1)
         for _ in range(steps):
             toks.append(nxt.cpu())
-            lg1, cache = tfm.decode_step(tree, cfg, cache, nxt[:, None])
+            lg1, cache, _ = tfm.decode_step(tree, cfg, cache, nxt[:, None])
             logits.append(lg1.cpu())
             nxt = lg1.argmax(-1)
         return torch.stack(logits, 1), torch.stack(toks, 1)
@@ -1200,7 +1166,7 @@ def phase_moe_parity(dev, steps: int = 16) -> dict:
         nxt = lg[:, -1].argmax(-1)
         for _ in range(steps):
             toks.append(nxt.cpu())
-            lg1, cache = tfm.decode_step(tree, cfg, cache, nxt[:, None])
+            lg1, cache, _ = tfm.decode_step(tree, cfg, cache, nxt[:, None])
             logits.append(lg1.cpu())
             nxt = lg1.argmax(-1)
         return (torch.stack(logits, 1), torch.stack(toks, 1),
@@ -1288,7 +1254,7 @@ def phase_serve(dev, arch: str, kernels, idle=(),
     a cut config's launcher must refuse ``--full``, saying that it does not
     fit. Every kernel of ``kernels`` must launch in each burst, and none of
     ``idle`` (kernels of other paths). Returns the PARS run's launch
-    counts and the FCFS run's wall time (None without FCFS)."""
+    counts."""
     from repro_torch.configs import get_config
     from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
     from repro_torch.core.predictor.train import RankingPredictor
@@ -1312,7 +1278,7 @@ def phase_serve(dev, arch: str, kernels, idle=(),
     # warm the CUDA libraries once, outside the measured runs
     serve_once(cfg, params, fcfs(), dev, burst(2, seed=99), arch)
 
-    launches, walls = {}, {}
+    launches = {}
     for name in policies:
         policy = (make_policy("pars", predictor) if name == "pars"
                   else fcfs())
@@ -1331,7 +1297,10 @@ def phase_serve(dev, arch: str, kernels, idle=(),
             f"{eng.backend.prefill_pad_lanes} in first chunks; continuation "
             f"chunks and decode unpadded); prefix hits "
             f"{eng.backend.prefix_installs}, tokens copied "
-            f"{eng.backend.prefix_tokens_copied}; scorer failures "
+            f"{eng.backend.prefix_tokens_copied}; decode "
+            f"{eng.backend.decode_steps} steps in "
+            f"{eng.backend.decode_seconds:.2f} s; MoE dropped slots "
+            f"{eng.backend.dropped_slots}; scorer failures "
             f"{policy.scorer_failures}, degradations {policy.degradations}")
         problems = []
         if len(fin) != len(reqs):
@@ -1357,7 +1326,6 @@ def phase_serve(dev, arch: str, kernels, idle=(),
         if problems:
             raise AssertionError(f"serving {arch} under {name}: {problems}")
         launches[name] = counts
-        walls[name] = wall
     del params, predictor, eng, fin
     free_memory()
 
@@ -1374,12 +1342,12 @@ def phase_serve(dev, arch: str, kernels, idle=(),
         else:
             raise AssertionError(f"the launcher served {arch} --full, "
                                  f"which does not fit the card")
-        return launches["pars"], walls.get("fcfs")
+        return launches["pars"]
     rep = launch_serve.main(argv)
     if rep.n_requests != 8:
         raise AssertionError(f"launcher served {rep.n_requests} of 8")
     free_memory()
-    return launches["pars"], walls["fcfs"]
+    return launches["pars"]
 
 
 # ---------------------------------------------------------------------------
@@ -2372,66 +2340,6 @@ def gate_bench_file() -> None:
     log(f"  {BENCH_FILE.relative_to(ROOT)}: torch_check_bench --card passed")
 
 
-# the kernels of src/repro_torch/kernels/csrc, as the profiler names them
-PORT_KERNELS = ("paged_decode_split_kernel", "paged_decode_combine_kernel",
-                "flash_prefill_wgmma_kernel", "flash_prefill_kernel",
-                "ring_decode_split_kernel", "ring_decode_combine_kernel",
-                "linear_attn_chunk_kernel")
-
-
-def profile_serving(dev, arch: str, wall_unprofiled: float) -> None:
-    """Where the time goes: the FCFS burst of full ``arch`` (weights made
-    anew from the same seed) once more under ``torch.profiler``, tracing
-    device activity only (kernels and copies, so no time is counted twice);
-    prints the device time by kernel and the device's busy share of the
-    unprofiled run's wall time (one stream, so kernel times do not
-    overlap). For an MoE model the session also traces host activity, so
-    that the device time of each MoE stage's kernels (``MOE_STAGES``, the
-    ranges ``models/moe.py`` opens) is printed beside them."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.core.scheduler.policies import fcfs
-    from repro_torch.models import transformer as tfm
-
-    cfg = get_config(arch)
-    params = tfm.init_params(cfg, SEED, device=dev)
-    stages = cfg.moe is not None
-    activities = [ProfilerActivity.CUDA] + (
-        [ProfilerActivity.CPU] if stages else [])
-    t0 = time.perf_counter()
-    with profile(activities=activities) as prof:
-        _, _, _, wall = serve_once(cfg, params, fcfs(), dev, burst(16), arch)
-        torch.cuda.synchronize()
-    del params
-    free_memory()
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows)
-    log(f"  profile ({arch} fcfs burst): device busy {busy:.1f} ms; wall "
-        f"{wall * 1e3:.1f} ms profiled, {wall_unprofiled * 1e3:.1f} ms "
-        f"unprofiled; busy share of unprofiled wall "
-        f"{busy / (wall_unprofiled * 1e3):.3f}")
-    if not rows:
-        log("  profile: the profiler recorded no device time")
-    for ms, count, key in sorted(rows, reverse=True)[:15]:
-        log(f"    {ms:9.2f} ms {ms / busy:6.1%} {count:7d} calls  {key[:90]}")
-    # the port's own kernels, wherever they rank
-    for ms, count, key in sorted(rows, reverse=True):
-        if any(k in key for k in PORT_KERNELS):
-            log(f"    port kernel {ms:9.2f} ms {ms / busy:6.1%} {count:7d} "
-                f"calls, {1e3 * ms / count:.2f} us each  {key[:70]}")
-    if stages:
-        for name, (ms, count) in range_rows(prof, MOE_STAGES).items():
-            log(f"    stage {name:13s} {ms:9.2f} ms "
-                f"{ms / max(busy, 1e-9):6.1%} {count:6d} calls "
-                f"(device time of its kernels)")
-        index = sum(ms for ms, _, key in rows
-                    if re.search(r"index|scatter|gather", key))
-        log(f"    kernels named index/scatter/gather: {index:.2f} ms "
-            f"{index / max(busy, 1e-9):.1%}")
-    log(f"  profiling took {time.perf_counter() - t0:.1f} s")
-
-
 def _tree_to(tree, device, dtype=None):
     """A copy of ``tree`` on ``device`` (floating leaves in ``dtype``)."""
     return {k: _tree_to(v, device, dtype) if isinstance(v, dict)
@@ -2520,7 +2428,7 @@ def main() -> int:
                                                       ring_decode_attention)
     from repro_torch.kernels.flash_prefill.ops import flash_attention
     from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
-    served, fcfs_walls = {}, {}
+    served = {}
     everything = (paged_decode_attention, flash_attention,
                   ring_decode_attention, linear_attention)
     paged = (paged_decode_attention, flash_attention)
@@ -2539,7 +2447,7 @@ def main() -> int:
         idle = tuple(k for k in everything if k not in kernels)
         # only the RWKV path's launcher trains its predictor (phase 6
         # trains the same one): the other paths' launchers serve FCFS
-        served[arch], fcfs_walls[arch] = phase_serve(
+        served[arch] = phase_serve(
             dev, arch, kernels, idle,
             launcher_policy="pars" if arch == "rwkv6_7b" else "fcfs",
             depth=depth, policies=policies)
@@ -2549,10 +2457,8 @@ def main() -> int:
     served["whisper_tiny"] = whisper["bf16"]["launches"]
     # torch.profiler runs only now, so that no unprofiled burst follows a
     # profiler session (bursts that did were seen to run slower)
-    log(f"== phase 5: profiles (at {time.perf_counter() - t_start:.1f} s)")
-    for arch, wall in fcfs_walls.items():
-        if wall is not None:
-            profile_serving(dev, arch, wall)
+    log(f"== phase 5: kernel profiles "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
     calls = {e["name"]: e.pop("call") for e in entries if "call" in e}
     for name, call in calls.items():
         log(f"  {name} at the record's shape, device ms per call by kernel: "

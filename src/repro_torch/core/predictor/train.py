@@ -16,12 +16,13 @@ writes the reference's checkpoint format and metadata, so the reference's
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.bridge import load_npz
 from repro_torch.core.predictor.backbones import (PredictorConfig,
                                                   init_predictor,
@@ -57,24 +58,42 @@ class TrainSettings:
 class RankingPredictor:
     """Predictor: ``score()`` maps prompts -> expected-length scores.
 
-    Higher score => longer expected response => *lower* SJF priority."""
+    Higher score => longer expected response => *lower* SJF priority.
+    ``scored`` counts the prompts ``score`` took, ``score_seconds`` its wall
+    time (the scores are on the host, so the device's work is in it)."""
     cfg: PredictorConfig
     params: dict
     tokenizer: HashTokenizer
     method: str = "pairwise"
+    scored: int = field(default=0, init=False, repr=False, compare=False)
+    score_seconds: float = field(default=0.0, init=False, repr=False,
+                                 compare=False)
 
     @property
     def device(self) -> torch.device:
         return self.params["embed"].device
 
     @torch.no_grad()
-    def score_tokens(self, tokens: np.ndarray) -> np.ndarray:
+    def _forward(self, tokens: np.ndarray) -> torch.Tensor:
         toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                device=self.device)
-        return predictor_forward(self.params, self.cfg, toks).cpu().numpy()
+        return predictor_forward(self.params, self.cfg, toks)
+
+    def score_tokens(self, tokens: np.ndarray) -> np.ndarray:
+        return self._forward(tokens).cpu().numpy()
 
     def score(self, prompts: Sequence[str]) -> np.ndarray:
-        return self.score_tokens(self.tokenizer.encode_batch(list(prompts)))
+        t0 = time.perf_counter()
+        with trace.span("predictor.score", len(prompts)):
+            with trace.span("predictor.tokenize"):
+                tokens = self.tokenizer.encode_batch(list(prompts))
+            with trace.span("predictor.forward"):
+                out = self._forward(tokens)
+            with trace.span("predictor.readback"):
+                scores = out.cpu().numpy()
+        self.scored += len(prompts)
+        self.score_seconds += time.perf_counter() - t0
+        return scores
 
     @classmethod
     def init(cls, cfg: PredictorConfig, seed: int = 0, *,

@@ -24,6 +24,8 @@ from typing import Dict, Sequence
 
 import torch
 
+from repro_torch import trace
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_decode_paged", "flash_prefill", "flash_decode",
@@ -59,6 +61,11 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     per source, all started together. Returns ``{name: compiler output}``
     (``ptxas`` register and shared-memory report; empty when the library was
     already built). Raises with the compiler's output if any build fails."""
+    with trace.span("kernels.build"):
+        return _build(names)
+
+
+def _build(names: Sequence[str]) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:

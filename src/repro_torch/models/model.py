@@ -52,9 +52,9 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """``(loss, metrics)``: token-mean CE plus the auxiliary losses (the
     MoE family's load-balance and router z-losses, zero for the others);
-    metrics hold ``ce`` and each aux. A VLM batch's ``vision_embeds`` and
-    ``mrope_positions``, and an audio batch's ``frames``, go to the
-    forward."""
+    metrics hold ``ce`` and each aux but the per-position ``token_drops``.
+    A VLM batch's ``vision_embeds`` and ``mrope_positions``, and an audio
+    batch's ``frames``, go to the forward."""
     logits, _, aux = tfm.forward_seq(
         params, cfg, batch["tokens"],
         vision_embeds=batch.get("vision_embeds"),
@@ -63,7 +63,8 @@ def lm_loss(params: Params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         attn_impl=attn_impl, remat=remat)
     ce = cross_entropy(logits, batch["targets"], batch["loss_mask"])
     loss = ce + aux["load_balance_loss"] + aux["router_z_loss"]
-    return loss, {"ce": ce, **aux}
+    return loss, {"ce": ce, **{k: v for k, v in aux.items()
+                               if k != "token_drops"}}
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +114,8 @@ def build(cfg: ModelConfig, *, attn_impl: str = "chunked",
         return logits, cache
 
     def decode_step(params, cache, token):
-        return tfm.decode_step(params, cfg, cache, token)
+        logits, cache, _ = tfm.decode_step(params, cfg, cache, token)
+        return logits, cache
 
     def init_cache(batch, max_len, pos=0, dtype=None, *,
                    device: DeviceLike = "cuda"):

@@ -17,21 +17,20 @@ its rows (rows that no token took stay zero, as the reference's empty
 capacity does), and each token sums its kept slots' outputs weighted by
 their gates. These are plain large products, outside any kernel in both.
 
-Under ``torch.profiler`` the four stages run in named ranges
-(``moe.router``, ``moe.dispatch``, ``moe.experts``, ``moe.combine``), so a
-trace with host activity attributes the device time of each stage's
-kernels; without a profiler the ranges are not entered.
+The four stages are the tracer's spans (``repro_torch.trace``):
+``moe.router``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``, so a
+profile with host activity attributes the device time of each stage's
+kernels.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
+from repro_torch import trace
 from repro_torch.configs.base import MoEConfig
 from repro_torch.models.common import activate, dense_init, gated
 from repro_torch.sharding.annotate import (current_mesh_rules, resolve_spec,
@@ -55,13 +54,6 @@ def init_moe(gen: torch.Generator, d_model: int, moe: MoEConfig,
     return p
 
 
-def _span(name: str):
-    """A named profiler range, entered only while a profiler runs (a
-    range costs microseconds of host time even when none does)."""
-    return (record_function(name) if torch.autograd._profiler_enabled()
-            else contextlib.nullcontext())
-
-
 def _capacity(group_size: int, moe: MoEConfig) -> int:
     c = int(group_size * moe.top_k * moe.capacity_factor / moe.num_experts)
     return max(8, -(-c // 8) * 8)  # round up to multiple of 8, min 8
@@ -73,8 +65,9 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
 
     ``aux`` holds the scaled ``load_balance_loss`` (top-1 fraction times
     mean probability, per expert) and ``router_z_loss`` (mean squared
-    logsumexp of the router logits), and ``dropped_slots``, the token-slots
-    capacity dropped. The tokens form one dispatch (the reference's call on
+    logsumexp of the router logits), ``dropped_slots``, the token-slots
+    capacity dropped, and ``token_drops`` (B, S), the slots each position
+    lost. The tokens form one dispatch (the reference's call on
     a batch); with ``per_row`` each row is a dispatch of its own, with its
     own groups and capacity: what the reference engine's continuation and
     decode programs compute, which route one row at a time under ``vmap``.
@@ -97,16 +90,17 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
     xg = with_sharding(x.reshape(g, tg, d), ("moe_group_dp", None, None))
     weights = (p["router"], p["w_up"], p.get("w_gate"), p["w_down"])
     if not _sharded(xg):
-        y, frac, mean_p, z, dropped = _dispatch(xg, *weights, moe=moe,
-                                                activation=activation,
-                                                first=0, experts=e)
+        y, frac, mean_p, z, drops = _dispatch(xg, *weights, moe=moe,
+                                              activation=activation,
+                                              first=0, experts=e)
     else:
-        y, frac, mean_p, z, dropped = _sharded_dispatch(
+        y, frac, mean_p, z, drops = _sharded_dispatch(
             xg, *weights, moe=moe, activation=activation)
     lb = e * torch.sum(frac * mean_p)
     return y.reshape(b, s, d), {
         "load_balance_loss": lb * moe.aux_loss_coef,
-        "router_z_loss": z * moe.router_z_coef, "dropped_slots": dropped}
+        "router_z_loss": z * moe.router_z_coef,
+        "dropped_slots": drops.sum(), "token_drops": drops.reshape(b, s)}
 
 
 def _sharded(x: torch.Tensor) -> bool:
@@ -152,7 +146,7 @@ def _sharded_dispatch(xg, router, w_up, w_gate, w_down, *, moe: MoEConfig,
             on(group_dims, Partial("avg")),                # frac
             on(group_dims, Partial("avg")),                # mean_p
             on(group_dims, Partial("avg")),                # z
-            on(group_dims, Partial()))                     # dropped
+            groups)                                        # drops
     fn = local_map(
         functools.partial(_dispatch, moe=moe, activation=activation,
                           first=first, experts=experts),
@@ -169,14 +163,14 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
     """The capacity-bounded dispatch of groups ``xg`` (G, T, d) through
     experts ``first .. first + experts - 1`` (the expert weights hold those
     alone): ``(y (G, T, d), top-1 fraction (E,), mean probability (E,),
-    z-loss, dropped slots)``. Slots routed to other experts contribute
+    z-loss, dropped slots of each token (G, T))``. Slots routed to other experts contribute
     nothing to ``y``."""
     g, tg, d = xg.shape
     e, k = moe.num_experts, moe.top_k
     cap = _capacity(tg, moe)
     dev = xg.device
 
-    with _span("moe.router"):
+    with trace.span("moe.router"):
         # router logits in f32 from operands in the activation dtype (the
         # reference's preferred_element_type=f32), then the softmax
         logits = xg.float() @ router.to(xg.dtype).float()
@@ -201,15 +195,15 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
         row = torch.where(here, ((expert - first) * g + group) * cap + pos,
                           experts * g * cap)
         token = group * tg + torch.arange(tg, device=dev).repeat(k)[None]
-    with _span("moe.dispatch"):
+    with trace.span("moe.dispatch"):
         xe = xg.new_zeros(experts * g * cap + 1, d)
         xe[row.reshape(-1)] = xg.reshape(-1, d)[token.reshape(-1)]
         xe = xe[:-1].view(experts, g * cap, d)
-    with _span("moe.experts"):
+    with trace.span("moe.experts"):
         up = torch.bmm(xe, w_up)
         gate = torch.bmm(xe, w_gate) if w_gate is not None else None
         ye = torch.bmm(activate(up, gate, activation), w_down)
-    with _span("moe.combine"):
+    with trace.span("moe.combine"):
         ye = torch.cat([ye.reshape(-1, d), ye.new_zeros(1, d)])
         # weights cast to the activation dtype (as the reference's combine
         # einsum), products summed in f32
@@ -221,4 +215,4 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
     top1 = F.one_hot(gate_idx[..., 0], e).float()
     z = torch.logsumexp(logits, -1).square().mean()
     return (y, top1.mean((0, 1)), probs.mean((0, 1)), z,
-            (~keep).sum())
+            (~keep).view(g, k, tg).sum(1))

@@ -82,6 +82,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import trace
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
@@ -448,19 +449,26 @@ def _ffn_residual(lp: Params, x, cfg: ModelConfig, *, per_row: bool):
     dense MLP, the MoE, or both (a shared expert), as the reference's
     ``_ffn``; ``aux`` holds the MoE's losses and dropped slots. ``per_row``
     routes each row as its own MoE dispatch."""
-    xn = apply_norm(lp["ln2"], x, cfg.norm)
-    y, aux = 0.0, _NO_AUX
-    if "moe" in lp:
-        y, aux = apply_moe(lp["moe"], xn, cfg.moe, cfg.activation,
-                           per_row=per_row)
-        y = _residual(y)
-    if "mlp" in lp:
-        y = y + _mlp(lp["mlp"], xn, cfg)
-    return x + y, aux
+    with trace.span("model.ffn"):
+        xn = apply_norm(lp["ln2"], x, cfg.norm)
+        y, aux = 0.0, _NO_AUX
+        if "moe" in lp:
+            y, aux = apply_moe(lp["moe"], xn, cfg.moe, cfg.activation,
+                               per_row=per_row)
+            y = _residual(y)
+        if "mlp" in lp:
+            y = y + _mlp(lp["mlp"], xn, cfg)
+        return x + y, aux
 
 
-def _add_aux(total: dict, aux: dict) -> dict:
-    return {k: total.get(k, 0) + v for k, v in aux.items()}
+def _sum_aux(auxes: List[dict]) -> dict:
+    """The layers' aux summed: one stack and sum per key, not an add per
+    layer (a served step is bound by the host's launches)."""
+    if not auxes:
+        return dict(_NO_AUX)
+    return {k: (torch.stack([a[k] for a in auxes]).sum(0)
+                if torch.is_tensor(v) else sum(a[k] for a in auxes))
+            for k, v in auxes[0].items()}
 
 
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -612,15 +620,16 @@ def _forward_plain(params: Params, cfg: ModelConfig, x: torch.Tensor,
     """The training forward over embedded inputs ``x``: every decoder layer
     on the plain route, recomputed in backward as ``remat`` says; the
     auxiliary losses summed over layers."""
-    aux = dict(_NO_AUX)
+    auxes = []
     layer = _remat(_plain_layer, remat)
     for lp in unstack_layers(params):
         x, layer_aux = layer(lp, x, cfg, positions, mrope_pos, enc_out,
                              attn_impl, kv_chunk)
-        aux = _add_aux(aux, layer_aux)
-    return _final(params, cfg, x), None, aux
+        auxes.append(layer_aux)
+    return _final(params, cfg, x), None, _sum_aux(auxes)
 
 
+@trace.traced("model.forward_seq")
 def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
                 vision_embeds: Optional[torch.Tensor] = None,
                 mrope_positions: Optional[torch.Tensor] = None,
@@ -634,8 +643,8 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     Returns ``(logits (B, S', V), cache-or-None, aux)``: ``S' = P + S``
     with ``vision_embeds`` (B, P, d) prepended to the token embeddings (the
     VLM family's stub patch embeddings), ``aux`` the MoE's auxiliary
-    losses summed over layers (zero for the other families) and its
-    ``dropped_slots``. ``mrope_positions`` (3, B, S') are M-RoPE's position
+    losses summed over layers (zero for the other families), its
+    ``dropped_slots`` and its ``token_drops`` (B, S'). ``mrope_positions`` (3, B, S') are M-RoPE's position
     streams, the linear positions broadcast where none are given. The
     encoder-decoder family needs ``frames`` (B, F, d), the stub frame
     embeddings its encoder reads (:func:`encode`); every decoder layer
@@ -688,50 +697,57 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     n = b if cache is None else len(cache.get("tables", cache.get("slots")))
     q_start = torch.zeros(b, dtype=torch.int32, device=dev)
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
-    aux = dict(_NO_AUX)
+    auxes = []
     for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
-        xn = apply_norm(lp["ln1"], x, cfg.norm)
-        if cfg.family == SSM:
-            x = _rwkv_seq(lp, x, xn, cfg, cache, layer, attn_impl)
-            continue
-        q, k, v = _qkv(lp["attn"], xn, cfg)
-        q, k = _tag_qk(*_rope_qk(q, k, cfg, positions, mrope_positions))
-        if cache is not None and "tables" in cache:
-            write_paged(cache["k"][layer], cache["tables"], positions[:n],
-                        k[:n])
-            write_paged(cache["v"][layer], cache["tables"], positions[:n],
-                        v[:n])
-        elif cache is not None:
-            sharded.write_prompt(cache["k"][layer], cache["slots"], k[:n])
-            sharded.write_prompt(cache["v"][layer], cache["slots"], v[:n])
-        if plain:
-            out = sharded.attend(q, k, v, positions, positions, causal=True,
-                            window=cfg.sliding_window, impl=attn_impl,
-                            kv_chunk=kv_chunk)
-        else:
-            out = prefill_attention(q, _heads_first(k), _heads_first(v),
-                                    q_start, kv_len,
-                                    window=cfg.sliding_window)
-        mix = _attn_proj(lp, out)
-        if cfg.family == HYBRID:
-            ssm_out, tail, state = ssd.apply_ssm(lp["ssm"], xn, cfg,
-                                                 attn_impl=attn_impl)
-            mix = 0.5 * (mix + _residual(ssm_out))
-            if cache is not None:
-                slots = cache["slots"]
-                sharded.put_rows(cache["conv_tail"][layer], slots, tail[:n])
-                sharded.put_rows(cache["ssm_state"][layer], slots,
-                                 state[:n])
-        x = x + mix
-        if enc_out is not None:
-            x = x + _cross_seq(lp, x, enc_out, cfg, cache, layer, positions,
-                               attn_impl, kv_chunk)
-        x, layer_aux = _ffn_residual(lp, x, cfg, per_row=False)
-        aux = _add_aux(aux, layer_aux)
+        with trace.span("model.layer", layer):
+            xn = apply_norm(lp["ln1"], x, cfg.norm)
+            if cfg.family == SSM:
+                x = _rwkv_seq(lp, x, xn, cfg, cache, layer, attn_impl)
+                continue
+            with trace.span("model.attn"):
+                q, k, v = _qkv(lp["attn"], xn, cfg)
+                q, k = _tag_qk(*_rope_qk(q, k, cfg, positions,
+                                         mrope_positions))
+                if cache is not None and "tables" in cache:
+                    write_paged(cache["k"][layer], cache["tables"],
+                                positions[:n], k[:n])
+                    write_paged(cache["v"][layer], cache["tables"],
+                                positions[:n], v[:n])
+                elif cache is not None:
+                    sharded.write_prompt(cache["k"][layer], cache["slots"],
+                                         k[:n])
+                    sharded.write_prompt(cache["v"][layer], cache["slots"],
+                                         v[:n])
+                if plain:
+                    out = sharded.attend(q, k, v, positions, positions,
+                                         causal=True,
+                                         window=cfg.sliding_window,
+                                         impl=attn_impl, kv_chunk=kv_chunk)
+                else:
+                    out = prefill_attention(q, _heads_first(k),
+                                            _heads_first(v), q_start, kv_len,
+                                            window=cfg.sliding_window)
+                mix = _attn_proj(lp, out)
+                if cfg.family == HYBRID:
+                    ssm_out, tail, state = ssd.apply_ssm(
+                        lp["ssm"], xn, cfg, attn_impl=attn_impl)
+                    mix = 0.5 * (mix + _residual(ssm_out))
+                    if cache is not None:
+                        slots = cache["slots"]
+                        sharded.put_rows(cache["conv_tail"][layer], slots,
+                                         tail[:n])
+                        sharded.put_rows(cache["ssm_state"][layer], slots,
+                                         state[:n])
+                x = x + mix
+                if enc_out is not None:
+                    x = x + _cross_seq(lp, x, enc_out, cfg, cache, layer,
+                                       positions, attn_impl, kv_chunk)
+            x, layer_aux = _ffn_residual(lp, x, cfg, per_row=False)
+            auxes.append(layer_aux)
     logits = _final(params, cfg, x)
     if cache is not None:
         cache = {**cache, "pos": kv_len[:n]}
-    return logits, cache, aux
+    return logits, cache, _sum_aux(auxes)
 
 
 def _cross_seq(lp: Params, x: torch.Tensor, enc_out: torch.Tensor,
@@ -802,8 +818,9 @@ def _rwkv_step(lp: Params, x: torch.Tensor, xn: torch.Tensor,
     return x + _residual(out2[:, None])
 
 
+@trace.traced("model.forward_chunk")
 def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
-                  cache: Cache) -> Tuple[torch.Tensor, Cache]:
+                  cache: Cache) -> Tuple[torch.Tensor, Cache, dict]:
     """Continue a partial prefill: row b's chunk ``tokens[b]`` (B, C) sits
     at absolute positions ``pos[b] .. pos[b]+C-1``.
 
@@ -816,8 +833,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     state across chunks that :func:`forward_seq` does not take back in.
     M-RoPE takes the text positions in all three streams. Each row's chunk
     is its own MoE dispatch, as under the reference engine's ``vmap``.
-    Returns
-    ``(logits (B, C, V), cache)`` with ``pos`` advanced by C."""
+    Returns ``(logits (B, C, V), cache, aux)`` with ``pos`` advanced by C,
+    ``aux`` as :func:`forward_seq`'s."""
     check_supported(cfg)
     if cfg.family not in ATTENTION_FAMILIES or cfg.is_encdec:
         raise NotImplementedError(
@@ -830,29 +847,36 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                              device=x.device)[None, :]
     kv_len = pos0 + c
     paged = "tables" in cache
+    auxes = []
     for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
-        q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg)
-        q, k = _rope_qk(q, k, cfg, positions)
-        k_all, v_all = cache["k"][layer], cache["v"][layer]
-        if paged:
-            tables = cache["tables"]
-            write_paged(k_all, tables, positions, k)
-            write_paged(v_all, tables, positions, v)
-            lane_k, lane_v = (gather_lane(k_all, tables),
-                              gather_lane(v_all, tables))
-        else:
-            rows = cache["slots"].long()
-            k_all[rows[:, None], :, positions.long()] = k
-            v_all[rows[:, None], :, positions.long()] = v
-            lane_k, lane_v = k_all[rows], v_all[rows]
-        out = prefill_attention(q, lane_k, lane_v, pos0, kv_len,
-                                window=cfg.sliding_window)
-        x, _ = _ffn_residual(lp, x + _attn_proj(lp, out), cfg, per_row=True)
-    return _final(params, cfg, x), {**cache, "pos": kv_len}
+        with trace.span("model.layer", layer):
+            with trace.span("model.attn"):
+                q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm),
+                               cfg)
+                q, k = _rope_qk(q, k, cfg, positions)
+                k_all, v_all = cache["k"][layer], cache["v"][layer]
+                if paged:
+                    tables = cache["tables"]
+                    write_paged(k_all, tables, positions, k)
+                    write_paged(v_all, tables, positions, v)
+                    lane_k, lane_v = (gather_lane(k_all, tables),
+                                      gather_lane(v_all, tables))
+                else:
+                    rows = cache["slots"].long()
+                    k_all[rows[:, None], :, positions.long()] = k
+                    v_all[rows[:, None], :, positions.long()] = v
+                    lane_k, lane_v = k_all[rows], v_all[rows]
+                out = prefill_attention(q, lane_k, lane_v, pos0, kv_len,
+                                        window=cfg.sliding_window)
+                x = x + _attn_proj(lp, out)
+            x, layer_aux = _ffn_residual(lp, x, cfg, per_row=True)
+            auxes.append(layer_aux)
+    return _final(params, cfg, x), {**cache, "pos": kv_len}, _sum_aux(auxes)
 
 
+@trace.traced("model.decode_step")
 def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
-                token: torch.Tensor) -> Tuple[torch.Tensor, Cache]:
+                token: torch.Tensor) -> Tuple[torch.Tensor, Cache, dict]:
     """One decode step. token: (B, 1) int at per-row positions ``pos``.
 
     Per layer the token's K/V row is written first: paged, into block
@@ -867,8 +891,8 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     F-row lane: no row masked, none written). M-RoPE takes ``pos`` in all
     three streams; learned positions add table row ``pos mod 8192``. Each
     row's token is its own MoE dispatch, as under the reference engine's
-    ``vmap``. Returns ``(logits (B, V), cache)`` with ``pos`` advanced by
-    one."""
+    ``vmap``. Returns ``(logits (B, V), cache, aux)`` with ``pos`` advanced
+    by one, ``aux`` as :func:`forward_seq`'s."""
     check_supported(cfg)
     pos = cache["pos"].to(torch.int32)
     x = _embed(params, cfg, token, pos)
@@ -883,40 +907,47 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
         rows = slots
     if "cross_k" in cache:      # every encoder row visible
         cross_pos = torch.full_like(pos, cache["cross_k"].shape[3] - 1)
+    auxes = []
     for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
-        xn = apply_norm(lp["ln1"], x, cfg.norm)
-        if cfg.family == SSM:
-            x = _rwkv_step(lp, x, xn, cfg, cache, layer, rows)
-            continue
-        q, k, v = _qkv(lp["attn"], xn, cfg)
-        q, k = _rope_qk(q, k, cfg, positions)
-        k_all, v_all = cache["k"][layer], cache["v"][layer]
-        if paged:
-            write_paged(k_all, tables, positions, k)
-            write_paged(v_all, tables, positions, v)
-            out = paged_decode_attention(q[:, 0], k_all, v_all, tables,
-                                         lengths)
-        else:
-            sharded.write_token(k_all, slots, k[:, 0], pos)
-            sharded.write_token(v_all, slots, v[:, 0], pos)
-            out = sharded.ring_decode(q[:, 0], k_all, v_all, slots, pos,
-                                      window=cfg.sliding_window)
-        mix = _attn_proj(lp, out[:, None])
-        if cfg.family == HYBRID:
-            tails = cache["conv_tail"][layer]
-            states = cache["ssm_state"][layer]
-            ssm_out, tail, state = ssd.ssm_step(
-                lp["ssm"], xn[:, 0], cfg, sharded.take_rows(tails, rows),
-                sharded.take_rows(states, rows))
-            sharded.put_rows(tails, rows, tail)
-            sharded.put_rows(states, rows, state)
-            mix = 0.5 * (mix + _residual(ssm_out[:, None]))
-        x = x + mix
-        if "cross_k" in cache:
-            q = _q(lp["cross"], apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
-            out = sharded.ring_decode(q[:, 0], cache["cross_k"][layer],
-                                      cache["cross_v"][layer], slots,
-                                      cross_pos)
-            x = x + _attn_proj(lp, out[:, None], "cross")
-        x, _ = _ffn_residual(lp, x, cfg, per_row=True)
-    return _final(params, cfg, x)[:, 0], {**cache, "pos": pos + 1}
+        with trace.span("model.layer", layer):
+            xn = apply_norm(lp["ln1"], x, cfg.norm)
+            if cfg.family == SSM:
+                x = _rwkv_step(lp, x, xn, cfg, cache, layer, rows)
+                continue
+            with trace.span("model.attn"):
+                q, k, v = _qkv(lp["attn"], xn, cfg)
+                q, k = _rope_qk(q, k, cfg, positions)
+                k_all, v_all = cache["k"][layer], cache["v"][layer]
+                if paged:
+                    write_paged(k_all, tables, positions, k)
+                    write_paged(v_all, tables, positions, v)
+                    out = paged_decode_attention(q[:, 0], k_all, v_all,
+                                                 tables, lengths)
+                else:
+                    sharded.write_token(k_all, slots, k[:, 0], pos)
+                    sharded.write_token(v_all, slots, v[:, 0], pos)
+                    out = sharded.ring_decode(q[:, 0], k_all, v_all, slots,
+                                              pos, window=cfg.sliding_window)
+                mix = _attn_proj(lp, out[:, None])
+                if cfg.family == HYBRID:
+                    tails = cache["conv_tail"][layer]
+                    states = cache["ssm_state"][layer]
+                    ssm_out, tail, state = ssd.ssm_step(
+                        lp["ssm"], xn[:, 0], cfg,
+                        sharded.take_rows(tails, rows),
+                        sharded.take_rows(states, rows))
+                    sharded.put_rows(tails, rows, tail)
+                    sharded.put_rows(states, rows, state)
+                    mix = 0.5 * (mix + _residual(ssm_out[:, None]))
+                x = x + mix
+                if "cross_k" in cache:
+                    q = _q(lp["cross"],
+                           apply_norm(lp["ln_cross"], x, cfg.norm), cfg)
+                    out = sharded.ring_decode(q[:, 0], cache["cross_k"][layer],
+                                              cache["cross_v"][layer], slots,
+                                              cross_pos)
+                    x = x + _attn_proj(lp, out[:, None], "cross")
+            x, layer_aux = _ffn_residual(lp, x, cfg, per_row=True)
+            auxes.append(layer_aux)
+    return (_final(params, cfg, x)[:, 0], {**cache, "pos": pos + 1},
+            _sum_aux(auxes))

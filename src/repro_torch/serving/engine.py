@@ -66,6 +66,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.configs.base import AUDIO, MOE, ModelConfig
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.scheduler.request import Request
@@ -159,9 +160,14 @@ class RealBackend:
         self.extend_dispatches = 0    # continuation-chunk dispatches
         self.prefill_requests = 0     # requests whose prefill completed
         self.prefill_seconds = 0.0    # wall time spent in admission/prefill
+        self.decode_steps = 0         # decode_step dispatches
+        self.decode_seconds = 0.0     # their wall time, timed as prefill's
         self.prefix_installs = 0      # slots claimed at a cached offset
         self.prefix_tokens_copied = 0  # KV tokens copied instead of computed
         self.prefill_pad_lanes = 0    # replayed lanes of MoE first chunks
+        # MoE token-slots of real positions dropped at expert capacity,
+        # summed on the device: read as an int by ``dropped_slots``
+        self._dropped = 0
 
     # -------------------------------------------------------------- protocol
     def attach(self, core: ServingCore) -> None:
@@ -332,6 +338,31 @@ class RealBackend:
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample(logits, self._gen, self._sampler_cfg)
 
+    def _real(self, lengths: Sequence[int], width: int):
+        """An MoE model's mask, on the card, of the prompt positions of
+        rows ``lengths`` long padded to ``width`` (the rest are pad, and a
+        replayed lane is none of its rows); None for the other families."""
+        if self.cfg.moe is None:
+            return None
+        real = np.arange(width)[None] < np.asarray(lengths)[:, None]
+        return torch.as_tensor(real, device=self.device)
+
+    def _count_drops(self, aux: dict, real=None) -> None:
+        """Add a forward's capacity drops at the positions ``real`` marks
+        (every position of a decode step is real)."""
+        if "token_drops" not in aux:
+            return
+        drops = (aux["dropped_slots"] if real is None
+                 else (aux["token_drops"][:real.shape[0]] * real).sum())
+        self._dropped = self._dropped + drops
+
+    @property
+    def dropped_slots(self) -> int:
+        """MoE token-slots of real prompt and output positions dropped at
+        expert capacity so far (pad positions' drops left out; reading it
+        waits for the device)."""
+        return int(self._dropped)
+
     # ------------------------------------------------------- prefix caching
     def _store_prefix(self, req: Request) -> None:
         """Contiguous mode: clone the completed prompt's content-named
@@ -382,6 +413,11 @@ class RealBackend:
         contiguous mode, its prefix blocks' KV stored for later hits."""
         if not chunks:
             return now
+        with trace.span("backend.prefill"):
+            trace.ids(r for r, _s, _e in chunks)
+            return self._prefill(chunks, now)
+
+    def _prefill(self, chunks: Sequence[PrefillChunk], now: float) -> float:
         t0 = time.perf_counter()
         first_groups: Dict[int, list] = {}
         ext_groups: Dict[int, list] = {}
@@ -422,89 +458,119 @@ class RealBackend:
             # an MoE dispatch replays lane 0 up to a power of two (see the
             # module docstring); the cache takes the first n rows only
             lanes = _next_pow2(n) if self.cfg.family == MOE else n
-            tokens = np.zeros((lanes, bucket_len), np.int64)
-            for j, req in enumerate(group):
-                ids = self._prompt_ids(req)[:bucket_len]
-                tokens[j, :len(ids)] = ids      # tail = pad token 0
-            tokens[n:] = tokens[0]
-            # the pool blocks that hold the bucket
-            nb = -(-bucket_len // self.k_pool.shape[2]) if self.paged else None
-            logits, _, _ = tfm.forward_seq(
-                self.params, self.cfg,
-                torch.as_tensor(tokens, device=self.device),
-                cache=self._cache(group, np.zeros(n, np.int32), nb))
-            slots = [self._slot_of[r.req_id] for r in group]
-            self.slot_tokens[slots] = self._sample(logits[:n, -1])
+            with trace.span("backend.tables"):
+                tokens = np.zeros((lanes, bucket_len), np.int64)
+                lengths = []
+                for j, req in enumerate(group):
+                    ids = self._prompt_ids(req)[:bucket_len]
+                    tokens[j, :len(ids)] = ids      # tail = pad token 0
+                    lengths.append(len(ids))
+                tokens[n:] = tokens[0]
+                # the pool blocks that hold the bucket
+                nb = (-(-bucket_len // self.k_pool.shape[2]) if self.paged
+                      else None)
+                tokens = torch.as_tensor(tokens, device=self.device)
+                real = self._real(lengths, bucket_len)
+                cache = self._cache(group, np.zeros(n, np.int32), nb)
+            logits, _, aux = tfm.forward_seq(self.params, self.cfg, tokens,
+                                             cache=cache)
+            self._count_drops(aux, real)
+            with trace.span("backend.sample"):
+                slots = [self._slot_of[r.req_id] for r in group]
+                self.slot_tokens[slots] = self._sample(logits[:n, -1])
             self.prefill_dispatches += 1
             self.prefill_pad_lanes += lanes - n
 
         for chunk_len, group in sorted(ext_groups.items()):
-            tokens = np.zeros((len(group), chunk_len), np.int64)
-            starts = np.zeros((len(group),), np.int32)
-            commit = []
-            for j, (req, start, end) in enumerate(group):
-                ids = self._prompt_ids(req)[start:end]
-                tokens[j, :len(ids)] = ids      # tail past len(ids) = pad 0s
-                starts[j] = start
-                commit.append(end >= self.prefill_total(req))
-            logits, _ = tfm.forward_chunk(
-                self.params, self.cfg,
-                torch.as_tensor(tokens, device=self.device),
-                self._cache([r for r, _s, _e in group], starts))
-            nxt = self._sample(logits[:, -1])
-            # mid-prompt samples are meaningless: only completing chunks
-            # commit a pending decode token
-            rows = [j for j, c in enumerate(commit) if c]
-            if rows:
-                slots = [self._slot_of[group[j][0].req_id] for j in rows]
-                self.slot_tokens[slots] = nxt[rows]
+            with trace.span("backend.tables"):
+                tokens = np.zeros((len(group), chunk_len), np.int64)
+                starts = np.zeros((len(group),), np.int32)
+                commit, lengths = [], []
+                for j, (req, start, end) in enumerate(group):
+                    ids = self._prompt_ids(req)[start:end]
+                    tokens[j, :len(ids)] = ids  # tail past len(ids) = pad 0s
+                    starts[j] = start
+                    commit.append(end >= self.prefill_total(req))
+                    lengths.append(len(ids))
+                tokens = torch.as_tensor(tokens, device=self.device)
+                real = self._real(lengths, chunk_len)
+                cache = self._cache([r for r, _s, _e in group], starts)
+            logits, _, aux = tfm.forward_chunk(self.params, self.cfg, tokens,
+                                               cache)
+            self._count_drops(aux, real)
+            with trace.span("backend.sample"):
+                nxt = self._sample(logits[:, -1])
+                # mid-prompt samples are meaningless: only completing chunks
+                # commit a pending decode token
+                rows = [j for j, c in enumerate(commit) if c]
+                if rows:
+                    slots = [self._slot_of[group[j][0].req_id] for j in rows]
+                    self.slot_tokens[slots] = nxt[rows]
             self.extend_dispatches += 1
 
-        self._sync()
+        with trace.span("backend.sync"):
+            self._sync()
         self.prefill_seconds += time.perf_counter() - t0
-        now = self._now(now)
-        toks = self._tokens_snapshot()
-        for req, _start, end in chunks:
-            if end < self.prefill_total(req):
-                continue                        # still mid-prompt
-            self.prefill_requests += 1
-            # start the host mirror of the lane pos; paged, the pool blocks
-            # *are* the citable KV (the core commits their hashes),
-            # contiguous, the prompt's blocks go to the fragment store
-            self._pos[req.req_id] = self.prefill_total(req)
-            if not self.paged:
-                self._store_prefix(req)
-            # recompute semantics on re-admission after preemption: decode
-            # progress and TTFT are preserved
-            if req.tokens_done == 0:
-                req.tokens_done = 1             # prefill emits token 1
-                if toks is not None:
-                    self._record(req, toks[self._slot_of[req.req_id]], now)
-            if req.first_token_time is None:
-                req.first_token_time = now
+        with trace.span("backend.record"):
+            now = self._now(now)
+            toks = self._tokens_snapshot()
+            for req, _start, end in chunks:
+                if end < self.prefill_total(req):
+                    continue                        # still mid-prompt
+                self.prefill_requests += 1
+                # start the host mirror of the lane pos; paged, the pool
+                # blocks *are* the citable KV (the core commits their
+                # hashes), contiguous, the prompt's blocks go to the fragment
+                # store
+                self._pos[req.req_id] = self.prefill_total(req)
+                if not self.paged:
+                    self._store_prefix(req)
+                # recompute semantics on re-admission after preemption:
+                # decode progress and TTFT are preserved
+                if req.tokens_done == 0:
+                    req.tokens_done = 1             # prefill emits token 1
+                    if toks is not None:
+                        self._record(req, toks[self._slot_of[req.req_id]],
+                                     now)
+                if req.first_token_time is None:
+                    req.first_token_time = now
         return now
 
     def decode(self, now: float) -> float:
+        with trace.span("backend.decode"):
+            return self._decode(now)
+
+    def _decode(self, now: float) -> float:
         ready = (self.core.decode_ready if self.core is not None
                  else lambda r: True)
         active = [i for i, r in enumerate(self.slot_req)
                   if r is not None and ready(r)]
         if not active:
             return now
+        t0 = time.perf_counter()
         reqs = [self.slot_req[i] for i in active]
-        poss = np.asarray([self._pos[r.req_id] for r in reqs], np.int32)
-        logits, _ = tfm.decode_step(self.params, self.cfg,
-                                    self._cache(reqs, poss),
-                                    self.slot_tokens[active][:, None])
-        self.slot_tokens[active] = self._sample(logits)
-        self._sync()
-        now = self._now(now)
-        toks = self._tokens_snapshot()
-        for i, req in zip(active, reqs):
-            req.tokens_done += 1
-            self._pos[req.req_id] += 1
-            if toks is not None:
-                self._record(req, toks[i], now)
+        trace.ids(reqs)
+        with trace.span("backend.tables"):
+            poss = np.asarray([self._pos[r.req_id] for r in reqs], np.int32)
+            cache = self._cache(reqs, poss)
+            tokens = self.slot_tokens[active][:, None]
+        logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
+                                         tokens)
+        self._count_drops(aux)
+        with trace.span("backend.sample"):
+            self.slot_tokens[active] = self._sample(logits)
+        with trace.span("backend.sync"):
+            self._sync()
+        self.decode_seconds += time.perf_counter() - t0
+        self.decode_steps += 1
+        with trace.span("backend.record"):
+            now = self._now(now)
+            toks = self._tokens_snapshot()
+            for i, req in zip(active, reqs):
+                req.tokens_done += 1
+                self._pos[req.req_id] += 1
+                if toks is not None:
+                    self._record(req, toks[i], now)
         return now
 
     def release(self, req: Request) -> None:
@@ -513,6 +579,25 @@ class RealBackend:
         slot = self._slot_of.pop(req.req_id, None)
         if slot is not None:
             self.slot_req[slot] = None
+
+
+class TracedCore(ServingCore):
+    """The copied :class:`ServingCore` with the tracer's spans around each
+    run-loop iteration (``core.tick``) and serving step (``core.step``,
+    carrying the ids of the requests it admitted)."""
+
+    def tick(self, *, on_step=None):
+        with trace.span("core.tick"):
+            return super().tick(on_step=on_step)
+
+    def step(self, now: float) -> float:
+        with trace.span("core.step"):
+            if not trace.enabled():
+                return super().step(now)
+            waiting = list(self.scheduler.waiting)
+            out = super().step(now)
+            trace.ids(r for r in waiting if r.start_time == now)
+            return out
 
 
 class Engine:
@@ -543,8 +628,8 @@ class Engine:
             paged=paged, device=device)
         self.allocator = allocator or BlockAllocator(
             total_blocks=s * (-(-cache_len // 16)), block_size=16)
-        self.core = ServingCore(scheduler, self.backend,
-                                allocator=self.allocator, config=config)
+        self.core = TracedCore(scheduler, self.backend,
+                               allocator=self.allocator, config=config)
 
     # -------------------------------------------------------------------- api
     @property

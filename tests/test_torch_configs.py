@@ -140,8 +140,8 @@ def test_dense_config_logits_match(arch):
     for t in range(20, 23):
         jl, jcache = jtfm.decode_step(jparams, jcfg, jcache,
                                       jnp.asarray(toks[:, t:t + 1]))
-        lg, cache = tfm.decode_step(params, cfg, cache,
-                                    torch.from_numpy(toks[:, t:t + 1]).long())
+        lg, cache, _ = tfm.decode_step(
+            params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]).long())
         np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
 
 

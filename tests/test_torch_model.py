@@ -103,15 +103,15 @@ def test_forward_chunk_and_decode_step_logits_match(model):
     _, cache, _ = tfm.forward_seq(params, cfg,
                                   torch.from_numpy(toks[:, :16]).long(),
                                   cache=cache)
-    lg, cache = tfm.forward_chunk(params, cfg,
-                                  torch.from_numpy(toks[:, 16:24]).long(),
-                                  cache)
+    lg, cache, _ = tfm.forward_chunk(params, cfg,
+                                     torch.from_numpy(toks[:, 16:24]).long(),
+                                     cache)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
     for t in (24, 25):
         jl, jcache = jtfm.decode_step(jparams, jcfg, jcache,
                                       jnp.asarray(toks[:, t:t + 1]))
-        lg, cache = tfm.decode_step(params, cfg, cache,
-                                    torch.from_numpy(toks[:, t:t + 1]).long())
+        lg, cache, _ = tfm.decode_step(
+            params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]).long())
         np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
     assert cache["pos"].tolist() == [26, 26]
 
@@ -131,8 +131,8 @@ def test_forward_chunk_per_row_offsets_match_reference_rows(model):
                         .long(), cache=sub)
     cache["pos"] = torch.tensor(starts, dtype=torch.int32)
     chunk = np.stack([toks[r, s:s + c] for r, s in enumerate(starts)])
-    lg, cache = tfm.forward_chunk(params, cfg, torch.from_numpy(chunk).long(),
-                                  cache)
+    lg, cache, _ = tfm.forward_chunk(params, cfg,
+                                     torch.from_numpy(chunk).long(), cache)
     for row, s in enumerate(starts):
         _, jc, _ = jtfm.forward_seq(jparams, jcfg,
                                     jnp.asarray(toks[row:row + 1, :s]),
@@ -150,12 +150,12 @@ def test_two_chunks_equal_one_forward_seq(model):
     full, fcache, _ = tfm.forward_seq(params, cfg, toks, build_cache=True,
                                       cache_len=64)
     cache = tfm.init_cache(cfg, 2, 64, device="cpu")
-    l1, cache = tfm.forward_chunk(params, cfg, toks[:, :16], cache)
-    l2, cache = tfm.forward_chunk(params, cfg, toks[:, 16:], cache)
+    l1, cache, _ = tfm.forward_chunk(params, cfg, toks[:, :16], cache)
+    l2, cache, _ = tfm.forward_chunk(params, cfg, toks[:, 16:], cache)
     torch.testing.assert_close(torch.cat([l1, l2], 1), full, **TOL)
     torch.testing.assert_close(cache["k"], fcache["k"], **TOL)
-    d1, _ = tfm.decode_step(params, cfg, fcache, toks[:, :1])
-    d2, _ = tfm.decode_step(params, cfg, cache, toks[:, :1])
+    d1, _, _ = tfm.decode_step(params, cfg, fcache, toks[:, :1])
+    d2, _, _ = tfm.decode_step(params, cfg, cache, toks[:, :1])
     torch.testing.assert_close(d1, d2, **TOL)
 
 
@@ -172,8 +172,8 @@ def test_decode_past_the_lane_wraps_like_the_reference_ring(model):
     for t in (w, w + 1):
         jl, jcache = jtfm.decode_step(jparams, jcfg, jcache,
                                       jnp.asarray(toks[:, t:t + 1]))
-        lg, cache = tfm.decode_step(params, cfg, cache,
-                                    torch.from_numpy(toks[:, t:t + 1]).long())
+        lg, cache, _ = tfm.decode_step(
+            params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]).long())
         np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
 
 
@@ -202,8 +202,8 @@ def test_hymba_prefill_then_decode_over_a_wrapped_ring(hymba):
     jstep = jax.jit(lambda c, t: jtfm.decode_step(jparams, jcfg, c, t))
     for t in range(32, t_end):
         jl, jcache = jstep(jcache, jnp.asarray(toks[:, t:t + 1]))
-        lg, cache = tfm.decode_step(params, cfg, cache,
-                                    torch.from_numpy(toks[:, t:t + 1]).long())
+        lg, cache, _ = tfm.decode_step(
+            params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]).long())
         np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
     assert cache["pos"].tolist() == [t_end, t_end]
     for leaf in ("conv_tail", "ssm_state"):

@@ -173,13 +173,13 @@ def test_model_logits_match_on_every_lane(arch):
     if cfg.moe is not None:
         assert aux["dropped_slots"].item() > 0
     jl, jcache = _per_row(jparams, jcfg, jcache, toks[:, 16:24], False)
-    lg, cache = tfm.forward_chunk(params, cfg, _t(toks[:, 16:24]).long(),
-                                  cache)
+    lg, cache, _ = tfm.forward_chunk(params, cfg, _t(toks[:, 16:24]).long(),
+                                     cache)
     np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
     for t in (24, 25):
         jl, jcache = _per_row(jparams, jcfg, jcache, toks[:, t:t + 1], True)
-        lg, cache = tfm.decode_step(params, cfg, cache,
-                                    _t(toks[:, t:t + 1]).long())
+        lg, cache, _ = tfm.decode_step(params, cfg, cache,
+                                       _t(toks[:, t:t + 1]).long())
         np.testing.assert_allclose(lg.numpy(), np.asarray(jl), **TOL)
 
 

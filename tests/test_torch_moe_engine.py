@@ -69,9 +69,9 @@ def test_engine_programs_route_each_row_alone():
     chunk = np.stack([toks[b, s0:s0 + 32] for b, s0 in enumerate(starts)])
     step = np.stack([toks[b, s0 + 32:s0 + 33] for b, s0 in enumerate(starts)])
     pos = torch.tensor(starts, dtype=torch.int32)
-    lg, cache = tfm.forward_chunk(params, cfg, _t(chunk).long(),
-                                  {**cache, "pos": pos})
-    ld, _ = tfm.decode_step(params, cfg, cache, _t(step).long())
+    lg, cache, _ = tfm.forward_chunk(params, cfg, _t(chunk).long(),
+                                     {**cache, "pos": pos})
+    ld, _, _ = tfm.decode_step(params, cfg, cache, _t(step).long())
     for b, (rl, rd) in enumerate(refs):
         np.testing.assert_allclose(lg[b].numpy(), rl, **TOL)
         np.testing.assert_allclose(ld[b].numpy(), rd, **TOL)

@@ -167,7 +167,7 @@ def test_prefill_then_decode_equals_full_forward(rwkv):
                                     remat="none")
     for t in range(28, 32):
         step = torch.from_numpy(toks[:, t:t + 1]).long()
-        lg, cache = tfm.decode_step(params, cfg, cache, step)
+        lg, cache, _ = tfm.decode_step(params, cfg, cache, step)
         jl, jcache = jtfm.decode_step(jparams, jcfg, jcache,
                                       jnp.asarray(toks[:, t:t + 1]))
         np.testing.assert_allclose(lg.numpy(), full[:, t].numpy(), atol=2e-4,

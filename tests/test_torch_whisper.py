@@ -140,7 +140,8 @@ def test_learned_positions_wrap_like_the_reference(whisper, start):
     jlogits, _ = jtfm.decode_step(jparams, jcfg, jcache,
                                   jnp.asarray(toks[:, :1]))
     cache = build(cfg).init_cache(1, 16, pos=start, device="cpu")
-    logits, cache = tfm.decode_step(params, cfg, cache, _t(toks[:, :1]).long())
+    logits, cache, _ = tfm.decode_step(params, cfg, cache,
+                                       _t(toks[:, :1]).long())
     np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits), **TOL)
     assert cache["pos"].tolist() == [start + 1]
 
