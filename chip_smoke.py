@@ -1237,6 +1237,7 @@ def serve_once(cfg, params, policy, dev, reqs, arch):
     from repro_torch.serving.metrics import RunCounters, report
 
     eng = make_engine(cfg, params, policy, dev, **SERVED[arch])
+    eng.warmup()                        # a paged pool's decode graphs
     eng.submit(reqs)
     t0 = time.perf_counter()
     fin = eng.run()
@@ -1299,7 +1300,10 @@ def phase_serve(dev, arch: str, kernels, idle=(),
             f"{eng.backend.prefix_installs}, tokens copied "
             f"{eng.backend.prefix_tokens_copied}; decode "
             f"{eng.backend.decode_steps} steps in "
-            f"{eng.backend.decode_seconds:.2f} s; MoE dropped slots "
+            f"{eng.backend.decode_seconds:.2f} s, "
+            f"{eng.backend.decode_graph_steps} of them graph replays "
+            f"padded by {eng.backend.decode_pad_rows} rows (capture "
+            f"{eng.backend.capture_seconds:.2f} s); MoE dropped slots "
             f"{eng.backend.dropped_slots}; scorer failures "
             f"{policy.scorer_failures}, degradations {policy.degradations}")
         problems = []

@@ -42,8 +42,8 @@ Decode runs one ``decode_step`` over the decode-ready slots per step.
 
 Padding lanes. The jitted reference pads every dispatch batch to a power
 of two with lanes that replay lane 0, to bound its compiled shapes. Eager
-PyTorch compiles nothing per shape, so the port pads only where the
-padding changes the result: an MoE model's first chunks. Their one
+PyTorch compiles nothing per shape, so the port pads prefill only where
+the padding changes the result: an MoE model's first chunks. Their one
 ``forward_seq`` routes all lanes' tokens as one dispatch, and expert
 capacity couples the rows, so the replayed lanes run through the whole
 model as in the reference (and make its group size divide the dispatch).
@@ -51,8 +51,20 @@ Only the real lanes' K/V and sampled tokens are kept: lane 0 keeps its
 own values, where the reference's scatter lets its replica's overwrite
 them (ROADMAP C3). ``forward_chunk`` and ``decode_step`` route each row
 on its own, as the reference's continuation and decode programs do under
-``vmap``, so padding them would change nothing; dense and VLM rows are
+``vmap``, so padding them changes no real row; dense and VLM rows are
 independent.
+
+Decode graphs. A served decode step is a few hundred small launches, and
+the host issues them slower than the card runs them. So ``warmup`` on a
+CUDA device with a paged pool captures ``decode_step`` as one CUDA graph
+per batch bucket (:func:`decode_buckets`) over static inputs: the tokens,
+positions and block tables of ``max_batch`` rows, each bucket's graph
+reading the first rows. A decode step then fills those inputs, pads its
+batch to the smallest bucket that holds it with rows that own nothing
+(the all-null table at position 0: their K/V lands in the null block,
+whose reads are masked) and replays the graph; sampling stays outside.
+A backend that was never warmed, contiguous lanes and the CPU decode
+eagerly, unpadded.
 
 Prompt handling and completion length follow the reference: prompts are
 hash-tokenized into their bucket, and a request finishes after its
@@ -60,8 +72,10 @@ ground-truth ``true_length`` tokens (the forced-length protocol).
 """
 from __future__ import annotations
 
+import bisect
+import gc
 import time
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +87,7 @@ from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_decode.ops import paged_decode_attention
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.config import ServingConfig, resolve_config
 from repro_torch.serving.core import PrefillChunk, ServingCore, WallClock
@@ -84,6 +99,15 @@ from repro_torch.serving.sampler import SamplerConfig, sample
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
+
+
+def decode_buckets(max_batch: int) -> List[int]:
+    """The decode batch sizes that get a graph: 1, 2, 4, then every
+    multiple of 8 below ``max_batch``, and ``max_batch``. A batch pads to
+    the smallest bucket that holds it: past 4 rows by at most 7, where
+    powers of two would pad 33 rows to 64."""
+    return ([b for b in (1, 2, 4) if b < max_batch]
+            + list(range(8, max_batch, 8)) + [max_batch])
 
 
 class RealBackend:
@@ -150,6 +174,15 @@ class RealBackend:
         self.v_pool: Optional[torch.Tensor] = None
         self._null_block: Optional[int] = None
         self._lane_blocks: Optional[int] = None    # cache_len // block_size
+        # the decode graphs' static inputs (built with the pool): max_batch
+        # rows of tokens, and of positions and tables, the last two in one
+        # int32 buffer filled by one copy from its host twin
+        self._tokens_in: Optional[torch.Tensor] = None
+        self._meta_host: Optional[torch.Tensor] = None
+        self._meta_in: Optional[torch.Tensor] = None
+        # bucket -> a replay of its graph, returning its static outputs
+        # (logits, the positions' MoE drops or None); set by ``warmup``
+        self._graphs: Dict[int, Callable[[], Tuple]] = {}
         # req_id -> tokens resident in the request's lane: the prefill target
         # at prompt completion, +1 per decode step (recompute re-admissions
         # restart at the target)
@@ -162,6 +195,9 @@ class RealBackend:
         self.prefill_seconds = 0.0    # wall time spent in admission/prefill
         self.decode_steps = 0         # decode_step dispatches
         self.decode_seconds = 0.0     # their wall time, timed as prefill's
+        self.decode_graph_steps = 0   # decode steps served by a graph replay
+        self.decode_pad_rows = 0      # padding rows those replays ran
+        self.capture_seconds = 0.0    # wall time of warmup's captures
         self.prefix_installs = 0      # slots claimed at a cached offset
         self.prefix_tokens_copied = 0  # KV tokens copied instead of computed
         self.prefill_pad_lanes = 0    # replayed lanes of MoE first chunks
@@ -232,6 +268,81 @@ class RealBackend:
         dtype = self.params["embed"].dtype
         self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        rows = self.max_batch
+        self._tokens_in = torch.zeros(rows, 1, dtype=torch.int64,
+                                      device=self.device)
+        self._meta_host = torch.empty(
+            rows * (1 + self._lane_blocks), dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+        self._meta_in = torch.empty_like(self._meta_host, device=self.device)
+
+    def _meta(self, meta: torch.Tensor):
+        """``meta``'s (positions (max_batch,), tables (max_batch,
+        lane_blocks)) views."""
+        rows = self.max_batch
+        return meta[:rows], meta[rows:].view(rows, self._lane_blocks)
+
+    def _stage(self, reqs: Sequence[Request], active: Sequence[int],
+               b: int) -> None:
+        """Fill the decode graphs' inputs for ``reqs`` (in slots ``active``)
+        padded to ``b`` rows: the real rows' tokens, positions and tables,
+        then padding rows at position 0 on the all-null table."""
+        n = len(reqs)
+        pos, tables = (t.numpy() for t in self._meta(self._meta_host))
+        pos[:n] = [self._pos[r.req_id] for r in reqs]
+        pos[n:b] = 0
+        for j, req in enumerate(reqs):
+            tables[j] = self._table(req, self._lane_blocks)
+        tables[n:b] = self._null_block
+        self._meta_in.copy_(self._meta_host, non_blocking=True)
+        if n:
+            self._tokens_in[:n, 0] = self.slot_tokens[active]
+
+    def _bucket_step(self, b: int):
+        """``decode_step`` over the first ``b`` rows of the static inputs,
+        what bucket ``b``'s graph holds: ``(logits (b, V), token_drops
+        (b, 1) or None)``."""
+        pos, tables = self._meta(self._meta_in)
+        cache = {"k": self.k_pool, "v": self.v_pool, "pos": pos[:b],
+                 "tables": tables[:b]}
+        logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
+                                         self._tokens_in[:b])
+        return logits, aux.get("token_drops")
+
+    def _capture(self) -> None:
+        """One CUDA graph of ``_bucket_step`` per decode bucket, largest
+        first, all in one private memory pool: the graphs run one at a
+        time, and each step's outputs are read before the next replay.
+        Each bucket runs once eagerly on a side stream first (the lazy
+        initialisations a capture cannot hold). No garbage collection
+        runs during the captures: one could destroy a dead engine's
+        graphs, which a capture does not permit. The captures launch
+        nothing, so ``paged_decode_attention.launches`` leaves them out;
+        each replay adds the calls its graph holds."""
+        buckets = decode_buckets(self.max_batch)
+        self._stage([], [], self.max_batch)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for b in buckets:
+                self._bucket_step(b)
+        main.wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            for b in reversed(buckets):
+                graph = torch.cuda.CUDAGraph()
+                before = paged_decode_attention.launches
+                with torch.cuda.graph(graph, pool=pool):
+                    out = self._bucket_step(b)
+                calls = paged_decode_attention.launches - before
+                paged_decode_attention.launches = before
+                self._graphs[b] = _replay(graph, out, calls)
+        finally:
+            if collecting:
+                gc.enable()
 
     def _table(self, req: Request, n: int) -> List[int]:
         """First ``n`` entries of the request's block table, null-padded.
@@ -306,12 +417,17 @@ class RealBackend:
         return lens + [self.prompt_len]
 
     def warmup(self) -> float:
-        """Build the CUDA kernels ahead of serving (nothing to do on the
-        CPU: eager PyTorch compiles no per-shape programs). Returns wall
-        seconds."""
+        """Build the CUDA kernels ahead of serving and, over a paged pool,
+        capture the decode graphs (nothing to do on the CPU: eager PyTorch
+        compiles no per-shape programs). Call it before serving, never
+        while a profiler records. Returns wall seconds."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             build.build_all()
+            if self.k_pool is not None and not self._graphs:
+                t1 = time.perf_counter()
+                self._capture()
+                self.capture_seconds = time.perf_counter() - t1
         return time.perf_counter() - t0
 
     def _sync(self) -> None:
@@ -550,13 +666,17 @@ class RealBackend:
         t0 = time.perf_counter()
         reqs = [self.slot_req[i] for i in active]
         trace.ids(reqs)
-        with trace.span("backend.tables"):
-            poss = np.asarray([self._pos[r.req_id] for r in reqs], np.int32)
-            cache = self._cache(reqs, poss)
-            tokens = self.slot_tokens[active][:, None]
-        logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
-                                         tokens)
-        self._count_drops(aux)
+        if self._graphs:
+            logits = self._replay_step(reqs, active)
+        else:
+            with trace.span("backend.tables"):
+                poss = np.asarray([self._pos[r.req_id] for r in reqs],
+                                  np.int32)
+                cache = self._cache(reqs, poss)
+                tokens = self.slot_tokens[active][:, None]
+            logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
+                                             tokens)
+            self._count_drops(aux)
         with trace.span("backend.sample"):
             self.slot_tokens[active] = self._sample(logits)
         with trace.span("backend.sync"):
@@ -573,12 +693,39 @@ class RealBackend:
                     self._record(req, toks[i], now)
         return now
 
+    def _replay_step(self, reqs: Sequence[Request],
+                     active: Sequence[int]) -> torch.Tensor:
+        """The decode step of ``reqs`` by the graph of the smallest bucket
+        that holds them; returns the real rows' logits."""
+        n = len(reqs)
+        buckets = sorted(self._graphs)
+        b = buckets[bisect.bisect_left(buckets, n)]
+        with trace.span("backend.tables"):
+            self._stage(reqs, active, b)
+        with trace.span("backend.replay"):
+            logits, drops = self._graphs[b]()
+        if drops is not None:
+            self._dropped = self._dropped + drops[:n].sum()
+        self.decode_graph_steps += 1
+        self.decode_pad_rows += b - n
+        return logits[:n]
+
     def release(self, req: Request) -> None:
         self._ids.pop(req.req_id, None)
         self._pos.pop(req.req_id, None)
         slot = self._slot_of.pop(req.req_id, None)
         if slot is not None:
             self.slot_req[slot] = None
+
+
+def _replay(graph, out, calls: int):
+    """A replay of ``graph`` that returns its static outputs ``out`` and
+    counts the ``calls`` of the paged decode kernel it holds."""
+    def replay():
+        graph.replay()
+        paged_decode_attention.launches += calls
+        return out
+    return replay
 
 
 class TracedCore(ServingCore):

@@ -27,8 +27,10 @@ Spans of the serving path (parent in brackets): ``core.tick`` (root);
 re-rank) with ``predictor.tokenize``, ``predictor.forward`` and
 ``predictor.readback``; ``core.step`` (``core.tick``); ``backend.prefill``
 and ``backend.decode`` (``core.step``) with ``backend.tables``,
-``model.forward_seq``, ``model.forward_chunk`` or ``model.decode_step``,
-``backend.sample``, ``backend.sync`` and ``backend.record``;
+``model.forward_seq``, ``model.forward_chunk`` or ``model.decode_step``
+(or ``backend.replay``, a decode graph's replay, which fires no
+``model.*`` span), ``backend.sample``, ``backend.sync`` and
+``backend.record``;
 ``model.layer`` (``model.*``) with ``model.attn`` and ``model.ffn``, an
 MoE layer's ``moe.router``, ``moe.dispatch``, ``moe.experts`` and
 ``moe.combine`` inside ``model.ffn``; ``kernels.build`` (root).

@@ -15,11 +15,15 @@ included, at the log-decay contract's edge too; its bare 3xTF32 tile against
 ``torch.matmul`` at 1e-5); the engine on the card emits the same greedy tokens
 as on the CPU, and its contiguous lanes the same tokens as its paged pool;
 the admission benchmark's twin launches the paged path's two kernels and
-no other; the prefill kernel without the causal mask and ring decode over
+no other; a decode graph's replay equals the eager step bitwise at its
+bucket, a warmed engine (graphs) serves the greedy tokens of one never
+warmed (eager), and no garbage collection runs during a capture; the prefill kernel without the causal mask and ring decode over
 encoder lanes equal unmasked attention; Whisper through ``build()`` gives
 the CPU's logits with exact launch counts; the hybrid, SSM and
 encoder-decoder families' train steps equal the CPU's.
 """
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -41,7 +45,7 @@ from repro_torch.kernels.rwkv6_chunk.ops import (linear_attention,
                                                  tf32_tile_check)
 from repro_torch.models.linear_attn import chunked_linear_attention
 from repro_torch.models import transformer as tfm
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, decode_buckets
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -576,3 +580,103 @@ def test_admission_twin_on_the_card_launches_the_paged_kernels(cuda, mode):
     assert counts["paged_decode_attention"] % layers == 0
     assert counts["ring_decode_attention"] == counts["linear_attention"] == 0
     assert not any(on_cpu["launches"].values())
+
+
+def _graph_engine(cfg, params, device, max_batch=8):
+    return Engine(cfg, params, Scheduler(policy=fcfs(), max_batch=max_batch),
+                  cache_len=64, prompt_len=32, record_tokens=True,
+                  device=device)
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "olmoe_1b_7b"])
+def test_decode_graph_replay_is_the_eager_step_bitwise(cuda, arch):
+    """Three decode-ready rows of the f32 smoke model: at every bucket of
+    ``max_batch`` 8, the bucket's replay gives the logits, MoE drops and
+    pool (null block aside, where padding rows race) of the same
+    ``_bucket_step`` run eagerly, bit for bit; a replay adds the paged
+    kernel's calls its graph holds, one a layer."""
+    cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device=cuda)
+    eng = _graph_engine(cfg, params, cuda)
+    be = eng.backend
+    eng.warmup()
+    assert sorted(be._graphs) == decode_buckets(8) == [1, 2, 4, 8]
+    eng.submit([Request(i, _words(5 + 4 * i, f"g{i}"), 0.0, 32, 9)
+                for i in range(3)])
+    eng.core.tick()                   # admission, prefill, one decode step
+    active = [i for i, r in enumerate(be.slot_req) if r is not None]
+    reqs = [be.slot_req[i] for i in active]
+    pools = (be.k_pool.clone(), be.v_pool.clone())
+    real = slice(0, be._null_block)
+    for b in decode_buckets(8):
+        n = min(b, len(reqs))
+        out = {}
+        for how in ("eager", "graph"):
+            be.k_pool.copy_(pools[0])
+            be.v_pool.copy_(pools[1])
+            be._stage(reqs[:n], active[:n], b)
+            before = paged_decode_attention.launches
+            logits, drops = (be._bucket_step(b) if how == "eager"
+                             else be._graphs[b]())
+            assert paged_decode_attention.launches == before + cfg.num_layers
+            torch.cuda.synchronize()
+            out[how] = (logits.clone(),
+                        None if drops is None else drops.clone(),
+                        be.k_pool[:, real].clone(), be.v_pool[:, real].clone())
+        for e, g in zip(out["eager"], out["graph"]):
+            assert (e is None and g is None) or torch.equal(e, g)
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "olmoe_1b_7b"])
+def test_warmed_engine_serves_the_eager_tokens(cuda, arch):
+    """A 7-request paged burst behind 5 slots in f32: warmed, every decode
+    step replays a graph and the greedy tokens and MoE drops equal the
+    never-warmed engine's, which decodes eagerly."""
+    cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device=cuda)
+    runs = {}
+    for warm in (False, True):
+        eng = _graph_engine(cfg, params, cuda, max_batch=5)
+        if warm:
+            eng.warmup()
+        eng.submit([Request(i, _words(6 + 3 * i, f"r{i}"), 0.0, 32, 5 + i)
+                    for i in range(7)])
+        fin = eng.run()
+        be = eng.backend
+        runs[warm] = ({r.req_id: r.generated_tokens for r in fin},
+                      be.dropped_slots)
+        assert be.decode_steps > 0
+        assert be.decode_graph_steps == (be.decode_steps if warm else 0)
+    assert runs[True] == runs[False]
+    assert len(runs[True][0]) == 7
+
+
+def test_no_collection_runs_during_a_capture(cuda):
+    """A dead engine's graphs are cyclic garbage (an engine and its core
+    refer to each other); a collection during a capture would destroy them,
+    which invalidates the capture. With collections due at every
+    allocation, warming a second engine captures with the collector off,
+    and turns it back on."""
+    cfg = get_smoke_config("olmoe_1b_7b").replace(dtype="float32",
+                                                  vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device=cuda)
+    _graph_engine(cfg, params, cuda).warmup()       # now garbage
+    eng = _graph_engine(cfg, params, cuda)
+    be = eng.backend
+    seen = []
+    step = be._bucket_step
+
+    def watched(b):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return step(b)
+    be._bucket_step = watched
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        eng.warmup()
+    finally:
+        gc.set_threshold(*thresholds)
+    assert sorted(be._graphs) == decode_buckets(8)
+    assert (True, False) in seen and (True, True) not in seen
+    assert gc.isenabled()

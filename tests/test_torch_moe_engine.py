@@ -7,10 +7,14 @@ row alone; ``lm_loss`` and its per-leaf gradients (vision prefix and M-RoPE
 positions included); the paged engine's greedy tokens per ``req_id``
 against the JAX ``Engine`` (FCFS and PARS, chunked prefill, prefix
 caching) at capacity factor 4.0; the reference's padding-lane overwrite
-(ROADMAP C3), which the port's engine does not copy; and the launchers (the
-MoE smoke config trains with its auxiliary losses; ``--full`` refuses what
-fits no device). The model half is in ``test_torch_moe.py``.
+(ROADMAP C3), which the port's engine does not copy; the decode step by
+batch bucket, as a CUDA graph holds it, run eagerly (the real rows' tokens
+and logits of the unpadded step, padding rows writing the null block
+alone, the graph counters), dense and MoE; and the launchers (the MoE smoke
+config trains with its auxiliary losses; ``--full`` refuses what fits no
+device). The model half is in ``test_torch_moe.py``.
 """
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +39,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import model as tmodel
 from repro_torch.models import transformer as tfm
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import Engine, decode_buckets
 
 from _torch_moe_common import TOL, _bridged, _t
 
@@ -260,6 +264,125 @@ def test_padding_lane_overwrite_c3():
     assert resident[True, "first"] == int(np.argmax(jl[0, -1]))
     assert resident[False, "first"] == int(np.argmax(jl[3, -1]))
     assert int(np.argmax(jl[0, -1])) != int(np.argmax(jl[3, -1]))
+
+
+# ---------------------------------------------------------- decode buckets
+@pytest.mark.parametrize("max_batch,buckets", [
+    (64, [1, 2, 4, 8, 16, 24, 32, 40, 48, 56, 64]),
+    (5, [1, 2, 4, 5]),
+    (1, [1]),
+])
+def test_decode_buckets(max_batch, buckets):
+    assert decode_buckets(max_batch) == buckets
+
+
+def _graph_engine(arch, max_batch=8, *, paged=None):
+    """An f32 smoke engine on the CPU, FCFS, 2048-token vocab."""
+    cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    return Engine(cfg, params, Scheduler(policy=fcfs(), max_batch=max_batch),
+                  cache_len=64, prompt_len=32, paged=paged,
+                  record_tokens=True, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "olmoe_1b_7b"])
+def test_bucketed_step_matches_the_unpadded_step(arch):
+    """Three decode-ready rows padded to buckets 4 and 8: the real rows'
+    logits equal the unpadded eager step's at f32 tolerance (the same
+    greedy tokens, the same MoE drops), and the padding rows write no pool
+    block but the null block."""
+    eng = _graph_engine(arch)
+    be = eng.backend
+    eng.submit([Request(i, _words(5 + 4 * i, f"g{i}"), 0.0, 32, 9)
+                for i in range(3)])
+    eng.core.tick()                   # admission, prefill, one decode step
+    active = [i for i, r in enumerate(be.slot_req) if r is not None]
+    reqs = [be.slot_req[i] for i in active]
+    assert len(reqs) == 3
+    pools = (be.k_pool.clone(), be.v_pool.clone())
+
+    def changed_blocks():
+        diff = (be.k_pool != pools[0]) | (be.v_pool != pools[1])
+        return set(diff.flatten(2).any(-1).any(0).nonzero()[:, 0].tolist())
+
+    def restore():
+        be.k_pool.copy_(pools[0])
+        be.v_pool.copy_(pools[1])
+
+    poss = np.asarray([be._pos[r.req_id] for r in reqs], np.int32)
+    logits, _, aux = tfm.decode_step(be.params, be.cfg,
+                                     be._cache(reqs, poss),
+                                     be.slot_tokens[active][:, None])
+    written = changed_blocks()
+    assert be._null_block not in written and written
+    for b in (4, 8):
+        restore()
+        be._stage(reqs, active, b)
+        out, drops = be._bucket_step(b)
+        assert out.shape[0] == b
+        torch.testing.assert_close(out[:3], logits, atol=1e-5, rtol=1e-5)
+        assert torch.equal(out[:3].argmax(-1), logits.argmax(-1))
+        assert changed_blocks() == written | {be._null_block}
+        if be.cfg.moe is None:
+            assert drops is None
+        else:
+            assert torch.equal(drops[:3], aux["token_drops"])
+
+
+@pytest.mark.parametrize("arch", ["llama3_2_3b", "olmoe_1b_7b"])
+def test_bucketed_decode_serves_the_eager_tokens(arch):
+    """A 7-request burst behind 5 slots (buckets 1, 2, 4, 5): decoding by
+    bucket gives the eager engine's greedy tokens and MoE drops; every
+    decode step is a replay, padded to the smallest bucket that holds it,
+    and the counters say so. A backend never warmed (or warmed on the CPU)
+    decodes eagerly and leaves them at 0."""
+    runs = {}
+    for graphs in (False, True):
+        eng = _graph_engine(arch, max_batch=5)
+        be = eng.backend
+        eng.warmup()
+        assert not be._graphs                # nothing captured on the CPU
+        staged = []
+        if graphs:
+            # what warmup captures on a card, run eagerly: each bucket's
+            # _bucket_step over the static inputs, which _stage fills
+            be._graphs = {b: functools.partial(be._bucket_step, b)
+                          for b in decode_buckets(5)}
+            stage = be._stage
+
+            def counted(reqs, active, b):
+                staged.append((len(reqs), b))
+                stage(reqs, active, b)
+            be._stage = counted
+        eng.submit([Request(i, _words(6 + 3 * i, f"r{i}"), 0.0, 32, 5 + i)
+                    for i in range(7)])
+        runs[graphs] = ({r.req_id: r.generated_tokens for r in eng.run()},
+                        be.dropped_slots)
+        if graphs:
+            assert be.decode_graph_steps == be.decode_steps == len(staged)
+            assert all(b == min(x for x in decode_buckets(5) if x >= n)
+                       for n, b in staged)
+            assert be.decode_pad_rows == sum(b - n for n, b in staged) > 0
+        else:
+            assert be.decode_steps > 0
+            assert be.decode_graph_steps == be.decode_pad_rows == 0
+    assert runs[True] == runs[False]
+    assert len(runs[True][0]) == 7
+
+
+def test_contiguous_lanes_decode_eagerly():
+    """Contiguous lanes (hymba's rings, or a dense model with
+    ``paged=False``) build no static inputs and decode eagerly, warmed or
+    not."""
+    for arch, paged in (("hymba_1_5b", None), ("llama3_2_3b", False)):
+        eng = _graph_engine(arch, max_batch=3, paged=paged)
+        be = eng.backend
+        eng.warmup()
+        eng.submit([Request(i, _words(6, f"c{i}"), 0.0, 32, 4)
+                    for i in range(3)])
+        assert len(eng.run()) == 3
+        assert not be.paged and be._meta_in is None and not be._graphs
+        assert be.decode_steps > 0 and be.decode_graph_steps == 0
 
 
 # ---------------------------------------------------------------- launchers
