@@ -2,11 +2,12 @@
 check of what the window produced.
 
 Set-up (``setup_s``, from the process's start): the traffic, the weights
-drawn on the device, the predictor trained, the engine built and warmed
-up. The window: the traffic's requests served from a clock origin, for
-``seconds``; a burst mix's requests are then served to their end, for at
-most ``seconds`` more. After the window the device's peak memory is read,
-the engine's caches are freed and the reference judges the output.
+drawn on the device by the cell's architecture (``bench/archs``), the
+predictor trained, the engine built and warmed up. The window: the
+traffic's requests served from a clock origin, for ``seconds``; a burst
+mix's requests are then served to their end, for at most ``seconds``
+more. After the window the device's peak memory is read, the engine's
+caches are freed and the reference judges the output.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bench.harness import check, predictor, serve, spec, traffic, weights
+from bench.harness import check, predictor, serve, spec, traffic
 
 SLICE_S = 3.0           # profiled seconds of a traced run
 SLICE_LEAD_S = 1.0      # the profiler starts this long before a burst
@@ -58,8 +59,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     bursts = mix["arrivals"] == "bursts"
     interval = float(cell.own.get("burst_interval_s", 0.0))
     items = traffic.generate(mix, seed, seconds, interval)
-    cfg = serve.program_config(cfg_json)
-    params = weights.make_params(cfg, seed, device)
+    cfg = cell.arch.program_config(cfg_json)
+    params = cell.arch.make_params(cfg, seed, device)
     pred, pred_params = predictor_for(cfg_json, mix, seed, device, log)
     engine, scorer = serve.build(cfg, params, cfg_json, pred, device)
     serve.warm_up(engine, cfg_json)
@@ -81,7 +82,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     gc.unfreeze()
     peak = (torch.cuda.max_memory_allocated(device)
             if torch.device(device).type == "cuda" else 0)
-    ctx = SimpleNamespace(window=window, model=model, engine=engine_cfg,
+    ctx = SimpleNamespace(window=window, arch=cell.arch, model=model,
+                          engine=engine_cfg,
                           engine_paged=engine.backend.paged,
                           attempted=requests, cut=window.serve_s, T=seconds)
     metrics = {} if trace else {"setup_s": {"value": setup_s, "unit": "s"}}
@@ -113,8 +115,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
         sampled = check.sample(finished, seed, SAMPLE_TOKENS, SAMPLE_MOST,
                                SAMPLE_LEAST)
         inputs = check.Inputs(model, engine_cfg, window)
-        readings.update(check.logit_gaps(params, model, inputs, sampled,
-                                         device, control))
+        readings.update(check.logit_gaps(cell.arch, params, model, inputs,
+                                         sampled, device, control))
         readings.update(check.score_gaps(pred_params, cfg_json["predictor"],
                                          window, requests, device, control))
         readings["prefix_hits"] = window.prefix_installs

@@ -1,5 +1,6 @@
 """How ``correct`` is decided: what the window produced, against the plain
-reference (``bench/reference``), at the timed sizes.
+reference (``bench/reference``, through the cell's architecture's
+``logits``), at the timed sizes.
 
 Numbers compared: those the configuration file's ``limits`` name, each
 against its limit there (``PERF.md`` gives the readings each was set from):
@@ -34,7 +35,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from bench.reference import lm, predictor as ref_predictor
+from bench.reference import predictor as ref_predictor
 from bench.reference.precision import F32, FP8, TF32
 from bench.reference.tokenizer import encode
 
@@ -126,17 +127,17 @@ class Inputs:
 LOWER = {"bfloat16": FP8, "float16": FP8, "float32": TF32}
 
 
-def logit_gaps(params, model: dict, inputs: Inputs, reqs, device,
+def logit_gaps(arch, params, model: dict, inputs: Inputs, reqs, device,
                control: bool) -> Dict[str, Optional[float]]:
     """Widest gap of the served tokens, and of the control's first
-    choices, below the reference's best."""
+    choices, below the reference's best (``arch.logits``)."""
     gaps, gaps_c, margins = [], [], []
     lower = LOWER[model["dtype"]]
     for req in reqs:
         group, row, own, segs, positions, served = inputs.case(req, device)
         probe = {}
-        ref = lm.logits(params, model, group, row, own, segs, positions, F32,
-                        probe)
+        ref = arch.logits(params, model, group, row, own, segs, positions,
+                          F32, probe)
         if "margin" in probe:
             margins.append(probe["margin"].cpu())
         best = ref.max(-1).values
@@ -144,8 +145,8 @@ def logit_gaps(params, model: dict, inputs: Inputs, reqs, device,
         picked = ref[idx, torch.as_tensor(served, device=device)]
         gaps.append((best - picked).cpu())
         if control:
-            low = lm.logits(params, model, group, row, own, segs, positions,
-                            lower)
+            low = arch.logits(params, model, group, row, own, segs,
+                              positions, lower)
             gaps_c.append((best - ref[idx, low.argmax(-1)]).cpu())
         del ref
     out = {"requests": len(reqs), "tokens": sum(len(g) for g in gaps)}

@@ -3,7 +3,14 @@ the harness finds what belongs to it by name.
 
 * ``bench/configs/<config>.json``: the model (the program's
   ``ModelConfig`` fields), the engine's settings, the predictor, the
-  limits of the numbers ``correct`` compares, and what was assumed;
+  limits of the numbers ``correct`` compares, what was assumed, and the
+  architecture (``"arch"``, ``lm`` where absent);
+* ``bench/archs/<arch>.py``: what the harness knows of an architecture,
+  as functions: ``program_config(cfg_json)``, ``make_params(cfg, seed,
+  device)``, the reference's ``logits(params, model, group, row, own,
+  segments, positions, precision, probe=None)``, ``tokens_flops(model,
+  positions)`` and ``decode_bound_s(model, positions, block)`` (one
+  decode step's attention over all layers);
 * ``bench/traffic/<traffic>.json``: the mix's parameters, read by the one
   generator (``bench/harness/traffic.py``);
 * ``bench/cells/<cell>.json`` (optional): what is the cell's own, such as
@@ -17,6 +24,7 @@ import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 BENCH = Path(__file__).resolve().parents[1]
@@ -28,6 +36,7 @@ class Cell:
     name: str
     chips: int
     config: dict
+    arch: ModuleType
     mix: dict
     own: dict
     end_to_end: List[dict]
@@ -49,9 +58,9 @@ def find(name: str, bench: Optional[dict] = None,
                        f"(have {sorted(cells)})")
     w = cells[name]
     own_path = root / "bench" / "cells" / f"{name}.json"
-    return Cell(name=name, chips=w["chips"],
-                config=load_json(root / "bench" / "configs"
-                                 / f"{w['config']}.json"),
+    config = load_json(root / "bench" / "configs" / f"{w['config']}.json")
+    return Cell(name=name, chips=w["chips"], config=config,
+                arch=arch(arch_name(config), root),
                 mix=load_json(root / "bench" / "traffic"
                               / f"{w['traffic']}.json"),
                 own=load_json(own_path) if own_path.exists() else {},
@@ -85,3 +94,26 @@ def reader(metric: str, root: Path = ROOT) -> Callable:
         spec.loader.exec_module(mod)
         _READERS[str(path)] = mod.read
     return _READERS[str(path)]
+
+
+_ARCHS: Dict[str, ModuleType] = {}
+
+
+def arch_name(config: dict) -> str:
+    """The architecture a configuration file names (``lm`` where none)."""
+    return config.get("arch", "lm")
+
+
+def arch(name: str, root: Path = ROOT) -> ModuleType:
+    """The module ``bench/archs/<name>.py``."""
+    path = root / "bench" / "archs" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no architecture {name!r}: {path} is "
+                                f"missing")
+    if str(path) not in _ARCHS:
+        spec = importlib.util.spec_from_file_location(
+            "bench.archs." + name, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        _ARCHS[str(path)] = mod
+    return _ARCHS[str(path)]

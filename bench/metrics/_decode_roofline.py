@@ -1,8 +1,7 @@
 """Shared arithmetic of the ``decode_attn_roofline`` readers: the least
-time of the decode attention calls in the profiled slice
-(``bench/harness/flops.py``, one call a layer a step) over the device time
-of the kernel's split and merge functions there, in %."""
-from bench.harness import flops
+time of the decode steps' attention in the profiled slice (the
+architecture's ``decode_bound_s``, every layer of a step) over the device
+time of the kernel's split and merge functions there, in %."""
 
 
 def roofline(ctx, kernel: str, paged: bool):
@@ -13,7 +12,7 @@ def roofline(ctx, kernel: str, paged: bool):
     if not calls or device_s <= 0:
         return None
     block = ctx.engine["block_size"] if paged else 0
-    bound = sum(flops.decode_bound_s(ctx.model, positions, block)
+    bound = sum(ctx.arch.decode_bound_s(ctx.model, positions, block)
                 for _t, positions, profiled in ctx.window.decode_calls
-                if profiled) * ctx.model["num_layers"]
+                if profiled)
     return 100.0 * bound / device_s

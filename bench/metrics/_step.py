@@ -1,7 +1,7 @@
 """Shared arithmetic of the ``step_ms`` and ``step_mfu`` readers."""
 import numpy as np
 
-from bench.harness import flops, peaks, stats
+from bench.harness import peaks, stats
 
 
 def step_ms(ctx):
@@ -17,13 +17,13 @@ def step_ms(ctx):
 
 
 def step_mfu(ctx):
-    """Useful FLOPs of the prompt and output tokens processed inside the
-    window, over the window's seconds (less the profiler's start and stop)
-    and the bf16 peak, in %."""
+    """Useful FLOPs (the architecture's ``tokens_flops``) of the prompt and
+    output tokens processed inside the window, over the window's seconds
+    (less the profiler's start and stop) and the bf16 peak, in %."""
     m = ctx.model
     w = ctx.window
     pos = [np.arange(a, b) for t, a, b in w.prefill_tokens if t <= ctx.T]
     pos += [np.asarray(p) for t, p, _ in w.decode_calls if t <= ctx.T]
-    total = flops.tokens_flops(m, np.concatenate(pos)) if pos else 0.0
+    total = ctx.arch.tokens_flops(m, np.concatenate(pos)) if pos else 0.0
     seconds = ctx.T - stats.paused_in(0.0, ctx.T, w.paused)
     return 100.0 * total / seconds / peaks.BF16_FLOPS if total else None

@@ -1,5 +1,9 @@
 """Test-only cells at smoke widths: built here from the real files, never
-listed in ``BENCHMARK.json``, so the harness cannot find them as cells."""
+listed in ``BENCHMARK.json``, so the harness cannot find them as cells.
+
+A configuration's smoke widths are data, ``bench/tests/tiny/<config>.json``:
+what differs from ``bench/configs/<config>.json`` (nested groups merged key
+by key), so that a new configuration brings its own as a new file."""
 import copy
 import sys
 from pathlib import Path
@@ -11,33 +15,40 @@ for p in (str(ROOT), str(ROOT / "src")):
 
 from bench.harness import spec  # noqa: E402
 
+TINY = Path(__file__).resolve().parent / "tiny"
 CONFIG = {"moe": "olmoe_1b_7b", "hybrid": "hymba_1_5b"}
 LIMITS = {"logit_gap": 1e-3, "logit_gap_mean": 1e-4, "score_gap": 1e-4,
           "prefix_hits": 0}
 
 
+def _merge(base: dict, over: dict) -> dict:
+    out = dict(base)
+    for k, v in over.items():
+        out[k] = (_merge(base[k], v) if isinstance(v, dict)
+                  and isinstance(base.get(k), dict) else v)
+    return out
+
+
 def config(family: str, dtype: str = "bfloat16",
            capacity_factor: float = 1.25) -> dict:
-    cfg = copy.deepcopy(spec.load_json(
-        spec.BENCH / "configs" / f"{CONFIG[family]}.json"))
-    m = cfg["model"]
-    m.update(num_layers=2, d_model=64, num_heads=4, head_dim=16,
-             vocab_size=512, dtype=dtype,
-             num_kv_heads=4 if family == "moe" else 2)
-    if family == "moe":
-        m["moe"] = dict(m["moe"], num_experts=4, top_k=2, expert_d_ff=64,
-                        group_size=64, capacity_factor=capacity_factor)
-    else:
-        m.update(d_ff=96, sliding_window=24)
-        m["ssm"] = dict(m["ssm"], head_dim=16, state_size=8)
-    cfg["engine"].update(max_batch=4, prompt_len=32, cache_len=64,
-                         kv_blocks=16)
-    if family == "moe":
-        cfg["engine"]["prefill_chunk_tokens"] = 16
-    cfg["predictor"]["train"].update(rows=200, epochs=1,
-                                     pairs_per_epoch=256, batch_size=32)
+    """The configuration ``family`` (a key of ``CONFIG``, or a file's
+    name) at its smoke widths, in ``dtype``, under the tests' limits."""
+    name = CONFIG.get(family, family)
+    cfg = _merge(copy.deepcopy(spec.load_json(
+        spec.BENCH / "configs" / f"{name}.json")),
+        spec.load_json(TINY / f"{name}.json"))
+    cfg["model"]["dtype"] = dtype
+    if cfg["model"].get("moe"):
+        cfg["model"]["moe"]["capacity_factor"] = capacity_factor
     cfg["limits"] = dict(LIMITS)
     return cfg
+
+
+def configs_of(arch: str) -> list:
+    """Every smoke-width configuration whose file names ``arch``."""
+    return [config(p.stem) for p in sorted(TINY.glob("*.json"))
+            if spec.arch_name(spec.load_json(
+                spec.BENCH / "configs" / p.name)) == arch]
 
 
 def mix(kind: str) -> dict:
@@ -75,7 +86,9 @@ def cell(family: str, kind: str, **cfg_kw) -> spec.Cell:
                                                   "olmoe-lmsys-burst")}
     else:
         metrics = BATCH_METRICS
-    return spec.Cell(name=name, chips=1, config=config(family, **cfg_kw),
+    cfg = config(family, **cfg_kw)
+    return spec.Cell(name=name, chips=1, config=cfg,
+                     arch=spec.arch(spec.arch_name(cfg)),
                      mix=mix(kind),
                      own={"burst_interval_s": 1.5} if kind == "burst" else {},
                      end_to_end=metrics["end_to_end"],

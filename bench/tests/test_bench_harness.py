@@ -14,7 +14,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import _bench_tiny as tiny  # noqa: E402
 
-from bench.harness import cell as cell_mod, spec, weights  # noqa: E402
+from bench.harness import cell as cell_mod, spec  # noqa: E402
 
 ROOT = tiny.ROOT
 CPU = torch.device("cpu")
@@ -66,9 +66,15 @@ def test_traced_run_reports_per_layer_metrics():
     assert "decode_attn_roofline.paged" not in got
 
 
-def test_weights_have_the_program_layout():
-    from repro_torch.models import transformer as tfm
-    from bench.harness.serve import program_config
+ARCHS = sorted(p.stem for p in (spec.BENCH / "archs").glob("*.py"))
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_weights_have_the_program_layout(name):
+    """Each architecture's drawn tree, at the smoke widths of every
+    configuration that names it, is the program's ``init_params`` tree,
+    and the same seed draws the same values."""
+    from repro_torch.models import build
 
     def shapes(t, pre=""):
         out = {}
@@ -78,22 +84,28 @@ def test_weights_have_the_program_layout():
             else:
                 out[pre + k] = (tuple(v.shape), v.dtype)
         return out
-    for fam in ("moe", "hybrid"):
-        cfg = program_config(tiny.config(fam))
-        ours = weights.make_params(cfg, 3, CPU)
-        theirs = tfm.init_params(cfg, 3, device=CPU)
+    arch = spec.arch(name)
+    configs = tiny.configs_of(name)
+    assert configs, f"no bench/tests/tiny/<config>.json names {name!r}"
+    for cfg_json in configs:
+        cfg = arch.program_config(cfg_json)
+        ours = arch.make_params(cfg, 3, CPU)
+        theirs = build(cfg).init(3, device=CPU)
         assert shapes(ours) == shapes(theirs)
-        again = weights.make_params(cfg, 3, CPU)
+        again = arch.make_params(cfg, 3, CPU)
         assert torch.equal(ours["embed"], again["embed"])
 
 
 def test_cells_and_metrics_are_found_by_name(tmp_path):
-    """A throwaway cell, traffic, config and metric added as files and
-    entries alone are found by name."""
+    """A throwaway cell, traffic, config, architecture and metric added as
+    files and entries alone are found by name."""
     (tmp_path / "bench" / "configs").mkdir(parents=True)
     (tmp_path / "bench" / "traffic").mkdir()
     (tmp_path / "bench" / "cells").mkdir()
     (tmp_path / "bench" / "metrics").mkdir()
+    (tmp_path / "bench" / "archs").mkdir()
+    (tmp_path / "bench" / "archs" / "lm.py").write_text(
+        (spec.BENCH / "archs" / "lm.py").read_text())
     (tmp_path / "bench" / "configs" / "toy.json").write_text(
         json.dumps(tiny.config("hybrid")))
     (tmp_path / "bench" / "traffic" / "toy-mix.json").write_text(
@@ -111,6 +123,7 @@ def test_cells_and_metrics_are_found_by_name(tmp_path):
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     c = spec.find("toy-cell", root=tmp_path)
     assert c.own == {"burst_interval_s": 1.0}
+    assert c.arch is spec.arch("lm", root=tmp_path)
     assert [m["name"] for m in c.end_to_end] == ["setup_s", "requests_seen"]
     read = spec.reader("requests_seen", root=tmp_path)
     assert read(type("Ctx", (), {"attempted": [1, 2]})) == 2.0

@@ -1,7 +1,8 @@
 """What the benchmark may import and read: no ``jax``, ``jaxlib``, ``flax``
 or ``repro`` anywhere under ``bench/`` (top-level names compared whole:
-``repro_torch`` is the program and allowed); nothing of the program or of
-``benchmarks`` in ``bench/reference/``; no ``benchmarks/`` or
+``repro_torch`` is the program and allowed); nothing of the program, of
+``benchmarks`` or of the harness in ``bench/reference/``; the program in
+``bench/archs/`` only inside ``program_config``; no ``benchmarks/`` or
 ``BENCH_*.json`` read."""
 import ast
 import os
@@ -26,6 +27,15 @@ def imported(path: Path):
             yield node.module.split(".")[0]
 
 
+def modules(node) -> list:
+    """The whole names of the modules an import statement imports."""
+    if isinstance(node, ast.Import):
+        return [a.name for a in node.names]
+    if isinstance(node, ast.ImportFrom) and node.level == 0:
+        return [node.module]
+    return []
+
+
 SOURCES = sorted(p for p in BENCH.rglob("*.py") if "tests" not in p.parts)
 
 
@@ -40,14 +50,33 @@ def test_no_jax_or_reference_package(path):
 @pytest.mark.parametrize("path", sorted((BENCH / "reference").glob("*.py")),
                          ids=lambda p: p.name)
 def test_reference_stands_alone(path):
+    """The references import nothing of the program, of ``benchmarks`` or
+    of the harness and its architectures: only each other."""
     names = set(imported(path))
     assert not names & {"repro_torch", "benchmarks"}
     assert names <= {"__future__", "math", "re", "typing", "numpy", "torch",
                      "bench"}
     for node in ast.walk(ast.parse(path.read_text())):
-        if isinstance(node, ast.ImportFrom) and node.module and \
-                node.module.startswith("bench."):
-            assert node.module.startswith("bench.reference")
+        for mod in modules(node):
+            if mod.split(".")[0] == "bench":
+                assert mod == "bench.reference" or \
+                    mod.startswith("bench.reference."), mod
+
+
+@pytest.mark.parametrize("path", sorted((BENCH / "archs").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_arch_imports_the_program_only_in_program_config(path):
+    """An architecture module reaches the program only where
+    ``serve.program_config`` does: inside its ``program_config``."""
+    tree = ast.parse(path.read_text())
+    inside = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.FunctionDef) and \
+                node.name == "program_config":
+            inside.update(id(n) for n in ast.walk(node))
+    for node in ast.walk(tree):
+        if any(m.split(".")[0] == "repro_torch" for m in modules(node)):
+            assert id(node) in inside, (path.name, node.lineno)
 
 
 def test_prefix_name_is_not_the_reference_package():
@@ -66,6 +95,8 @@ def test_harness_loads_no_jax():
         "from bench.harness import spec\n"
         "for m in spec.load_json(spec.ROOT / 'BENCHMARK.json')['per_layer']:\n"
         "    spec.reader(m['name'])\n"
+        "for p in (spec.BENCH / 'archs').glob('*.py'):\n"
+        "    spec.arch(p.stem)\n"
         "bad = {n.split('.')[0] for n, v in sys.modules.items() if v}\n"
         "print(sorted(bad & {'jax', 'jaxlib', 'flax', 'repro'}))\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}")

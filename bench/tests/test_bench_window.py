@@ -23,6 +23,7 @@ def req(rid, arrival, first, finish, n, start=None, score=0.0):
 
 def ctx(reqs, window=None, T=10.0, cut=12.0, model=None):
     return SimpleNamespace(attempted=reqs, cut=cut, T=T, model=model,
+                           arch=spec.arch("lm"),
                            window=window or serve.Window(T, reqs),
                            engine={"block_size": 16}, engine_paged=True)
 
