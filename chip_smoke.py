@@ -29,7 +29,14 @@ failed check raises and the script exits non-zero:
    6, S 1,500, dh 64: a partial last query tile) and its cross-attention's
    (64 queries over 1,500 keys), and ring decode over 1,500-row cross
    lanes with every row visible (also against unmasked attention).
-   Times the kernel, the plain version and, where one exists, one PyTorch
+   Moonlight-16B-A3B's MLA kernels in bf16 at 2e-2: the latent decode
+   kernel (16 heads over 576-wide latent rows, V their first 512, scale
+   1/sqrt(192), 2,048-position tables) at 64 served lengths, one row, the
+   split boundaries and the full table, and the prefill kernel's (192,
+   128) instance on first chunks of 1 to 512 tokens and on continuation
+   chunks over longer lanes; for each, planted faults (a length one short
+   and a wrong scale; a wrong scale and the causal mask one position late)
+   must fall outside the tolerance. Times the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (``library_ms``, timed here
    only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
    ``library_ms``: L2-warm, and at small times partly the host's), and
@@ -64,7 +71,16 @@ failed check raises and the script exits non-zero:
    command-line launcher (``repro_torch.launch.serve --full``) serves a
    short burst of each architecture: under FCFS, but under PARS for
    rwkv6_7b, training its full-width predictor first; for qwen2_vl_72b it
-   must refuse, saying that the published model does not fit. Then
+   must refuse, saying that the published model does not fit. Then full
+   ``moonlight_16b_a3b`` (27 layers of MLA over a latent pool, 26 of them
+   sigmoid-routed experts with shared ones; 15.96 B in bf16) in the
+   benchmark cell's engine under PARS, decode graphs captured: a 16-request
+   burst in two waves (the second hits the first's cached prefixes) with
+   every launch count zeroed after the captures, the latent
+   decode kernel exactly 27 a decode step, all of them replays, the
+   prefill kernel exactly 27 a prefill or extend dispatch, no other
+   kernel; then each batch bucket's replayed decode step and the eager
+   step timed (rows at position 160). Then
    ``whisper_tiny`` at its published widths through ``build(cfg)`` (the
    reference's inference path; neither engine serves the family): f32,
    TF32 off, ``prefill`` and 8 greedy ``decode_step``s on the card against
@@ -703,6 +719,212 @@ def phase_whisper_instances(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Latent attention (MLA): Moonlight-16B-A3B's two kernels
+# ---------------------------------------------------------------------------
+MLA_HEADS, MLA_KD, MLA_VD = 16, 576, 512   # latent rows; V their first 512
+MLA_QK, MLA_V = 192, 128                   # non-absorbed prefill widths
+MLA_BS, MLA_TABLE = 16, 128                # 16-row blocks, 2,048 positions
+
+
+def _latent_inputs(gen, dev, lengths):
+    """Absorbed queries, a latent pool, tables and lengths as the served
+    path holds them: each row on blocks of its own in shuffled order, the
+    table's other entries on the null block (the pool's last)."""
+    bf = torch.bfloat16
+    used = [-(-n // MLA_BS) for n in lengths]
+    n = sum(used)
+    pool = torch.randn(n + 1, MLA_BS, MLA_KD, generator=gen, device=dev)
+    tables = torch.full((len(lengths), MLA_TABLE), n, dtype=torch.int32,
+                        device=dev)
+    perm = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    at = 0
+    for i, u in enumerate(used):
+        tables[i, :u] = perm[at:at + u]
+        at += u
+    q = torch.randn(len(lengths), MLA_HEADS, MLA_KD, generator=gen,
+                    device=dev)
+    return (q.to(bf), pool.to(bf), tables,
+            torch.as_tensor(lengths, dtype=torch.int32, device=dev))
+
+
+def check_fault(name: str, fault, right, tol: float) -> float:
+    """A planted fault's output must fall outside the tolerance that the
+    kernel is held to, or the check could not see such a kernel."""
+    err = (fault.float() - right.float()).abs().max().item()
+    if torch.allclose(fault.float(), right.float(), atol=tol, rtol=tol):
+        raise AssertionError(f"{name}: the planted fault passes tol {tol:g} "
+                             f"(max_abs_err {err:.3e})")
+    log(f"  {name}: max_abs_err={err:.3e}, outside tol {tol:g}")
+    return err
+
+
+def phase_latent_decode_kernel(dev) -> dict:
+    """The latent decode kernel at Moonlight's served shape (16 heads over
+    576-wide rows, V their first 512, scale 1/sqrt(192); 16-row blocks,
+    2,048-position tables) in bf16 against its plain version at 2e-2: 64
+    rows at served lengths (70-250), one row, lengths around the split
+    boundaries and the full table; then rows whose newest row (the token's
+    own) carries about half the weight, where two planted faults must fall
+    outside the tolerance (a length one short, the scale 1/sqrt(576)).
+    Timed at 1, 16 and 64 rows of 160 positions as the record's rows are."""
+    from repro_torch.kernels.flash_decode.ops import (
+        latent_decode_attention, latent_decode_attention_plain,
+        split_geometry)
+
+    entries, splits = split_geometry(MLA_BS, MLA_TABLE)
+    split, full = entries * MLA_BS, MLA_TABLE * MLA_BS
+    scale, tol = MLA_QK ** -0.5, 2e-2
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    served = (70 + rng.integers(0, 181, 64)).tolist()
+    edges = [0, 1, split - 1, split, split + 1, 3 * split, full - 1, full]
+    log(f"latent decode: H={MLA_HEADS} rows of {MLA_KD} (V {MLA_VD}) "
+        f"scale 1/sqrt({MLA_QK}) bs={MLA_BS} max_blocks={MLA_TABLE} "
+        f"({splits} splits of {split} rows); edge lengths {edges}")
+
+    def both(args, s=scale):
+        out = latent_decode_attention(*args, MLA_VD, s)
+        torch.cuda.synchronize()
+        return out, latent_decode_attention_plain(*args, MLA_VD, s)
+
+    err = 0.0
+    for label, lengths in (("served lengths, 64 rows", served),
+                           ("one row", [160]), ("edge lengths", edges)):
+        err = max(err, check_close(f"latent decode {label} bf16",
+                                   *both(_latent_inputs(gen, dev, lengths)),
+                                   tol))
+    q, pool, tables, lens = args = _latent_inputs(gen, dev, served[:16])
+    for i, n in enumerate(lens.tolist()):
+        pool[int(tables[i, (n - 1) // MLA_BS]), (n - 1) % MLA_BS] = \
+            2.5 * q[i].float().mean(0)
+    out, right = both(args)
+    err = max(err, check_close("latent decode, newest row weighing half",
+                               out, right, tol))
+    check_fault("fault: a length one short", latent_decode_attention_plain(
+        q, pool, tables, lens - 1, MLA_VD, scale), right, tol)
+    check_fault("fault: scale 1/sqrt(576)", latent_decode_attention_plain(
+        q, pool, tables, lens, MLA_VD, MLA_KD ** -0.5), right, tol)
+
+    timed = {}
+    length = 160
+    for b in (1, 16, 64):
+        made = {0: _latent_inputs(gen, dev, [length] * b)}
+
+        def call(i, made=made, b=b):
+            if i not in made:
+                made[i] = _latent_inputs(gen, dev, [length] * b)
+            return lambda: latent_decode_attention(*made[i], MLA_VD, scale)
+        rows_bytes = b * length * MLA_KD * 2
+        nbytes = (rows_bytes + b * MLA_HEADS * (MLA_KD + MLA_VD) * 2
+                  + b * 4 + b * -(-length // MLA_BS) * 4)
+        t = {"rows": b, "length": length}
+        t["device_ms"], t["cold_ms"] = device_times(call, rows_bytes)
+        t["ms"] = cuda_ms(call(0), 200)
+        t["plain_ms"] = cuda_ms(lambda: latent_decode_attention_plain(
+            *made[0], MLA_VD, scale), 10)
+        t["bound_ms"], t["bound_by"] = bound(
+            nbytes, 2 * MLA_HEADS * (MLA_KD + MLA_VD) * b * length)
+        log(f"  latent decode bf16, {b} rows of {length}: device-only "
+            f"{t['device_ms']:.5f} ms warm, {t['cold_ms']:.5f} ms L2-cold; "
+            f"back-to-back {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+        timed[b] = t
+    args64 = made[0]
+    t = timed[64]
+    return {"name": "latent_decode_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode_latent.cu",
+            "replaces": "none (the JAX package has no latent attention)",
+            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "device_ms": t["device_ms"],
+            "cold_ms": t["cold_ms"],
+            "by_rows": {str(b): t for b, t in timed.items()},
+            "call": lambda: latent_decode_attention(*args64, MLA_VD, scale)}
+
+
+def phase_prefill_mla_instance(dev) -> dict:
+    """The prefill kernel's (192, 128) instance (MLA's non-absorbed
+    prefill, H = KH = 16, bf16) against its plain version at 2e-2: first
+    chunks of 1 to 512 tokens and continuation chunks at per-row offsets
+    over longer lanes, as ``forward_chunk`` gathers them; two planted
+    faults must fall outside the tolerance (the scale 1/sqrt(128), the
+    causal mask one position late). Timed on first chunks of 8 x 128,
+    1 x 512 and 4 x 512 beside SDPA. Returns keys for the prefill kernel's
+    entry."""
+    from repro_torch.kernels.flash_prefill.ops import (flash_attention,
+                                                       flash_attention_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    h, tol = MLA_HEADS, 2e-2
+
+    def inputs(b, sq, skv, starts, lens):
+        r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(  # noqa
+            torch.bfloat16)
+        i32 = lambda x: torch.as_tensor(x, dtype=torch.int32,  # noqa: E731
+                                        device=dev)
+        return (r(b, h, sq, MLA_QK), r(b, h, skv, MLA_QK), r(b, h, skv, MLA_V),
+                i32(starts), i32(lens))
+
+    def both(args):
+        out = flash_attention(*args)
+        torch.cuda.synchronize()
+        return out, flash_attention_plain(*args)
+
+    log(f"prefill MLA instance: H = KH = {h}, QK {MLA_QK}, V {MLA_V}, bf16")
+    err = 0.0
+    for b, s in ((8, 128), (1, 512), (4, 512), (3, 1), (2, 7)):
+        err = max(err, check_close(
+            f"prefill MLA first chunks {b} x {s}",
+            *both(inputs(b, s, s, [0] * b, [s] * b)), tol))
+    starts = [0, 16, 64, 128, 192, 256, 384, 448]
+    err = max(err, check_close(
+        "prefill MLA continuation chunks of 64 over 512-row lanes",
+        *both(inputs(8, 64, 512, starts, [s + 64 for s in starts])), tol))
+    err = max(err, check_close(
+        "prefill MLA continuation chunks of 512 at 512 over 1,024 rows",
+        *both(inputs(2, 512, 1024, [512, 512], [1024, 1024])), tol))
+    q, k, v, qs, kl = args = inputs(8, 128, 128, [0] * 8, [128] * 8)
+    _, right = both(args)
+    check_fault("fault: scale 1/sqrt(128)", flash_attention_plain(
+        (q.float() * (MLA_QK / MLA_V) ** 0.5).to(q.dtype), k, v, qs, kl),
+        right, tol)
+    check_fault("fault: the causal mask one position late",
+                flash_attention_plain(q, k, v, qs + 1, kl), right, tol)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed = []
+    for b, s in ((8, 128), (1, 512), (4, 512)):
+        made = {0: inputs(b, s, s, [0] * b, [s] * b)}
+
+        def copy(i, made=made, b=b, s=s):
+            if i not in made:
+                made[i] = inputs(b, s, s, [0] * b, [s] * b)
+            return made[i]
+        nbytes = b * h * s * (2 * MLA_QK + 2 * MLA_V) * 2
+        t = {"rows": b, "tokens": s}
+        t["device_ms"], t["cold_ms"] = device_times(
+            lambda i: (lambda a=copy(i): flash_attention(*a)), nbytes)
+        t["library_device_ms"], t["library_cold_ms"] = device_times(
+            lambda i: (lambda a=copy(i): sdpa(a[0], a[1], a[2],
+                                             is_causal=True)), nbytes)
+        a = made[0]
+        t["ms"] = cuda_ms(lambda: flash_attention(*a), 100)
+        t["plain_ms"] = cuda_ms(lambda: flash_attention_plain(*a), 5)
+        t["library_ms"] = cuda_ms(lambda: sdpa(a[0], a[1], a[2],
+                                               is_causal=True), 100)
+        t["bound_ms"], t["bound_by"] = bound(
+            nbytes, 2 * h * (MLA_QK + MLA_V) * b * s * (s + 1) // 2)
+        log(f"  prefill MLA bf16 {b} x {s}: device-only {t['device_ms']:.5f}"
+            f" ms warm, {t['cold_ms']:.5f} ms L2-cold; SDPA "
+            f"{t['library_device_ms']:.5f} / {t['library_cold_ms']:.5f} ms; "
+            f"back-to-back {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"SDPA {t['library_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
+            f"({t['bound_by']})")
+        timed.append(t)
+    return {"flash_attention": {"mla_max_abs_err": err, "mla_timed": timed}}
+
+
 def phase_ring_decode_kernel(dev):
     from repro_torch.kernels.flash_decode.ops import (
         ring_decode_attention, ring_decode_attention_plain)
@@ -1010,7 +1232,8 @@ def burst(n: int = 16, seed: int = SEED):
 # recurrent state (no chunking or caching either) under the same budget.
 # olmoe_1b_7b (MoE) and qwen2_vl_72b's backbone (VLM) serve as llama3_2_3b
 # does, so continuation chunks and prefix-hit suffixes run their layers
-# through forward_chunk.
+# through forward_chunk. moonlight_16b_a3b (MLA) serves from the benchmark
+# cell's latent pool (2,048 positions, 8,192 blocks) with llama's chunks.
 SERVED = {
     "llama3_2_3b": dict(cache_len=512, chunk=64, caching=True, kv_blocks=64),
     "olmoe_1b_7b": dict(cache_len=512, chunk=64, caching=True, kv_blocks=64),
@@ -1020,6 +1243,8 @@ SERVED = {
                        kv_blocks=8 * 12),
     "rwkv6_7b": dict(cache_len=512, chunk=None, caching=False,
                      kv_blocks=8 * 12),
+    "moonlight_16b_a3b": dict(cache_len=2048, chunk=64, caching=True,
+                              kv_blocks=8192),
 }
 
 
@@ -1352,6 +1577,112 @@ def phase_serve(dev, arch: str, kernels, idle=(),
         raise AssertionError(f"launcher served {rep.n_requests} of 8")
     free_memory()
     return launches["pars"]
+
+
+def phase_mla_serve(dev, idle) -> dict:
+    """Full ``moonlight_16b_a3b`` (27 layers of MLA, layer 0 dense, 26 of
+    sigmoid-routed experts beside shared ones; bf16, 15.96 B) behind a
+    ``pars_bert_base``-width predictor, in the benchmark cell's engine (64
+    slots, 2,048 positions, 8,192 blocks of 16) with chunks of 64 and
+    prefix caching, its decode graphs captured: a 16-request burst under
+    PARS in two waves of 8 (the second's system prompts hit the first's
+    cached blocks), every launch count set to 0 after the captures and
+    read after the run. The latent decode kernel must launch exactly once a layer a
+    decode step (every step a replay), the prefill kernel's exactly once a
+    layer a prefill or extend dispatch, and no kernel of ``idle``. Then
+    each bucket's replayed step and the eager step, rows at position 160 on
+    blocks of their own, timed with CUDA events. Returns the run's launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
+    from repro_torch.core.predictor.train import RankingPredictor
+    from repro_torch.core.scheduler.policies import make_policy
+    from repro_torch.kernels.flash_decode.ops import latent_decode_attention
+    from repro_torch.kernels.flash_prefill.ops import flash_attention
+    from repro_torch.models import transformer as tfm
+
+    arch = "moonlight_16b_a3b"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, SEED, device=dev)
+    predictor = RankingPredictor.init(PRED_CONFIG, SEED, device=dev)
+    policy = make_policy("pars", predictor)
+    eng = make_engine(cfg, params, policy, dev, max_batch=64, **SERVED[arch])
+    eng.warmup()
+    torch.cuda.synchronize()
+    be = eng.backend
+    log(f"  {arch}: {cfg.num_layers} layers, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params bf16, "
+        f"latent pool {tuple(be.k_pool.shape)}; init and captures "
+        f"{time.perf_counter() - t0:.1f} s (captures "
+        f"{be.capture_seconds:.2f} s)")
+    kernels = (latent_decode_attention, flash_attention)
+    for k in (*kernels, *idle):
+        k.launches = 0
+    # two waves of 8: the second's system prompts hit the first's blocks
+    reqs = burst(16)
+    t0 = time.perf_counter()
+    for wave in (reqs[:8], reqs[8:]):
+        eng.submit(wave)
+        fin = eng.run()                 # every request finished so far
+    wall = time.perf_counter() - t0
+    counts = {k.__name__: k.launches for k in (*kernels, *idle)}
+    layers = cfg.num_layers
+    dispatches = be.prefill_dispatches + be.extend_dispatches
+    want = {k.__name__: 0 for k in idle}
+    want.update({latent_decode_attention.__name__: layers * be.decode_steps,
+                 flash_attention.__name__: layers * dispatches})
+    tokens = sum(r.true_length for r in fin)
+    log(f"  pars: {len(fin)} finished, {tokens} tokens in {wall:.2f} s; "
+        f"launches {counts}; prefill {be.prefill_dispatches} + extend "
+        f"{be.extend_dispatches} dispatches; prefix hits "
+        f"{be.prefix_installs}; latent rows expanded "
+        f"{be.latent_rows_expanded}; decode {be.decode_steps} steps, "
+        f"{be.decode_graph_steps} of them replays padded by "
+        f"{be.decode_pad_rows} rows; MoE dropped slots {be.dropped_slots}")
+    problems = []
+    if counts != want:
+        problems.append(f"launches {counts}, expected {want}")
+    if len(fin) != len(reqs):
+        problems.append(f"{len(fin)} of {len(reqs)} finished")
+    if dev.type == "cuda" and be.decode_graph_steps != be.decode_steps:
+        problems.append(f"{be.decode_steps - be.decode_graph_steps} decode "
+                        f"steps were not replayed")
+    if be.extend_dispatches == 0 or be.prefix_installs == 0:
+        problems.append("no continuation chunk or no prefix-cache hit")
+    if eng.allocator.used_blocks != 0:
+        problems.append(f"{eng.allocator.used_blocks} blocks held")
+    if policy.scorer_failures or policy.degradations:
+        problems.append("the predictor failed: PARS degraded to FCFS")
+    for r in fin:
+        if (len(r.generated_tokens) != r.true_length or not all(
+                0 <= t < cfg.vocab_size for t in r.generated_tokens)):
+            problems.append(f"request {r.req_id}: bad tokens")
+    if problems:
+        raise AssertionError(f"serving {arch}: {problems}")
+
+    if dev.type == "cuda":
+        position = 160
+        pos, tables = (t.numpy() for t in be._meta(be._meta_host))
+        per = -(-(position + 1) // 16)
+        steps = []
+        for b in (1, 8, 16, 32, 56, 64):
+            pos[:] = 0
+            tables[:] = be._null_block
+            pos[:b] = position
+            for j in range(b):
+                tables[j, :per] = np.arange(j * per, (j + 1) * per)
+            be._meta_in.copy_(be._meta_host)
+            steps.append({"rows": b, "position": position,
+                          "replay_ms": cuda_ms(be._graphs[b], iters=10),
+                          "eager_ms": cuda_ms(lambda: be._bucket_step(b),
+                                              iters=3, warmup=1)})
+            log(f"  decode step, {b} rows at position {position}: replay "
+                f"{steps[-1]['replay_ms']:.2f} ms, eager "
+                f"{steps[-1]['eager_ms']:.2f} ms")
+    del params, predictor, eng, fin, be
+    free_memory()
+    return {k: v for k, v in counts.items() if v}
 
 
 # ---------------------------------------------------------------------------
@@ -2111,12 +2442,38 @@ def _bench_summary(sections: dict) -> dict:
     }
 
 
+@contextlib.contextmanager
+def warmup_launches(kernels):
+    """Counts, by wrapper name, the launches that ``Engine.warmup`` makes
+    while the block runs: a paged pool's warm-up runs one eager decode step
+    per batch bucket before it captures the graphs, and the engine twins
+    count their runs' launches from after their warm-ups."""
+    from repro_torch.serving.engine import Engine
+
+    seen = {k.__name__: 0 for k in kernels}
+    warmup = Engine.warmup
+
+    def counted(self):
+        before = {k.__name__: k.launches for k in kernels}
+        try:
+            return warmup(self)
+        finally:
+            for k in kernels:
+                seen[k.__name__] += k.launches - before[k.__name__]
+    Engine.warmup = counted
+    try:
+        yield seen
+    finally:
+        Engine.warmup = warmup
+
+
 def phase_benchmarks(kernels) -> tuple:
     """The paper's benchmarks through the port on the card: the table and
     study twins (``benchmarks.torch_run``, FAST scale, mini predictor,
     every predictor trained on the card) and the admission twin at
     published width (``benchmarks.torch_prefill_admission --full``), with
-    every count of ``kernels`` set to 0 just before it and read just after;
+    every count of ``kernels`` set to 0 just before it and read just after,
+    less the engines' warm-ups (as the twin counts);
     the sections go to ``chiprun_out/BENCH_torch.json``, which must pass
     ``torch_check_bench --card``. Checks the reference's bars and that the
     admission twin ran the prefill kernel in every layer of every prefill
@@ -2133,9 +2490,10 @@ def phase_benchmarks(kernels) -> tuple:
                                "--smoke", "--json", str(BENCH_FILE)])
     for k in kernels:
         k.launches = 0
-    sections["prefill_admission"] = torch_prefill_admission.main(
-        ["--full", "--json", str(BENCH_FILE)])
-    launches = {k.__name__: k.launches for k in kernels}
+    with warmup_launches(kernels) as warm:
+        sections["prefill_admission"] = torch_prefill_admission.main(
+            ["--full", "--json", str(BENCH_FILE)])
+    launches = {k.__name__: k.launches - warm[k.__name__] for k in kernels}
 
     problems = []
     tau = sections["table2"]["tau"]["alpaca/gpt4"]["pairwise"]
@@ -2250,7 +2608,8 @@ def phase_serving_twins(kernels) -> tuple:
     ``paged_decode``, ``chunked_prefill`` and ``prefix_caching`` twins at
     published ``llama3_2_3b`` width in f32 (``--full``, the reference's
     default sizes), every count of ``kernels`` set to 0 just before each
-    twin and read just after (each twin reports its runs' own counts);
+    twin and read just after, less the engines' warm-ups (each twin
+    reports its runs' own counts);
     the kernel microbench twin; and ``examples/torch_serve_e2e.py --full``
     as a smoke test of the entry point. The sections go to
     ``BENCH_FILE``. Holds the reference's bars (identical tokens across
@@ -2270,8 +2629,9 @@ def phase_serving_twins(kernels) -> tuple:
         t0 = time.perf_counter()
         for k in kernels:
             k.launches = 0
-        section = mod.main(["--full", "--json", str(BENCH_FILE)])
-        total = {k.__name__: k.launches for k in kernels}
+        with warmup_launches(kernels) as warm:
+            section = mod.main(["--full", "--json", str(BENCH_FILE)])
+        total = {k.__name__: k.launches - warm[k.__name__] for k in kernels}
         free_memory()
         wall = time.perf_counter() - t0
         layers = get_config(section["real"]["arch"]).num_layers
@@ -2413,6 +2773,9 @@ def main() -> int:
         next(e for e in entries if e["name"] == name).update(keys)
     for name, keys in phase_whisper_instances(dev).items():
         next(e for e in entries if e["name"] == name).update(keys)
+    entries.append(phase_latent_decode_kernel(dev))
+    for name, keys in phase_prefill_mla_instance(dev).items():
+        next(e for e in entries if e["name"] == name).update(keys)
 
     log(f"== phase 3: parity at full width, 4 layers, f32 "
         f"(at {time.perf_counter() - t_start:.1f} s)")
@@ -2428,8 +2791,9 @@ def main() -> int:
         phase_paged_smoke(dev, arch)
         free_memory()
 
-    from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
-                                                      ring_decode_attention)
+    from repro_torch.kernels.flash_decode.ops import (
+        latent_decode_attention, paged_decode_attention,
+        ring_decode_attention)
     from repro_torch.kernels.flash_prefill.ops import flash_attention
     from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
     served = {}
@@ -2448,13 +2812,18 @@ def main() -> int:
             f"({'full' if depth is None else f'{depth} layers'}) under "
             f"{' and '.join(p.upper() for p in policies)} "
             f"(at {time.perf_counter() - t_start:.1f} s)")
-        idle = tuple(k for k in everything if k not in kernels)
+        idle = tuple(k for k in (*everything, latent_decode_attention)
+                     if k not in kernels)
         # only the RWKV path's launcher trains its predictor (phase 6
         # trains the same one): the other paths' launchers serve FCFS
         served[arch] = phase_serve(
             dev, arch, kernels, idle,
             launcher_policy="pars" if arch == "rwkv6_7b" else "fcfs",
             depth=depth, policies=policies)
+    log(f"== phase 4: serving moonlight_16b_a3b (full) under PARS "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    served["moonlight_16b_a3b"] = phase_mla_serve(
+        dev, tuple(k for k in everything if k is not flash_attention))
     log(f"== phase 4: whisper_tiny through build() "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     whisper = phase_whisper(dev, everything)
@@ -2503,7 +2872,7 @@ def main() -> int:
     for e in entries:
         for path, counts in (("prefill_admission", admission),
                              *by_twin.items()):
-            if counts[e["name"]]:
+            if counts.get(e["name"]):
                 e["launches_by_path"][path] = counts[e["name"]]
                 e["launches"] += counts[e["name"]]
     # the microbench's shapes: prefill at S 512, ring decode over 8,192

@@ -38,6 +38,12 @@
 // * Tiles wholly above the diagonal or outside the window are never
 //   loaded; tiles wholly inside both skip the per-element mask.
 //
+// MLA's prefill (flash_prefill_mla_kernel, the same body) attends with
+// query and key rows wider than the value rows: QK 192 columns (nope 128 and
+// rope 64), V and the output 128. Q and the two K stages take 192-column
+// tiles and the two V stages 128-column ones, 65 KB in all: three blocks
+// share an SM. The equal-width instances are the body at DV = DH.
+//
 // The f32 instantiation (used by the f32 parity checks only) keeps the
 // CUDA-core body: f32 tiles in shared memory, a 16 x 16 thread grid,
 // serial softmax statistics.
@@ -329,17 +335,17 @@ __device__ __forceinline__ uint32_t aligned_smem(unsigned char* raw) {
   return (smem_addr(raw) + 1023u) & ~1023u;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kWgThreads)
-flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
-                           const bf16* __restrict__ k,
-                           const bf16* __restrict__ v,
-                           const int* __restrict__ q_start,
-                           const int* __restrict__ kv_len,
-                           bf16* __restrict__ out, int heads, int kv_heads,
-                           int seq_q, int seq_k, int causal, int window,
-                           float scale_log2) {
+// The bf16 kernel's body: query and key rows of DH columns, value and
+// output rows of DV.
+template <int DH, int DV>
+__device__ __forceinline__ void flash_prefill_wgmma(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const int* __restrict__ q_start,
+    const int* __restrict__ kv_len, bf16* __restrict__ out, int heads,
+    int kv_heads, int seq_q, int seq_k, int causal, int window,
+    float scale_log2) {
   using Ti = WgTiles<DH>;
+  using Tv = WgTiles<DV>;
   constexpr int NS = Ti::kSRegs;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kTileQ;  // heaviest first
   const int h = blockIdx.y;
@@ -358,8 +364,8 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
   const int klen = min(kv_len[b], seq_k);
   const bf16* qb = q + ((size_t)b * heads + h) * (size_t)seq_q * DH;
   const bf16* kb = k + ((size_t)b * kv_heads + kh) * (size_t)seq_k * DH;
-  const bf16* vb = v + ((size_t)b * kv_heads + kh) * (size_t)seq_k * DH;
-  bf16* ob = out + ((size_t)b * heads + h) * (size_t)seq_q * DH;
+  const bf16* vb = v + ((size_t)b * kv_heads + kh) * (size_t)seq_k * DV;
+  bf16* ob = out + ((size_t)b * heads + h) * (size_t)seq_q * DV;
 
   // key tiles this query tile can see
   const int rows = min(kTileQ, seq_q - q0);
@@ -372,16 +378,16 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
   load_tile<DH, kTileQ>(q_tile, qb, q0, seq_q, tid);
   if (t_lo < t_hi) {
     load_tile<DH, kTileK>(k_tiles, kb, t_lo * kTileK, seq_k, tid);
-    load_tile<DH, kTileK>(v_tiles, vb, t_lo * kTileK, seq_k, tid);
+    load_tile<DV, kTileK>(v_tiles, vb, t_lo * kTileK, seq_k, tid);
   }
   cp_async_commit();
 
   // this thread's accumulator rows r0 and r0 + 8, columns c0 + 8 j + {0, 1}
   const int r0 = warp * 16 + (lane >> 2);
   const int c0 = 2 * (lane & 3);
-  float o[Ti::kOutRegs];
+  float o[Tv::kOutRegs];
 #pragma unroll
-  for (int j = 0; j < Ti::kOutRegs; ++j) o[j] = 0.f;
+  for (int j = 0; j < Tv::kOutRegs; ++j) o[j] = 0.f;
   float m[2] = {kNegInf, kNegInf};
   float l[2] = {0.f, 0.f};
 
@@ -393,7 +399,7 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
     if (t + 1 < t_hi) {
       load_tile<DH, kTileK>(k_tiles + (st ^ 1) * Ti::kKBytes, kb,
                             (t + 1) * kTileK, seq_k, tid);
-      load_tile<DH, kTileK>(v_tiles + (st ^ 1) * Ti::kKBytes, vb,
+      load_tile<DV, kTileK>(v_tiles + (st ^ 1) * Tv::kKBytes, vb,
                             (t + 1) * kTileK, seq_k, tid);
     }
     cp_async_commit();
@@ -435,10 +441,10 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
       l[(j >> 1) & 1] += s[j];
     }
 #pragma unroll
-    for (int j = 0; j < Ti::kOutRegs; ++j) o[j] *= corr[(j >> 1) & 1];
+    for (int j = 0; j < Tv::kOutRegs; ++j) o[j] *= corr[(j >> 1) & 1];
     uint32_t a[kTileK / 16][4];
     pack_p(s, a);
-    pv_product<DH>(o, a, v_tiles + st * Ti::kKBytes);
+    pv_product<DV>(o, a, v_tiles + st * Tv::kKBytes);
   }
   cp_async_wait<0>();
 
@@ -450,14 +456,44 @@ flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
     if (row < seq_q) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-      for (int c = 0; c < DH / 8; ++c) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * DH + 8 * c +
+      for (int c = 0; c < DV / 8; ++c) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row * DV + 8 * c +
                                            c0) =
             __floats2bfloat162_rn(o[4 * c + 2 * r] * inv,
                                   o[4 * c + 2 * r + 1] * inv);
       }
     }
   }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kWgThreads)
+flash_prefill_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const int* __restrict__ q_start,
+                           const int* __restrict__ kv_len,
+                           bf16* __restrict__ out, int heads, int kv_heads,
+                           int seq_q, int seq_k, int causal, int window,
+                           float scale_log2) {
+  flash_prefill_wgmma<DH, DH>(q, k, v, q_start, kv_len, out, heads, kv_heads,
+                              seq_q, seq_k, causal, window, scale_log2);
+}
+
+// MLA's non-absorbed prefill: query and key rows of DH columns (nope and
+// rope parts), value and output rows of DV.
+template <int DH, int DV>
+__global__ void __launch_bounds__(kWgThreads)
+flash_prefill_mla_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const int* __restrict__ q_start,
+                         const int* __restrict__ kv_len,
+                         bf16* __restrict__ out, int heads, int kv_heads,
+                         int seq_q, int seq_k, int causal, int window,
+                         float scale_log2) {
+  flash_prefill_wgmma<DH, DV>(q, k, v, q_start, kv_len, out, heads, kv_heads,
+                              seq_q, seq_k, causal, window, scale_log2);
 }
 
 template <int DH>
@@ -473,6 +509,26 @@ int launch_bf16(const void* q, const void* k, const void* v,
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((seq_q + kTileQ - 1) / kTileQ, heads, batch);
   flash_prefill_wgmma_kernel<DH><<<grid, kWgThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(q_start),
+      static_cast<const int*>(kv_len), static_cast<bf16*>(out), heads,
+      kv_heads, seq_q, seq_k, causal, window, scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+template <int DH, int DV>
+int launch_mla(const void* q, const void* k, const void* v,
+               const void* q_start, const void* kv_len, void* out, int batch,
+               int heads, int kv_heads, int seq_q, int seq_k, int causal,
+               int window, float scale, cudaStream_t stream) {
+  constexpr int smem = WgTiles<DH>::kQBytes + 2 * WgTiles<DH>::kKBytes +
+                       2 * WgTiles<DV>::kKBytes + 1024;  // + alignment
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_prefill_mla_kernel<DH, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((seq_q + kTileQ - 1) / kTileQ, heads, batch);
+  flash_prefill_mla_kernel<DH, DV><<<grid, kWgThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const int*>(q_start),
       static_cast<const int*>(kv_len), static_cast<bf16*>(out), heads,
@@ -592,6 +648,26 @@ extern "C" int flash_prefill(int dtype, const void* q, const void* k,
 #undef REPRO_F32
 #undef REPRO_BF16
   return (int)cudaErrorInvalidValue;
+}
+
+// MLA's prefill (bf16): query and key rows of `head_dim` columns, value and
+// output rows of `v_dim`; the one compiled pair is (192, 128), nope 128 plus
+// rope 64 against values of 128. Returns a cudaError_t code as
+// flash_prefill does.
+extern "C" int flash_prefill_mla(const void* q, const void* k, const void* v,
+                                 const void* q_start, const void* kv_len,
+                                 void* out, int batch, int heads,
+                                 int kv_heads, int seq_q, int seq_k,
+                                 int head_dim, int v_dim, int causal,
+                                 int window, float scale, void* stream) {
+  if (batch < 1 || heads < 1 || kv_heads < 1 || heads % kv_heads != 0 ||
+      seq_q < 1 || seq_k < 1 || heads > 65535 || batch > 65535 ||
+      head_dim != 192 || v_dim != 128) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_mla<192, 128>(q, k, v, q_start, kv_len, out, batch, heads,
+                              kv_heads, seq_q, seq_k, causal, window, scale,
+                              static_cast<cudaStream_t>(stream));
 }
 
 // The tile check: q, k, v (64, head_dim) bf16 -> s_out (64, 64) f32 =

@@ -1,4 +1,4 @@
-"""Decode attention: the two CUDA kernels' wrappers and their plain versions.
+"""Decode attention: the CUDA kernels' wrappers and their plain versions.
 
 Port of ``repro/kernels/flash_decode``:
 
@@ -10,6 +10,12 @@ Port of ``repro/kernels/flash_decode``:
   any lane gather. It is split-KV: one call launches two device kernels
   (the splits, then their fixed-order merge), or one when the whole table
   fits a single split.
+* :func:`latent_decode_attention` replaces no TPU kernel (the JAX package
+  has no latent attention): MLA's absorbed decode over one layer of the
+  engine's ``(L, N+1, bs, KD)`` latent pool, every row read once for all
+  heads, K the whole row and V its first ``v_dim`` columns, both products
+  on the tensor cores (bf16); kernel ``kernels/csrc/flash_decode_latent.cu``,
+  split-KV over whole table entries like paged decode.
 * :func:`ring_decode_attention` replaces ``flash_decode`` (wrapper
   ``decode_attention_pallas``); kernel ``kernels/csrc/flash_decode.cu``.
   Lanes are one layer of the engine's heads-first ``(L, S, KH, W, dh)``
@@ -143,6 +149,100 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Latent (MLA) pools
+# ---------------------------------------------------------------------------
+# (heads, k_dim, v_dim) the latent kernel compiles: MLA at kv_lora_rank 512,
+# rope dim 64, 16 heads
+LATENT_SHAPES = ((16, 576, 512),)
+
+
+def latent_decode_attention_plain(q: torch.Tensor, pool: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  lengths: torch.Tensor, v_dim: int,
+                                  scale: float) -> torch.Tensor:
+    """q: (B, H, KD); pool: (N, bs, KD); block_tables: (B, max_blocks) int;
+    lengths: (B,) int -> (B, H, v_dim). f32 math: gather each table into a
+    lane of latent rows, scores ``scale * q . row``, rows at positions >=
+    lengths[b] masked with NEG_INF, softmax, weight the rows' first
+    ``v_dim`` columns."""
+    b, h, kd = q.shape
+    bs = pool.shape[1]
+    w = block_tables.shape[1] * bs
+    lane = pool[block_tables.long()].reshape(b, w, kd).float()
+    s = torch.einsum("bhk,bwk->bhw", q.float(), lane) * scale
+    pos = torch.arange(w, device=q.device)
+    valid = pos[None, :] < lengths.to(q.device).long()[:, None]   # (B, W)
+    s = torch.where(valid[:, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhw,bwv->bhv", p, lane[..., :v_dim]).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _latent_lib() -> ctypes.CDLL:
+    lib = build.load("flash_decode_latent")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.latent_decode.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                  ctypes.c_float, p]
+    lib.latent_decode.restype = i
+    return lib
+
+
+def latent_decode_attention(q: torch.Tensor, pool: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            lengths: torch.Tensor, v_dim: int,
+                            scale: float) -> torch.Tensor:
+    """q: (B, H, KD) absorbed queries; pool: (N, bs, KD) latent rows;
+    block_tables: (B, max_blocks) int32; lengths: (B,) int32 -> (B, H,
+    v_dim), the attention-weighted first ``v_dim`` columns of the rows.
+
+    Table entries and lengths as :func:`paged_decode_attention`'s. On the
+    card the call launches the split kernel and, when a table spans more
+    than one split, the merge kernel, on PyTorch's current stream, with no
+    host synchronisation (a CUDA graph captures it); ``launches`` counts
+    calls. Refuses operands that require grad (no backward)."""
+    build.refuse_grad("latent_decode_attention", q, pool)
+    if build.plain_device(q):
+        return latent_decode_attention_plain(q, pool, block_tables, lengths,
+                                             v_dim, scale)
+    what = "latent_decode_attention"
+    build.require_cuda_operands(what, q, pool, block_tables, lengths)
+    b, h, kd = q.shape
+    if (pool.ndim != 3 or pool.shape[2] != kd or block_tables.ndim != 2
+            or block_tables.shape[0] != b or lengths.shape != (b,)):
+        raise ValueError(f"{what}: inconsistent shapes q={tuple(q.shape)} "
+                         f"pool={tuple(pool.shape)} "
+                         f"tables={tuple(block_tables.shape)} "
+                         f"lengths={tuple(lengths.shape)}")
+    if (h, kd, v_dim) not in LATENT_SHAPES:
+        raise ValueError(f"{what}: (heads, k_dim, v_dim) must be one of "
+                         f"{LATENT_SHAPES}, got {(h, kd, v_dim)}")
+    if q.dtype != torch.bfloat16 or pool.dtype != q.dtype:
+        raise ValueError(f"{what}: q and pool must be bfloat16 (the "
+                         f"kernel's tensor-core products)")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise ValueError(f"{what}: block_tables and lengths must be int32")
+    build.require_aligned(what, q, pool)
+    bs = pool.shape[1]
+    out = torch.empty(b, h, v_dim, dtype=q.dtype, device=q.device)
+    max_blocks = block_tables.shape[1]
+    entries, splits = split_geometry(bs, max_blocks)
+    scratch = (torch.empty(b * h * splits * (v_dim + 2), dtype=torch.float32,
+                           device=q.device) if splits > 1 else None)
+    lib = _latent_lib()
+    code = lib.latent_decode(
+        build.DTYPE_CODES[q.dtype], q.data_ptr(), pool.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), b, h, kd, v_dim, bs,
+        max_blocks, entries, scale, build.current_stream(q.device))
+    build.check_launch(lib, code, what)
+    latent_decode_attention.launches += 1
+    return out
+
+
+latent_decode_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------

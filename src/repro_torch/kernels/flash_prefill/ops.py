@@ -37,14 +37,18 @@ from repro_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)   # the kernel's compiled head_dim instances
+# (QK, V) widths of the compiled instance whose values are narrower than its
+# queries and keys: MLA's non-absorbed prefill, bf16 only
+MLA_DIMS = ((192, 128),)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_start: torch.Tensor, kv_len: torch.Tensor, *,
                           causal: bool = True,
                           window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, Sq, dh); k/v: (B, KH, Skv, dh); q_start, kv_len: (B,) int
-    -> (B, H, Sq, dh). f32 math, as the reference's ``flash_prefill_ref``."""
+    """q: (B, H, Sq, dh); k: (B, KH, Skv, dh); v: (B, KH, Skv, dv); q_start,
+    kv_len: (B,) int -> (B, H, Sq, dv). f32 math, as the reference's
+    ``flash_prefill_ref``; the scale is ``dh ** -0.5``."""
     b, h, sq, dh = q.shape
     kh, skv = k.shape[1], k.shape[2]
     kk = k.float().repeat_interleave(h // kh, dim=1)
@@ -70,6 +74,9 @@ def _lib() -> ctypes.CDLL:
     lib.flash_prefill.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, i, i, i,
                                   ctypes.c_float, p]
     lib.flash_prefill.restype = i
+    lib.flash_prefill_mla.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i,
+                                      i, i, ctypes.c_float, p]
+    lib.flash_prefill_mla.restype = i
     lib.flash_prefill_tile_check.argtypes = [p, p, p, p, p, i, p]
     lib.flash_prefill_tile_check.restype = i
     return lib
@@ -112,9 +119,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_start: torch.Tensor, kv_len: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, H, Sq, dh); k/v: (B, KH, Skv, dh); q_start, kv_len: (B,) int32
-    -> (B, H, Sq, dh). KV head of query head h is ``h // (H // KH)``.
-    Refuses operands that require grad (no backward)."""
+    """q: (B, H, Sq, dh); k: (B, KH, Skv, dh); v: (B, KH, Skv, dv); q_start,
+    kv_len: (B,) int32 -> (B, H, Sq, dv). KV head of query head h is
+    ``h // (H // KH)``; the scale is ``dh ** -0.5``. ``dv`` is ``dh``, or a
+    pair of ``MLA_DIMS`` in bf16. Refuses operands that require grad (no
+    backward)."""
     build.refuse_grad("flash_attention", q, k, v)
     if build.plain_device(q):
         return flash_attention_plain(q, k, v, q_start, kv_len, causal=causal,
@@ -122,8 +131,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     what = "flash_attention"
     build.require_cuda_operands(what, q, k, v, q_start, kv_len)
     b, h, sq, dh = q.shape
+    dv = v.shape[-1]
     if (k.ndim != 4 or k.shape[0] != b or k.shape[3] != dh
-            or v.shape != k.shape or h % k.shape[1]
+            or v.shape[:3] != k.shape[:3] or h % k.shape[1]
             or q_start.shape != (b,) or kv_len.shape != (b,)):
         raise ValueError(f"{what}: inconsistent shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
@@ -133,18 +143,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{list(build.DTYPE_CODES)}")
     if q_start.dtype != torch.int32 or kv_len.dtype != torch.int32:
         raise ValueError(f"{what}: q_start and kv_len must be int32")
-    if dh not in HEAD_DIMS:
+    if dv != dh and ((dh, dv) not in MLA_DIMS or q.dtype != torch.bfloat16):
+        raise ValueError(f"{what}: value width {dv} != head_dim {dh} is "
+                         f"compiled for {MLA_DIMS} in bfloat16 only")
+    if dv == dh and dh not in HEAD_DIMS:
         raise ValueError(f"{what}: head_dim must be one of {HEAD_DIMS}")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be positive")
     build.require_aligned(what, q, k, v)
-    out = torch.empty_like(q)
+    out = torch.empty(b, h, sq, dv, dtype=q.dtype, device=q.device)
     lib = _lib()
-    code = lib.flash_prefill(
-        build.DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        q_start.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, h,
-        k.shape[1], sq, k.shape[2], dh, int(causal), window or 0, dh ** -0.5,
-        build.current_stream(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_start.data_ptr(),
+            kv_len.data_ptr(), out.data_ptr(), b, h, k.shape[1], sq,
+            k.shape[2])
+    if dv == dh:
+        code = lib.flash_prefill(
+            build.DTYPE_CODES[q.dtype], *args, dh, int(causal), window or 0,
+            dh ** -0.5, build.current_stream(q.device))
+    else:
+        code = lib.flash_prefill_mla(
+            *args, dh, dv, int(causal), window or 0, dh ** -0.5,
+            build.current_stream(q.device))
     build.check_launch(lib, code, what)
     flash_attention.launches += 1
     return out

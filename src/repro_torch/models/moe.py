@@ -17,6 +17,17 @@ its rows (rows that no token took stay zero, as the reference's empty
 capacity does), and each token sums its kept slots' outputs weighted by
 their gates. These are plain large products, outside any kernel in both.
 
+The router is the reference's softmax over the experts, or, with
+:class:`SigmoidRouting` (DeepSeek-V3's ``noaux_tc`` in one group,
+arXiv:2412.19437 §2.1.2), a sigmoid score per expert: the top k of the
+scores plus a per-expert ``router_bias`` are chosen (the bias moves the
+choice only), and their gates are their scores, normalised over the k,
+times ``routed_scaling_factor``; its logits take the
+router's f32 weights as they are, as the published model computes its gate
+in f32 (the softmax router rounds them to the activation dtype first, as
+the reference does). Both choose with a stable sort, ties to the lower
+index.
+
 The four stages are the tracer's spans (``repro_torch.trace``):
 ``moe.router``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``, so a
 profile with host activity attributes the device time of each stage's
@@ -25,7 +36,7 @@ kernels.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,10 +48,28 @@ from repro_torch.sharding.annotate import (current_mesh_rules, resolve_spec,
                                            with_sharding)
 
 
+class SigmoidRouting(NamedTuple):
+    """A sigmoid router's gates: scaled by ``routed_scaling_factor`` after
+    a normalisation over the chosen k."""
+    routed_scaling_factor: float
+
+
+def routing_of(cfg) -> Optional[SigmoidRouting]:
+    """The router of a model config: :class:`SigmoidRouting` for a
+    ``scoring="sigmoid"`` config (``configs/latent.py``), None for the
+    softmax router."""
+    if getattr(cfg, "scoring", "softmax") != "sigmoid":
+        return None
+    return SigmoidRouting(cfg.routed_scaling_factor)
+
+
 def init_moe(gen: torch.Generator, d_model: int, moe: MoEConfig,
-             activation: str, dtype: torch.dtype, num_layers: int) -> dict:
+             activation: str, dtype: torch.dtype, num_layers: int,
+             router_bias: bool = False) -> dict:
     """Stacked expert parameters: an f32 ``router`` (L, d, E) and the
-    experts' ``w_up``/``w_gate`` (L, E, d, f) and ``w_down`` (L, E, f, d)."""
+    experts' ``w_up``/``w_gate`` (L, E, d, f) and ``w_down`` (L, E, f, d);
+    with ``router_bias`` a sigmoid router's f32 selection bias (L, E),
+    zeros."""
     e, f, L = moe.num_experts, moe.expert_d_ff, num_layers
     p = {"router": dense_init(gen, (L, d_model, e), in_axis_size=d_model,
                               dtype=torch.float32),
@@ -51,6 +80,9 @@ def init_moe(gen: torch.Generator, d_model: int, moe: MoEConfig,
     if gated(activation):
         p["w_gate"] = dense_init(gen, (L, e, d_model, f),
                                  in_axis_size=d_model, dtype=dtype)
+    if router_bias:
+        p["router_bias"] = torch.zeros(L, e, dtype=torch.float32,
+                                       device=gen.device)
     return p
 
 
@@ -60,7 +92,9 @@ def _capacity(group_size: int, moe: MoEConfig) -> int:
 
 
 def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
-              per_row: bool = False) -> Tuple[torch.Tensor, dict]:
+              per_row: bool = False,
+              routing: Optional[SigmoidRouting] = None
+              ) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> ``(y (B, S, d), aux)``.
 
     ``aux`` holds the scaled ``load_balance_loss`` (top-1 fraction times
@@ -72,7 +106,8 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
     own groups and capacity: what the reference engine's continuation and
     decode programs compute, which route one row at a time under ``vmap``.
     Raises where the group size does not divide the dispatch, as the
-    reference asserts.
+    reference asserts. ``routing`` selects the sigmoid router (its bias is
+    ``p["router_bias"]``); None, the softmax router.
 
     Under sharding rules (DTensor operands) the dispatch groups shard over
     the reference's group axes (``"moe_group_dp"``) and the experts over
@@ -90,9 +125,11 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
     xg = with_sharding(x.reshape(g, tg, d), ("moe_group_dp", None, None))
     weights = (p["router"], p["w_up"], p.get("w_gate"), p["w_down"])
     if not _sharded(xg):
-        y, frac, mean_p, z, drops = _dispatch(xg, *weights, moe=moe,
-                                              activation=activation,
-                                              first=0, experts=e)
+        y, frac, mean_p, z, drops = _dispatch(
+            xg, *weights, moe=moe, activation=activation, first=0,
+            experts=e, routing=routing, bias=p.get("router_bias"))
+    elif routing is not None:
+        raise NotImplementedError("the sigmoid router runs unsharded")
     else:
         y, frac, mean_p, z, drops = _sharded_dispatch(
             xg, *weights, moe=moe, activation=activation)
@@ -157,9 +194,24 @@ def _sharded_dispatch(xg, router, w_up, w_gate, w_down, *, moe: MoEConfig,
     return fn(xg, router, w_up, w_gate, w_down)
 
 
+def _sigmoid_gates(logits: torch.Tensor, bias: torch.Tensor, k: int,
+                   routing: SigmoidRouting):
+    """Sigmoid scores (G, T, E), and the gates and experts (G, T, k) of the
+    top k of the scores plus ``bias`` (ties to the lower index)."""
+    scores = torch.sigmoid(logits)
+    _, idx = torch.sort(scores + bias.float(), stable=True, dim=-1,
+                        descending=True)
+    idx = idx[..., :k]
+    gates = scores.gather(-1, idx)
+    gates = gates / (gates.sum(-1, keepdim=True) + 1e-20)
+    return scores, gates * routing.routed_scaling_factor, idx
+
+
 def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
               w_gate, w_down: torch.Tensor, *, moe: MoEConfig,
-              activation: str, first: int, experts: int):
+              activation: str, first: int, experts: int,
+              routing: Optional[SigmoidRouting] = None,
+              bias: Optional[torch.Tensor] = None):
     """The capacity-bounded dispatch of groups ``xg`` (G, T, d) through
     experts ``first .. first + experts - 1`` (the expert weights hold those
     alone): ``(y (G, T, d), top-1 fraction (E,), mean probability (E,),
@@ -171,17 +223,24 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
     dev = xg.device
 
     with trace.span("moe.router"):
-        # router logits in f32 from operands in the activation dtype (the
-        # reference's preferred_element_type=f32), then the softmax
-        logits = xg.float() @ router.to(xg.dtype).float()
-        probs = torch.softmax(logits, -1)                      # (G, T, E)
-        # top-k with lax.top_k's tie order (the lower index first): a
-        # stable descending sort; the k gates normalised before any drop
-        gate_vals, gate_idx = torch.sort(probs, stable=True, dim=-1,
-                                         descending=True)
-        gate_vals, gate_idx = gate_vals[..., :k], gate_idx[..., :k]
-        gate_vals = gate_vals / torch.clamp(
-            gate_vals.sum(-1, keepdim=True), min=1e-9)
+        if routing is None:
+            # router logits in f32 from operands in the activation dtype
+            # (the reference's preferred_element_type=f32), then the softmax
+            logits = xg.float() @ router.to(xg.dtype).float()
+            probs = torch.softmax(logits, -1)                  # (G, T, E)
+            # top-k with lax.top_k's tie order (the lower index first): a
+            # stable descending sort; the k gates normalised before any drop
+            gate_vals, gate_idx = torch.sort(probs, stable=True, dim=-1,
+                                             descending=True)
+            gate_vals, gate_idx = gate_vals[..., :k], gate_idx[..., :k]
+            gate_vals = gate_vals / torch.clamp(
+                gate_vals.sum(-1, keepdim=True), min=1e-9)
+        else:
+            # the published sigmoid router's logits: its f32 weights over
+            # the activations in f32
+            logits = xg.float() @ router.float()
+            probs, gate_vals, gate_idx = _sigmoid_gates(logits, bias, k,
+                                                        routing)
         # slot-major order: (G, k*T), slot j of token t at j*T + t
         expert = gate_idx.transpose(1, 2).reshape(g, k * tg)
         onehot = F.one_hot(expert, e)

@@ -41,6 +41,12 @@ Two decode caches, one per engine mode:
       {"state": (L, S, H, dh, dh) f32, "tm_prev", "cm_prev": (L, S, d),
        "slots", "pos"}
 
+* **latent** (MLA, ``configs/latent.py``; paged only): one pool of latent
+  rows in place of the K and V pools::
+
+      {"latent": (L, N+1, bs, kv_lora_rank + qk_rope_head_dim),
+       "tables", "pos"}
+
 :func:`init_cache` builds either with identity tables or slots; the serving
 engine passes its own pool or lanes with the dispatched requests' tables or
 slots. Every function that takes a cache writes the new state into it **in
@@ -65,6 +71,13 @@ Two routes, chosen by the caller's ``attn_impl``:
   require grad. ``remat`` recomputes each decoder layer in backward
   (``"full"``) or all but its weight products (``"dots"``).
 
+A latent configuration's layers are not all alike: its leading
+``first_k_dense`` layers hold a dense MLP of ``dense_d_ff`` and no experts,
+stacked apart under ``params["dense_layers"]``, before ``params["layers"]``
+(:func:`layer_trees`); its attention is MLA (``models/mla.py``) on the
+kernel route, and its MoE layers route by sigmoid scores where the config
+says so, beside their shared experts (``moe.shared``).
+
 An MoE layer's output for a token depends on the other tokens of its
 dispatch (expert capacity): :func:`forward_seq` routes a call's rows
 together, as the reference's function does on a batch (first chunks,
@@ -86,8 +99,10 @@ from repro_torch import trace
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
+from repro_torch.configs.latent import dense_layers, is_latent
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_decode.ops import paged_decode_attention
+from repro_torch.models import mla
 from repro_torch.models import rwkv6 as rwkv
 from repro_torch.models import ssm as ssd
 from repro_torch.models.attention import (gather_lane, prefill_attention,
@@ -96,7 +111,7 @@ from repro_torch.models.common import (activate, apply_mrope, apply_norm,
                                        apply_rope, dense_init, embed_init,
                                        gated, generator, init_norm,
                                        positions_for)
-from repro_torch.models.moe import apply_moe, init_moe
+from repro_torch.models.moe import apply_moe, init_moe, routing_of
 from repro_torch.sharding import local as sharded
 from repro_torch.sharding.annotate import gather_fsdp, splits, with_sharding
 
@@ -142,6 +157,13 @@ def param_count(cfg: ModelConfig) -> int:
     attn = 2 * d * q + 2 * d * kv + (q + 2 * kv + d if cfg.use_bias else 0)
     mlp = ((3 if gated(cfg.activation) else 2) * d * f
            + (f + d if cfg.use_bias else 0)) if f else 0
+    if is_latent(cfg):              # router, its bias, gated experts
+        e, fe, k = cfg.moe.num_experts, cfg.moe.expert_d_ff, dense_layers(cfg)
+        attn = 2 * norm + mla.param_count(cfg)
+        moe_layer = attn + mlp + d * e + e + 3 * e * d * fe
+        dense = attn + 3 * d * cfg.dense_d_ff
+        return (2 * cfg.vocab_size * d + norm + k * dense
+                + (L - k) * moe_layer)
     if cfg.family == SSM:
         r = rwkv.DECAY_LORA
         time_mix = 5 * d + 5 * d * q + 3 * q + d * r + r * q
@@ -223,7 +245,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                         bv=zeros(kh * dh, n), bo=zeros(d, n))
         return attn
 
-    def mlp_block(n=L):
+    def mlp_block(n=L, f=f):
         mlp = {"w_up": dense((d, f), n), "w_down": dense((f, d), n)}
         if gated(cfg.activation):
             mlp["w_gate"] = dense((d, f), n)
@@ -231,7 +253,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
             mlp.update(b_up=zeros(f, n), b_down=zeros(d, n))
         return mlp
 
-    if cfg.family == SSM:       # attention-free: time-mix, channel-mix
+    latent = {}
+    if is_latent(cfg):          # leading dense layers, then MoE layers
+        k = dense_layers(cfg)
+        biased = routing_of(cfg) is not None
+        latent["dense_layers"] = {
+            "ln1": stacked_norm(k), "ln2": stacked_norm(k),
+            "attn": mla.init_attn(gen, cfg, dtype, k),
+            "mlp": mlp_block(k, cfg.dense_d_ff)}
+        layers = {"ln1": stacked_norm(L - k), "ln2": stacked_norm(L - k),
+                  "attn": mla.init_attn(gen, cfg, dtype, L - k),
+                  "mlp": mlp_block(L - k),
+                  "moe": init_moe(gen, d, cfg.moe, cfg.activation, dtype,
+                                  L - k, router_bias=biased)}
+    elif cfg.family == SSM:     # attention-free: time-mix, channel-mix
         layers = {"ln1": stacked_norm(), "ln2": stacked_norm(),
                   "tm": rwkv.init_time_mix(gen, cfg, dtype, L),
                   "cm": rwkv.init_channel_mix(gen, cfg, dtype, L)}
@@ -251,6 +286,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     params: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, d), dtype),
         "final_norm": init_norm(d, cfg.norm, dtype, dev),
+        **latent,
         "layers": layers,
     }
     if not cfg.tie_embeddings:
@@ -268,6 +304,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
             "pos_embed": embed_init(gen, (cfg.encoder_seq_len, d), dtype),
             "final_norm": init_norm(d, cfg.norm, dtype, dev)}
     return params
+
+
+def layer_trees(params: Params) -> List[Params]:
+    """Each decoder layer's tree, first to last: a latent configuration's
+    leading dense layers (``params["dense_layers"]``), then
+    ``params["layers"]`` (every other configuration's only stack)."""
+    trees = unstack_layers(params)
+    if "dense_layers" in params:
+        trees = unstack_layers({"layers": params["dense_layers"]}) + trees
+    return trees
 
 
 def unstack_layers(params: Params) -> List[Params]:
@@ -321,12 +367,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                              f"block_size={block_size}")
         mb = max_len // block_size
         n = batch * mb
+        tables = torch.arange(n, dtype=torch.int32,
+                              device=dev).reshape(batch, mb)
+        if is_latent(cfg):
+            return {"latent": torch.zeros(L, n + 1, block_size,
+                                          cfg.latent_dim, dtype=dt,
+                                          device=dev),
+                    "tables": tables, "pos": pos}
         shape = (L, n + 1, block_size, kh, dh)
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev),
-                "tables": torch.arange(n, dtype=torch.int32,
-                                       device=dev).reshape(batch, mb),
-                "pos": pos}
+                "tables": tables, "pos": pos}
+    if is_latent(cfg):
+        raise ValueError(f"{cfg.arch_id}: a latent cache is paged only")
     slots = torch.arange(batch, dtype=torch.int32, device=dev)
     if cfg.family == SSM:
         h, d = cfg.num_heads, cfg.d_model
@@ -454,21 +507,27 @@ def _ffn_residual(lp: Params, x, cfg: ModelConfig, *, per_row: bool):
         y, aux = 0.0, _NO_AUX
         if "moe" in lp:
             y, aux = apply_moe(lp["moe"], xn, cfg.moe, cfg.activation,
-                               per_row=per_row)
+                               per_row=per_row, routing=routing_of(cfg))
             y = _residual(y)
-        if "mlp" in lp:
+            if "mlp" in lp:         # the shared experts
+                with trace.span("moe.shared"):
+                    y = y + _mlp(lp["mlp"], xn, cfg)
+        elif "mlp" in lp:
             y = y + _mlp(lp["mlp"], xn, cfg)
         return x + y, aux
 
 
 def _sum_aux(auxes: List[dict]) -> dict:
     """The layers' aux summed: one stack and sum per key, not an add per
-    layer (a served step is bound by the host's launches)."""
+    layer (a served step is bound by the host's launches). The keys are an
+    MoE layer's where a dense layer's zeros come first (a latent
+    configuration's leading dense layers), which add nothing."""
     if not auxes:
         return dict(_NO_AUX)
-    return {k: (torch.stack([a[k] for a in auxes]).sum(0)
+    return {k: (torch.stack([a[k] for a in auxes
+                             if torch.is_tensor(a.get(k))]).sum(0)
                 if torch.is_tensor(v) else sum(a[k] for a in auxes))
-            for k, v in auxes[0].items()}
+            for k, v in max(auxes, key=len).items()}
 
 
 def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor):
@@ -684,6 +743,10 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     plain = attn_impl != "kernel"
     enc_out = (encode(params, cfg, frames, attn_impl=attn_impl,
                       kv_chunk=kv_chunk) if cfg.is_encdec else None)
+    latent = is_latent(cfg)
+    if latent and plain:
+        raise NotImplementedError(f"{cfg.arch_id}: latent attention runs on "
+                                  f"the kernel route only")
     if plain and cache is None and not build_cache:
         return _forward_plain(params, cfg, x, positions, mrope_positions,
                               enc_out, attn_impl, kv_chunk, remat)
@@ -698,11 +761,20 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     q_start = torch.zeros(b, dtype=torch.int32, device=dev)
     kv_len = torch.full((b,), s, dtype=torch.int32, device=dev)
     auxes = []
-    for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
+    for layer, lp in enumerate(map(gather_fsdp, layer_trees(params))):
         with trace.span("model.layer", layer):
             xn = apply_norm(lp["ln1"], x, cfg.norm)
             if cfg.family == SSM:
                 x = _rwkv_seq(lp, x, xn, cfg, cache, layer, attn_impl)
+                continue
+            if latent:
+                with trace.span("model.attn"):
+                    pool = (() if cache is None else
+                            (cache["latent"][layer], cache["tables"], n))
+                    x = x + _attn_proj(lp, mla.seq_attention(
+                        lp["attn"], xn, cfg, positions, *pool))
+                x, layer_aux = _ffn_residual(lp, x, cfg, per_row=False)
+                auxes.append(layer_aux)
                 continue
             with trace.span("model.attn"):
                 q, k, v = _qkv(lp["attn"], xn, cfg)
@@ -848,8 +920,17 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     kv_len = pos0 + c
     paged = "tables" in cache
     auxes = []
-    for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
+    for layer, lp in enumerate(map(gather_fsdp, layer_trees(params))):
         with trace.span("model.layer", layer):
+            if "latent" in cache:
+                with trace.span("model.attn"):
+                    x = x + _attn_proj(lp, mla.chunk_attention(
+                        lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg,
+                        positions, cache["latent"][layer], cache["tables"],
+                        pos0, kv_len))
+                x, layer_aux = _ffn_residual(lp, x, cfg, per_row=True)
+                auxes.append(layer_aux)
+                continue
             with trace.span("model.attn"):
                 q, k, v = _qkv(lp["attn"], apply_norm(lp["ln1"], x, cfg.norm),
                                cfg)
@@ -898,21 +979,30 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     x = _embed(params, cfg, token, pos)
     positions = pos[:, None]
     paged = "tables" in cache
+    latent = "latent" in cache
     if paged:
         tables = cache["tables"]
         lengths = torch.clamp(pos + 1, max=tables.shape[1]
-                              * cache["k"].shape[2])
+                              * cache["latent" if latent else "k"].shape[2])
     else:
         slots = cache["slots"].to(torch.int32)
         rows = slots
     if "cross_k" in cache:      # every encoder row visible
         cross_pos = torch.full_like(pos, cache["cross_k"].shape[3] - 1)
     auxes = []
-    for layer, lp in enumerate(map(gather_fsdp, unstack_layers(params))):
+    for layer, lp in enumerate(map(gather_fsdp, layer_trees(params))):
         with trace.span("model.layer", layer):
             xn = apply_norm(lp["ln1"], x, cfg.norm)
             if cfg.family == SSM:
                 x = _rwkv_step(lp, x, xn, cfg, cache, layer, rows)
+                continue
+            if latent:
+                with trace.span("model.attn"):
+                    x = x + _attn_proj(lp, mla.decode_attention(
+                        lp["attn"], xn, cfg, positions,
+                        cache["latent"][layer], tables, lengths))
+                x, layer_aux = _ffn_residual(lp, x, cfg, per_row=True)
+                auxes.append(layer_aux)
                 continue
             with trace.span("model.attn"):
                 q, k, v = _qkv(lp["attn"], xn, cfg)

@@ -18,7 +18,12 @@ the dense, MoE and VLM families, without a sliding window):
   zero-copy: the allocator aliased the cached blocks into the new request's
   table, so a hit just claims a slot and resumes at the cached offset
   (``prefix_tokens_copied`` stays 0). Decode reads the pool through the
-  tables with the paged decode kernel.
+  tables with the paged decode kernel. A latent (MLA) model's pool is one
+  pool of latent rows, ``(L, total_blocks + 1, block_size, kv_lora_rank +
+  qk_rope_head_dim)``, held where the K pool is held (``k_pool``, with no
+  ``v_pool``), read by the latent decode kernel; its continuation chunks
+  gather and up-project only the table entries their keys reach
+  (``latent_rows_expanded`` counts those rows, each layer's once).
 * **Contiguous.** Each slot owns a lane per layer, stored heads first:
   ``(L, max_batch, KH, W, dh)`` with ``W = min(cache_len,
   sliding_window)``, plus a hybrid model's conv tail and f32 SSM state per
@@ -82,12 +87,14 @@ import torch
 
 from repro_torch import trace
 from repro_torch.configs.base import AUDIO, MOE, ModelConfig
+from repro_torch.configs.latent import is_latent
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_decode.ops import paged_decode_attention
+from repro_torch.kernels.flash_decode.ops import (latent_decode_attention,
+                                                  paged_decode_attention)
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.config import ServingConfig, resolve_config
 from repro_torch.serving.core import PrefillChunk, ServingCore, WallClock
@@ -170,6 +177,8 @@ class RealBackend:
         self._prefix_store: Dict[int, dict] = {}
 
         # --- paged KV pool (built at attach: sized by the core's allocator) --
+        # a latent model's one pool of latent rows is k_pool, v_pool None
+        self.latent = is_latent(cfg)
         self.k_pool: Optional[torch.Tensor] = None
         self.v_pool: Optional[torch.Tensor] = None
         self._null_block: Optional[int] = None
@@ -201,6 +210,9 @@ class RealBackend:
         self.prefix_installs = 0      # slots claimed at a cached offset
         self.prefix_tokens_copied = 0  # KV tokens copied instead of computed
         self.prefill_pad_lanes = 0    # replayed lanes of MoE first chunks
+        # latent rows of the pool that continuation chunks up-projected,
+        # summed over layers
+        self.latent_rows_expanded = 0
         # MoE token-slots of real positions dropped at expert capacity,
         # summed on the device: read as an int by ``dropped_slots``
         self._dropped = 0
@@ -258,16 +270,23 @@ class RealBackend:
 
     def _build_paged(self, alloc: BlockAllocator) -> None:
         """Materialize the global KV pools: ``(L, total_blocks + 1,
-        block_size, KH, dh)`` each, block N the null block."""
+        block_size, KH, dh)`` each, or the one latent pool ``(L,
+        total_blocks + 1, block_size, latent_dim)``; block N the null
+        block."""
         cfg = self.cfg
         n = alloc.total_blocks
         self._null_block = n
         self._lane_blocks = self.cache_len // alloc.block_size
-        shape = (cfg.num_layers, n + 1, alloc.block_size, cfg.num_kv_heads,
-                 cfg.head_dim)
         dtype = self.params["embed"].dtype
-        self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
-        self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+        if self.latent:
+            self.k_pool = torch.zeros(cfg.num_layers, n + 1, alloc.block_size,
+                                      cfg.latent_dim, dtype=dtype,
+                                      device=self.device)
+        else:
+            shape = (cfg.num_layers, n + 1, alloc.block_size,
+                     cfg.num_kv_heads, cfg.head_dim)
+            self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
+            self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
         rows = self.max_batch
         self._tokens_in = torch.zeros(rows, 1, dtype=torch.int64,
                                       device=self.device)
@@ -275,6 +294,12 @@ class RealBackend:
             rows * (1 + self._lane_blocks), dtype=torch.int32,
             pin_memory=self.device.type == "cuda")
         self._meta_in = torch.empty_like(self._meta_host, device=self.device)
+
+    def _pools(self) -> tfm.Cache:
+        """The pools as a paged cache holds them."""
+        if self.latent:
+            return {"latent": self.k_pool}
+        return {"k": self.k_pool, "v": self.v_pool}
 
     def _meta(self, meta: torch.Tensor):
         """``meta``'s (positions (max_batch,), tables (max_batch,
@@ -303,8 +328,7 @@ class RealBackend:
         what bucket ``b``'s graph holds: ``(logits (b, V), token_drops
         (b, 1) or None)``."""
         pos, tables = self._meta(self._meta_in)
-        cache = {"k": self.k_pool, "v": self.v_pool, "pos": pos[:b],
-                 "tables": tables[:b]}
+        cache = {**self._pools(), "pos": pos[:b], "tables": tables[:b]}
         logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
                                          self._tokens_in[:b])
         return logits, aux.get("token_drops")
@@ -317,8 +341,8 @@ class RealBackend:
         initialisations a capture cannot hold). No garbage collection
         runs during the captures: one could destroy a dead engine's
         graphs, which a capture does not permit. The captures launch
-        nothing, so ``paged_decode_attention.launches`` leaves them out;
-        each replay adds the calls its graph holds."""
+        nothing, so the decode kernel's ``launches`` leaves them out; each
+        replay adds the calls its graph holds."""
         buckets = decode_buckets(self.max_batch)
         self._stage([], [], self.max_batch)
         main = torch.cuda.current_stream(self.device)
@@ -329,17 +353,19 @@ class RealBackend:
                 self._bucket_step(b)
         main.wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
+        kernel = (latent_decode_attention if self.latent
+                  else paged_decode_attention)
         collecting = gc.isenabled()
         gc.disable()
         try:
             for b in reversed(buckets):
                 graph = torch.cuda.CUDAGraph()
-                before = paged_decode_attention.launches
+                before = kernel.launches
                 with torch.cuda.graph(graph, pool=pool):
                     out = self._bucket_step(b)
-                calls = paged_decode_attention.launches - before
-                paged_decode_attention.launches = before
-                self._graphs[b] = _replay(graph, out, calls)
+                calls = kernel.launches - before
+                kernel.launches = before
+                self._graphs[b] = _replay(graph, out, kernel, calls)
         finally:
             if collecting:
                 gc.enable()
@@ -367,7 +393,7 @@ class RealBackend:
                                              device=self.device)}
         n = n_blocks or self._lane_blocks
         tables = np.asarray([self._table(r, n) for r in reqs], np.int32)
-        return {"k": self.k_pool, "v": self.v_pool, "pos": pos_t,
+        return {**self._pools(), "pos": pos_t,
                 "tables": torch.as_tensor(tables, dtype=torch.int32,
                                           device=self.device)}
 
@@ -610,7 +636,15 @@ class RealBackend:
                     lengths.append(len(ids))
                 tokens = torch.as_tensor(tokens, device=self.device)
                 real = self._real(lengths, chunk_len)
-                cache = self._cache([r for r, _s, _e in group], starts)
+                # a latent lane is up-projected whole: gather only the
+                # entries the chunks' keys reach
+                nb = (-(-(int(starts.max()) + chunk_len)
+                        // self.k_pool.shape[2]) if self.latent else None)
+                cache = self._cache([r for r, _s, _e in group], starts, nb)
+                if self.latent:
+                    self.latent_rows_expanded += (len(group) * nb
+                                                  * self.k_pool.shape[2]
+                                                  * self.cfg.num_layers)
             logits, _, aux = tfm.forward_chunk(self.params, self.cfg, tokens,
                                                cache)
             self._count_drops(aux, real)
@@ -718,12 +752,12 @@ class RealBackend:
             self.slot_req[slot] = None
 
 
-def _replay(graph, out, calls: int):
+def _replay(graph, out, kernel, calls: int):
     """A replay of ``graph`` that returns its static outputs ``out`` and
-    counts the ``calls`` of the paged decode kernel it holds."""
+    counts the ``calls`` of the decode ``kernel`` it holds."""
     def replay():
         graph.replay()
-        paged_decode_attention.launches += calls
+        kernel.launches += calls
         return out
     return replay
 

@@ -33,7 +33,12 @@ and ``backend.decode`` (``core.step``) with ``backend.tables``,
 ``backend.record``;
 ``model.layer`` (``model.*``) with ``model.attn`` and ``model.ffn``, an
 MoE layer's ``moe.router``, ``moe.dispatch``, ``moe.experts`` and
-``moe.combine`` inside ``model.ffn``; ``kernels.build`` (root).
+``moe.combine`` inside ``model.ffn``, and its shared experts'
+``moe.shared``; latent attention's (MLA's) ``mla.latent`` (the latent rows'
+write, and in decode the latent kernel), ``mla.expand`` (a continuation
+chunk's gathered lane through ``wkv_b``), ``mla.absorb`` and
+``mla.unabsorb`` (decode's query and output folds) inside ``model.attn``;
+``kernels.build`` (root).
 """
 from __future__ import annotations
 

@@ -17,7 +17,10 @@ as on the CPU, and its contiguous lanes the same tokens as its paged pool;
 the admission benchmark's twin launches the paged path's two kernels and
 no other; a decode graph's replay equals the eager step bitwise at its
 bucket, a warmed engine (graphs) serves the greedy tokens of one never
-warmed (eager), and no garbage collection runs during a capture; the prefill kernel without the causal mask and ring decode over
+warmed (eager), and no garbage collection runs during a capture; the
+latent (MLA) decode kernel and the prefill kernel's (192, 128) instance at
+Moonlight's widths against their plain versions, and a latent decode
+graph's replay equal to the eager step bitwise; the prefill kernel without the causal mask and ring decode over
 encoder lanes equal unmasked attention; Whisper through ``build()`` gives
 the CPU's logits with exact launch counts; the hybrid, SSM and
 encoder-decoder families' train steps equal the CPU's.
@@ -680,3 +683,117 @@ def test_no_collection_runs_during_a_capture(cuda):
     assert sorted(be._graphs) == decode_buckets(8)
     assert (True, False) in seen and (True, True) not in seen
     assert gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# Latent attention (MLA, Moonlight-16B-A3B's widths)
+# ---------------------------------------------------------------------------
+def _latent_args(rng, dtype, dev, b, mb, lengths, bs=16, h=16, kd=576):
+    pool = _randn(rng, (b * mb + 1, bs, kd), dtype, dev)
+    tables = torch.as_tensor(rng.permutation(b * mb).reshape(b, mb),
+                             dtype=torch.int32, device=dev)
+    q = _randn(rng, (b, h, kd), dtype, dev)
+    return q, pool, tables, torch.as_tensor(lengths, dtype=torch.int32,
+                                            device=dev)
+
+
+@pytest.mark.parametrize("mb", [4, 10])   # one split; three, the last short
+def test_latent_decode_kernel_matches_plain(cuda, mb):
+    """The latent decode kernel at Moonlight's shape (16 heads over 576-wide
+    rows, V their first 512, scale 1/sqrt(192)) in bf16 against its plain
+    version, ragged lengths (a fully masked row among them) over shuffled
+    blocks; two rows on one table give bitwise-equal outputs (fixed-order
+    merge); f32 is refused (tensor-core products)."""
+    from repro_torch.kernels.flash_decode.ops import (
+        latent_decode_attention, latent_decode_attention_plain)
+    dtype = "bfloat16"
+    rng = np.random.default_rng(31 + mb)
+    w = mb * 16
+    lengths = [1, 17, w - 3, w, 0, 40 % w + 1]
+    q, pool, tables, lens = _latent_args(rng, dtype, cuda, 6, mb, lengths)
+    tables[5] = tables[1]
+    lens[5] = lens[1]
+    q[5] = q[1]
+    scale = 192 ** -0.5
+    got = latent_decode_attention(q, pool, tables, lens, 512, scale)
+    want = latent_decode_attention_plain(q, pool, tables, lens, 512, scale)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.equal(got[5], got[1])
+    assert got.shape == (6, 16, 512)
+    with pytest.raises(ValueError, match="bfloat16"):
+        latent_decode_attention(q.float(), pool.float(), tables, lens, 512,
+                                scale)
+
+
+@pytest.mark.parametrize("sq,q_start,kv_len", [(40, [0, 0], [40, 40]),
+                                               (128, [72, 0], [200, 128])])
+def test_prefill_kernel_mla_instance_matches_plain(cuda, sq, q_start, kv_len):
+    """The prefill kernel's (192, 128) instance in bf16: queries and keys of
+    192 columns, values and outputs of 128, first chunks and a continuation
+    at an offset over a longer lane, against the plain version; f32 with
+    narrower values is refused."""
+    rng = np.random.default_rng(41 + sq)
+    b, h, skv = 2, 16, 200
+    q = _randn(rng, (b, h, sq, 192), "bfloat16", cuda)
+    k = _randn(rng, (b, h, skv, 192), "bfloat16", cuda)
+    v = _randn(rng, (b, h, skv, 128), "bfloat16", cuda)
+    qs = torch.as_tensor(q_start, dtype=torch.int32, device=cuda)
+    kl = torch.as_tensor(kv_len, dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, qs, kl)
+    want = flash_attention_plain(q, k, v, qs, kl)
+    assert got.shape == (b, h, sq, 128)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL["bfloat16"])
+    with pytest.raises(ValueError, match="bfloat16 only"):
+        flash_attention(q.float(), k.float(), v.float(), qs, kl)
+
+
+def _latent_card_cfg():
+    """Moonlight at its published widths with 2 layers (the dense one and
+    one MoE layer), 8 experts and a 2,048-token vocabulary, in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    return get_config("moonlight_16b_a3b").replace(
+        num_layers=2, vocab_size=2048,
+        moe=MoEConfig(num_experts=8, top_k=6, expert_d_ff=1408))
+
+
+def test_latent_decode_graph_replay_is_the_eager_step_bitwise(cuda):
+    """Three decode-ready rows over the latent pool: at every bucket of
+    ``max_batch`` 8, the bucket's replay gives the logits, MoE drops and
+    latent pool (null block aside) of the same ``_bucket_step`` run
+    eagerly, bit for bit; a replay adds the latent kernel's calls its graph
+    holds, one a layer, and the paged GQA kernel's none."""
+    from repro_torch.kernels.flash_decode.ops import latent_decode_attention
+    cfg = _latent_card_cfg()
+    params = tfm.init_params(cfg, 0, device=cuda)
+    eng = _graph_engine(cfg, params, cuda)
+    be = eng.backend
+    eng.warmup()
+    assert be.v_pool is None and be.k_pool.shape[-1] == 576
+    assert sorted(be._graphs) == decode_buckets(8)
+    eng.submit([Request(i, _words(5 + 4 * i, f"m{i}"), 0.0, 32, 9)
+                for i in range(3)])
+    eng.core.tick()
+    active = [i for i, r in enumerate(be.slot_req) if r is not None]
+    reqs = [be.slot_req[i] for i in active]
+    pool = be.k_pool.clone()
+    real = slice(0, be._null_block)
+    paged = paged_decode_attention.launches
+    for b in decode_buckets(8):
+        n = min(b, len(reqs))
+        out = {}
+        for how in ("eager", "graph"):
+            be.k_pool.copy_(pool)
+            be._stage(reqs[:n], active[:n], b)
+            before = latent_decode_attention.launches
+            logits, drops = (be._bucket_step(b) if how == "eager"
+                             else be._graphs[b]())
+            assert latent_decode_attention.launches == \
+                before + cfg.num_layers
+            torch.cuda.synchronize()
+            out[how] = (logits.clone(), drops.clone(),
+                        be.k_pool[:, real].clone())
+        for e, g in zip(out["eager"], out["graph"]):
+            assert torch.equal(e, g)
+    assert paged_decode_attention.launches == paged

@@ -298,3 +298,45 @@ def test_kernel_build_is_a_root_span():
     trace.disable()
     assert [(s.name, s.parent) for s in trace.records()] == [
         ("kernels.build", -1)]
+
+
+def test_latent_spans_and_expanded_rows(monkeypatch):
+    """Moonlight's smoke model served with chunked prefill: decode opens
+    ``mla.absorb``, ``mla.latent`` and ``mla.unabsorb`` in each layer's
+    ``model.attn``, continuation chunks ``mla.latent`` and ``mla.expand``,
+    each MoE layer's ``model.ffn`` a ``moe.shared`` (the dense layer 0
+    none); ``latent_rows_expanded`` counts each continuation dispatch's
+    gathered latent rows once a layer."""
+    cfg = get_smoke_config("moonlight_16b_a3b").replace(dtype="float32")
+    params = tfm.init_params(cfg, 0, device="cpu")
+    gathered = []
+    chunk = tfm.forward_chunk
+
+    def watched(p, c, tokens, cache):
+        gathered.append(cache["tables"].numel() * cache["latent"].shape[2])
+        return chunk(p, c, tokens, cache)
+    monkeypatch.setattr(tfm, "forward_chunk", watched)
+    trace.enable()
+    fin, eng = _serve(params, cfg=cfg, chunk=16)
+    trace.disable()
+    assert len(fin) == 6
+    rec = trace.records()
+    by_name = {}
+    for s in rec:
+        by_name.setdefault(s.name, []).append(s)
+    parent = {"mla.absorb": "model.attn", "mla.unabsorb": "model.attn",
+              "mla.latent": "model.attn", "mla.expand": "model.attn",
+              "moe.shared": "model.ffn"}
+    for name, want in parent.items():
+        assert by_name[name], name
+        assert all(rec[s.parent].name == want for s in by_name[name]), name
+    layer_of = {s.parent: rec[rec[s.parent].parent].n
+                for s in by_name["moe.shared"]}
+    assert set(layer_of.values()) == set(range(1, cfg.num_layers))
+    steps = len(by_name["model.decode_step"])
+    assert len(by_name["mla.absorb"]) == steps * cfg.num_layers
+    assert len(by_name["mla.expand"]) == len(gathered) * cfg.num_layers
+    assert gathered and eng.backend.latent_rows_expanded == \
+        sum(gathered) * cfg.num_layers
+    # a chunk gathers only the entries its keys reach, not whole lanes
+    assert max(gathered) < 4 * 64
