@@ -1520,15 +1520,18 @@ def phase_serve(dev, arch: str, kernels, idle=(),
             f"({tokens / wall:.1f} tok/s); launches {counts}; prefill "
             f"{eng.backend.prefill_dispatches} + extend "
             f"{eng.backend.extend_dispatches} dispatches (MoE padding lanes "
-            f"{eng.backend.prefill_pad_lanes} in first chunks; continuation "
-            f"chunks and decode unpadded); prefix hits "
+            f"{eng.backend.prefill_pad_lanes} in first chunks, "
+            f"{eng.backend.prefill_graph_dispatches} of them graph replays; "
+            f"continuation chunks and decode unpadded); prefix hits "
             f"{eng.backend.prefix_installs}, tokens copied "
             f"{eng.backend.prefix_tokens_copied}; decode "
             f"{eng.backend.decode_steps} steps in "
             f"{eng.backend.decode_seconds:.2f} s, "
             f"{eng.backend.decode_graph_steps} of them graph replays "
             f"padded by {eng.backend.decode_pad_rows} rows (capture "
-            f"{eng.backend.capture_seconds:.2f} s); MoE dropped slots "
+            f"{eng.backend.capture_seconds:.2f} s, first chunks' "
+            f"{eng.backend.prefill_capture_seconds:.2f} s of it); MoE "
+            f"dropped slots "
             f"{eng.backend.dropped_slots}; scorer failures "
             f"{policy.scorer_failures}, degradations {policy.degradations}")
         problems = []
@@ -1546,6 +1549,10 @@ def phase_serve(dev, arch: str, kernels, idle=(),
             problems.append(f"{eng.allocator.used_blocks} blocks held")
         if policy.scorer_failures or policy.degradations:
             problems.append("the predictor failed: PARS degraded to FCFS")
+        if (dev.type == "cuda" and cfg.family == "moe"
+                and eng.backend.prefill_graph_dispatches
+                != eng.backend.prefill_dispatches):
+            problems.append("a first chunk was not replayed")
         if name == "pars" and not all(r.scored for r in fin):
             problems.append("a request was never scored")
         for r in fin:
@@ -1615,7 +1622,9 @@ def phase_mla_serve(dev, idle) -> dict:
         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params bf16, "
         f"latent pool {tuple(be.k_pool.shape)}; init and captures "
         f"{time.perf_counter() - t0:.1f} s (captures "
-        f"{be.capture_seconds:.2f} s)")
+        f"{be.capture_seconds:.2f} s: {len(be._first_graphs)} first-chunk "
+        f"graphs {be.prefill_capture_seconds:.2f} s, "
+        f"{len(be._graphs)} decode graphs the rest)")
     kernels = (latent_decode_attention, flash_attention)
     for k in (*kernels, *idle):
         k.launches = 0
@@ -1635,7 +1644,8 @@ def phase_mla_serve(dev, idle) -> dict:
     tokens = sum(r.true_length for r in fin)
     log(f"  pars: {len(fin)} finished, {tokens} tokens in {wall:.2f} s; "
         f"launches {counts}; prefill {be.prefill_dispatches} + extend "
-        f"{be.extend_dispatches} dispatches; prefix hits "
+        f"{be.extend_dispatches} dispatches, {be.prefill_graph_dispatches} "
+        f"of the first graph replays; prefix hits "
         f"{be.prefix_installs}; latent rows expanded "
         f"{be.latent_rows_expanded}; decode {be.decode_steps} steps, "
         f"{be.decode_graph_steps} of them replays padded by "
@@ -1648,6 +1658,10 @@ def phase_mla_serve(dev, idle) -> dict:
     if dev.type == "cuda" and be.decode_graph_steps != be.decode_steps:
         problems.append(f"{be.decode_steps - be.decode_graph_steps} decode "
                         f"steps were not replayed")
+    if dev.type == "cuda" and \
+            be.prefill_graph_dispatches != be.prefill_dispatches:
+        problems.append(f"{be.prefill_dispatches - be.prefill_graph_dispatches}"
+                        f" first chunks were not replayed")
     if be.extend_dispatches == 0 or be.prefix_installs == 0:
         problems.append("no continuation chunk or no prefix-cache hit")
     if eng.allocator.used_blocks != 0:
@@ -2446,8 +2460,9 @@ def _bench_summary(sections: dict) -> dict:
 def warmup_launches(kernels):
     """Counts, by wrapper name, the launches that ``Engine.warmup`` makes
     while the block runs: a paged pool's warm-up runs one eager decode step
-    per batch bucket before it captures the graphs, and the engine twins
-    count their runs' launches from after their warm-ups."""
+    (and an MoE model's one eager first chunk) before it captures the
+    graphs, whose captures launch nothing, and the engine twins count
+    their runs' launches from after their warm-ups."""
     from repro_torch.serving.engine import Engine
 
     seen = {k.__name__: 0 for k in kernels}

@@ -174,8 +174,12 @@ def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor,
 
 def positions_for(batch: int, start, seq: int,
                   device: Optional[torch.device] = None) -> torch.Tensor:
-    """Linear positions (B, S) int32 starting at ``start`` (int or (B,))."""
+    """Linear positions (B, S) int32 starting at ``start`` (int or (B,)).
+    An int start is added on the device, copied from nowhere, so that a
+    CUDA graph can capture it."""
     base = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+    if isinstance(start, int):
+        return (base + start).expand(batch, seq)
     start = torch.as_tensor(start, dtype=torch.int32, device=device)
     if start.ndim == 0:
         start = start[None]

@@ -71,6 +71,19 @@ whose reads are masked) and replays the graph; sampling stays outside.
 A backend that was never warmed, contiguous lanes and the CPU decode
 eagerly, unpadded.
 
+First-chunk graphs. An MoE model's first chunks come in few shapes: with a
+prefill budget, a chunk is a whole bucketed prompt or the budget itself,
+and its dispatch's lanes a power of two that fits the budget
+(:func:`prefill_grid`). So ``warmup`` also captures ``forward_seq`` as one
+graph per (lanes, tokens) shape of that grid, over static inputs of its
+own: the tokens, and the tables of the rows, the padding lanes' all null
+(their K/V lands in the null block, as decode's padding rows' does). A
+first-chunk group on the grid fills them and replays its graph, which
+returns the last position's logits and each position's MoE drops;
+sampling and the drop count stay outside. Continuation chunks, shapes off
+the grid, a backend without a budget or never warmed, the other families
+and the CPU run ``forward_seq`` eagerly.
+
 Prompt handling and completion length follow the reference: prompts are
 hash-tokenized into their bucket, and a request finishes after its
 ground-truth ``true_length`` tokens (the forced-length protocol).
@@ -78,6 +91,7 @@ ground-truth ``true_length`` tokens (the forced-length protocol).
 from __future__ import annotations
 
 import bisect
+import functools
 import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -95,6 +109,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode.ops import (latent_decode_attention,
                                                   paged_decode_attention)
+from repro_torch.kernels.flash_prefill.ops import flash_attention
 from repro_torch.models import transformer as tfm
 from repro_torch.serving.config import ServingConfig, resolve_config
 from repro_torch.serving.core import PrefillChunk, ServingCore, WallClock
@@ -106,6 +121,27 @@ from repro_torch.serving.sampler import SamplerConfig, sample
 
 def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
+
+
+def prefill_grid(budget: Optional[int], buckets: Sequence[int],
+                 max_batch: int) -> List[Tuple[int, int]]:
+    """The (lanes, tokens) shapes of the MoE first-chunk dispatches that get
+    a graph, largest first. A first chunk is a whole prompt of one of
+    ``buckets`` up to the prefill ``budget``, or a longer prompt's first
+    ``budget`` tokens; a step's first chunks hold at most ``budget``
+    tokens, and a dispatch pads its lanes to a power of two. So the grid
+    is every such length at every power of two of lanes (up to
+    ``max_batch``) whose tokens fit the budget. Without a budget a step's
+    chunks are bounded by nothing: no grid."""
+    if not budget:
+        return []
+    widths = {w for w in buckets if w <= budget}
+    if max(buckets) > budget:
+        widths.add(budget)
+    shapes = [(lanes, w) for w in widths
+              for lanes in (1 << i for i in range(max_batch.bit_length()))
+              if lanes <= max_batch and lanes * w <= budget]
+    return sorted(shapes, key=lambda s: (s[0] * s[1], s[1]), reverse=True)
 
 
 def decode_buckets(max_batch: int) -> List[int]:
@@ -192,6 +228,15 @@ class RealBackend:
         # bucket -> a replay of its graph, returning its static outputs
         # (logits, the positions' MoE drops or None); set by ``warmup``
         self._graphs: Dict[int, Callable[[], Tuple]] = {}
+        # the first-chunk graphs' static inputs (built with the pool, an
+        # MoE model's with a prefill budget): (lanes, tokens) -> the tokens
+        # (lanes, tokens), and the lanes' tables then their prompt lengths
+        # and slots in one int32 buffer
+        self._first_in: Dict[Tuple[int, int],
+                             Tuple[torch.Tensor, torch.Tensor]] = {}
+        # (lanes, tokens) -> a replay of its graph, returning (the last
+        # position's logits (lanes, V), token_drops (lanes, tokens))
+        self._first_graphs: Dict[Tuple[int, int], Callable[[], Tuple]] = {}
         # req_id -> tokens resident in the request's lane: the prefill target
         # at prompt completion, +1 per decode step (recompute re-admissions
         # restart at the target)
@@ -206,7 +251,9 @@ class RealBackend:
         self.decode_seconds = 0.0     # their wall time, timed as prefill's
         self.decode_graph_steps = 0   # decode steps served by a graph replay
         self.decode_pad_rows = 0      # padding rows those replays ran
+        self.prefill_graph_dispatches = 0  # first chunks served by a replay
         self.capture_seconds = 0.0    # wall time of warmup's captures
+        self.prefill_capture_seconds = 0.0  # the first-chunk graphs' part
         self.prefix_installs = 0      # slots claimed at a cached offset
         self.prefix_tokens_copied = 0  # KV tokens copied instead of computed
         self.prefill_pad_lanes = 0    # replayed lanes of MoE first chunks
@@ -294,6 +341,17 @@ class RealBackend:
             rows * (1 + self._lane_blocks), dtype=torch.int32,
             pin_memory=self.device.type == "cuda")
         self._meta_in = torch.empty_like(self._meta_host, device=self.device)
+        if cfg.family != MOE:
+            return
+        for lanes, width in prefill_grid(self.core.prefill_chunk_tokens,
+                                         self.bucket_lens(), rows):
+            nb = -(-width // alloc.block_size)
+            meta = torch.zeros(lanes * (nb + 2), dtype=torch.int32,
+                               device=self.device)
+            meta[:lanes * nb] = self._null_block
+            self._first_in[lanes, width] = (
+                torch.zeros(lanes, width, dtype=torch.int64,
+                            device=self.device), meta)
 
     def _pools(self) -> tfm.Cache:
         """The pools as a paged cache holds them."""
@@ -333,42 +391,95 @@ class RealBackend:
                                          self._tokens_in[:b])
         return logits, aux.get("token_drops")
 
+    def _stage_first(self, shape: Tuple[int, int],
+                     group: Sequence[Request], tokens: np.ndarray,
+                     lengths: Sequence[int]):
+        """Fill the inputs of ``shape``'s first-chunk graph for ``group``
+        (the ``tokens`` of its lanes, lane 0's replayed past them, and
+        their prompt ``lengths``): the real rows' tables, the padding
+        rows' all null, by one copy each from pinned memory, which waits
+        for nothing. Returns the real rows' lengths and slots on the
+        device."""
+        lanes, width = shape
+        n = len(group)
+        nb = -(-width // self.k_pool.shape[2])
+        meta = np.zeros(lanes * (nb + 2), np.int32)
+        tables = meta[:lanes * nb].reshape(lanes, nb)
+        for j, req in enumerate(group):
+            tables[j] = self._table(req, nb)
+        tables[n:] = self._null_block
+        at = lanes * nb
+        meta[at:at + n] = lengths
+        meta[at + lanes:at + lanes + n] = [self._slot_of[r.req_id]
+                                           for r in group]
+        tokens_in, meta_in = self._first_in[shape]
+        for dst, src in ((tokens_in, tokens), (meta_in, meta)):
+            src = torch.from_numpy(src)
+            if self.device.type == "cuda":
+                src = src.pin_memory()
+            dst.copy_(src.view(dst.shape), non_blocking=True)
+        return meta_in[at:at + n], meta_in[at + lanes:at + lanes + n]
+
+    def _first_step(self, shape: Tuple[int, int]):
+        """``forward_seq`` over the static inputs of ``shape``, what its
+        first-chunk graph holds: ``(the last position's logits (lanes,
+        V), token_drops (lanes, tokens))``."""
+        lanes, width = shape
+        tokens, meta = self._first_in[shape]
+        nb = -(-width // self.k_pool.shape[2])
+        cache = {**self._pools(),
+                 "tables": meta[:lanes * nb].view(lanes, nb)}
+        logits, _, aux = tfm.forward_seq(self.params, self.cfg, tokens,
+                                         cache=cache)
+        # a copy, so that the graph's output is not every position's logits
+        return logits[:, -1].clone(), aux["token_drops"]
+
     def _capture(self) -> None:
-        """One CUDA graph of ``_bucket_step`` per decode bucket, largest
+        """The first-chunk graphs, one per shape of the grid, then one CUDA
+        graph of ``_bucket_step`` per decode bucket, each kind largest
         first, all in one private memory pool: the graphs run one at a
-        time, and each step's outputs are read before the next replay.
-        Each bucket runs once eagerly on a side stream first (the lazy
-        initialisations a capture cannot hold). No garbage collection
-        runs during the captures: one could destroy a dead engine's
-        graphs, which a capture does not permit. The captures launch
-        nothing, so the decode kernel's ``launches`` leaves them out; each
-        replay adds the calls its graph holds."""
+        time, and each one's outputs are read before the next replay.
+        The largest of each kind runs once eagerly before its kind's
+        captures (the lazy initialisations a capture cannot hold); the
+        other shapes need no pass of their own. The captures go straight
+        to the graph, without the collection, the synchronisation and the
+        emptied caches that ``torch.cuda.graph`` adds to each. No garbage collection runs
+        during them: one could destroy a dead engine's graphs, which a
+        capture does not permit. The captures launch nothing, so a
+        kernel's ``launches`` leaves them out; each replay adds the calls
+        its graph holds."""
         buckets = decode_buckets(self.max_batch)
         self._stage([], [], self.max_batch)
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
-        with torch.cuda.stream(side):
-            for b in buckets:
-                self._bucket_step(b)
-        main.wait_stream(side)
         pool = torch.cuda.graph_pool_handle()
-        kernel = (latent_decode_attention if self.latent
-                  else paged_decode_attention)
+        decode_kernel = (latent_decode_attention if self.latent
+                         else paged_decode_attention)
         collecting = gc.isenabled()
         gc.disable()
         try:
-            for b in reversed(buckets):
-                graph = torch.cuda.CUDAGraph()
-                before = kernel.launches
-                with torch.cuda.graph(graph, pool=pool):
-                    out = self._bucket_step(b)
-                calls = kernel.launches - before
-                kernel.launches = before
-                self._graphs[b] = _replay(graph, out, kernel, calls)
+            with torch.cuda.stream(side):
+                t0 = time.perf_counter()
+                if self._first_in:
+                    shapes = list(self._first_in)
+                    self._first_step(shapes[0])
+                    side.synchronize()
+                    for shape in shapes:
+                        self._first_graphs[shape] = _captured(
+                            functools.partial(self._first_step, shape), pool,
+                            flash_attention)
+                self.prefill_capture_seconds = time.perf_counter() - t0
+                self._bucket_step(buckets[-1])
+                side.synchronize()
+                for b in reversed(buckets):
+                    self._graphs[b] = _captured(
+                        functools.partial(self._bucket_step, b), pool,
+                        decode_kernel)
         finally:
             if collecting:
                 gc.enable()
+        main.wait_stream(side)
 
     def _table(self, req: Request, n: int) -> List[int]:
         """First ``n`` entries of the request's block table, null-padded.
@@ -444,9 +555,9 @@ class RealBackend:
 
     def warmup(self) -> float:
         """Build the CUDA kernels ahead of serving and, over a paged pool,
-        capture the decode graphs (nothing to do on the CPU: eager PyTorch
-        compiles no per-shape programs). Call it before serving, never
-        while a profiler records. Returns wall seconds."""
+        capture the first-chunk and decode graphs (nothing to do on the
+        CPU: eager PyTorch compiles no per-shape programs). Call it before
+        serving, never while a profiler records. Returns wall seconds."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             build.build_all()
@@ -600,6 +711,7 @@ class RealBackend:
             # an MoE dispatch replays lane 0 up to a power of two (see the
             # module docstring); the cache takes the first n rows only
             lanes = _next_pow2(n) if self.cfg.family == MOE else n
+            graph = self._first_graphs.get((lanes, bucket_len))
             with trace.span("backend.tables"):
                 tokens = np.zeros((lanes, bucket_len), np.int64)
                 lengths = []
@@ -608,18 +720,32 @@ class RealBackend:
                     tokens[j, :len(ids)] = ids      # tail = pad token 0
                     lengths.append(len(ids))
                 tokens[n:] = tokens[0]
-                # the pool blocks that hold the bucket
-                nb = (-(-bucket_len // self.k_pool.shape[2]) if self.paged
-                      else None)
-                tokens = torch.as_tensor(tokens, device=self.device)
-                real = self._real(lengths, bucket_len)
-                cache = self._cache(group, np.zeros(n, np.int32), nb)
-            logits, _, aux = tfm.forward_seq(self.params, self.cfg, tokens,
-                                             cache=cache)
-            self._count_drops(aux, real)
+                if graph is not None:
+                    lens, slots = self._stage_first((lanes, bucket_len),
+                                                    group, tokens, lengths)
+                else:
+                    # the pool blocks that hold the bucket
+                    nb = (-(-bucket_len // self.k_pool.shape[2])
+                          if self.paged else None)
+                    tokens = torch.as_tensor(tokens, device=self.device)
+                    real = self._real(lengths, bucket_len)
+                    cache = self._cache(group, np.zeros(n, np.int32), nb)
+                    slots = [self._slot_of[r.req_id] for r in group]
+            if graph is not None:
+                with trace.span("backend.replay"):
+                    logits, drops = graph()
+                real = (torch.arange(bucket_len, device=self.device)[None]
+                        < lens[:, None])
+                self._dropped = self._dropped + (drops[:n] * real).sum()
+                slots = slots.long()
+                self.prefill_graph_dispatches += 1
+            else:
+                logits, _, aux = tfm.forward_seq(self.params, self.cfg,
+                                                 tokens, cache=cache)
+                self._count_drops(aux, real)
+                logits = logits[:, -1]
             with trace.span("backend.sample"):
-                slots = [self._slot_of[r.req_id] for r in group]
-                self.slot_tokens[slots] = self._sample(logits[:n, -1])
+                self.slot_tokens[slots] = self._sample(logits[:n])
             self.prefill_dispatches += 1
             self.prefill_pad_lanes += lanes - n
 
@@ -752,9 +878,25 @@ class RealBackend:
             self.slot_req[slot] = None
 
 
+def _captured(step: Callable[[], Tuple], pool, kernel):
+    """``step`` captured on the current stream as a CUDA graph whose memory
+    comes from ``pool``: its replay (:func:`_replay`). The capture's calls
+    of ``kernel`` launch nothing, so its ``launches`` leaves them out."""
+    graph = torch.cuda.CUDAGraph()
+    before = kernel.launches
+    graph.capture_begin(pool=pool)
+    try:
+        out = step()
+    finally:
+        graph.capture_end()
+    calls = kernel.launches - before
+    kernel.launches = before
+    return _replay(graph, out, kernel, calls)
+
+
 def _replay(graph, out, kernel, calls: int):
     """A replay of ``graph`` that returns its static outputs ``out`` and
-    counts the ``calls`` of the decode ``kernel`` it holds."""
+    counts the ``calls`` of the ``kernel`` it holds."""
     def replay():
         graph.replay()
         kernel.launches += calls

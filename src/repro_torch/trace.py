@@ -28,9 +28,10 @@ re-rank) with ``predictor.tokenize``, ``predictor.forward`` and
 ``predictor.readback``; ``core.step`` (``core.tick``); ``backend.prefill``
 and ``backend.decode`` (``core.step``) with ``backend.tables``,
 ``model.forward_seq``, ``model.forward_chunk`` or ``model.decode_step``
-(or ``backend.replay``, a decode graph's replay, which fires no
-``model.*`` span), ``backend.sample``, ``backend.sync`` and
-``backend.record``;
+(or ``backend.replay``, the replay of a decode step's graph or of an MoE
+first chunk's, which fires no ``model.*`` span: the backend's
+``decode_graph_steps`` and ``prefill_graph_dispatches`` count them),
+``backend.sample``, ``backend.sync`` and ``backend.record``;
 ``model.layer`` (``model.*``) with ``model.attn`` and ``model.ffn``, an
 MoE layer's ``moe.router``, ``moe.dispatch``, ``moe.experts`` and
 ``moe.combine`` inside ``model.ffn``, and its shared experts'

@@ -20,7 +20,11 @@ bucket, a warmed engine (graphs) serves the greedy tokens of one never
 warmed (eager), and no garbage collection runs during a capture; the
 latent (MLA) decode kernel and the prefill kernel's (192, 128) instance at
 Moonlight's widths against their plain versions, and a latent decode
-graph's replay equal to the eager step bitwise; the prefill kernel without the causal mask and ring decode over
+graph's replay equal to the eager step bitwise; an MoE first chunk's graph
+(OLMoE and Moonlight) equal to today's eager ``forward_seq`` bitwise at every
+shape of its grid, its padding lanes writing the null block alone, a warmed
+engine's burst (first chunks replayed) equal to an unwarmed one's, and no
+collection during those captures; the prefill kernel without the causal mask and ring decode over
 encoder lanes equal unmasked attention; Whisper through ``build()`` gives
 the CPU's logits with exact launch counts; the hybrid, SSM and
 encoder-decoder families' train steps equal the CPU's.
@@ -48,7 +52,7 @@ from repro_torch.kernels.rwkv6_chunk.ops import (linear_attention,
                                                  tf32_tile_check)
 from repro_torch.models.linear_attn import chunked_linear_attention
 from repro_torch.models import transformer as tfm
-from repro_torch.serving.engine import Engine, decode_buckets
+from repro_torch.serving.engine import Engine, decode_buckets, prefill_grid
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=2e-2, rtol=2e-2)}
@@ -797,3 +801,152 @@ def test_latent_decode_graph_replay_is_the_eager_step_bitwise(cuda):
         for e, g in zip(out["eager"], out["graph"]):
             assert torch.equal(e, g)
     assert paged_decode_attention.launches == paged
+
+
+# ---------------------------------------------------------------------------
+# First-chunk graphs (MoE prefill)
+# ---------------------------------------------------------------------------
+def _first_chunk_model(arch, device):
+    """OLMoE's smoke config in f32, or Moonlight's two-layer card config
+    in bf16 (its prefill kernel instance is bf16 only)."""
+    cfg = (_latent_card_cfg() if arch == "moonlight_16b_a3b" else
+           get_smoke_config(arch).replace(dtype="float32", vocab_size=2048))
+    return cfg, tfm.init_params(cfg, 0, device=device)
+
+
+def _first_chunk_engine(cfg, params, device, prompt_len=64):
+    """8 slots, chunks of at most 64 tokens: a grid of 10 shapes."""
+    return Engine(cfg, params, Scheduler(policy=fcfs(), max_batch=8),
+                  cache_len=2 * prompt_len, prompt_len=prompt_len,
+                  prefill_chunk_tokens=64, record_tokens=True, device=device)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonlight_16b_a3b"])
+def test_first_chunk_graph_replay_is_the_eager_forward_bitwise(cuda, arch):
+    """At every shape of the grid, real rows padded with replicas of lane
+    0: the replay gives today's eager ``forward_seq`` (tables for the real
+    rows alone) bit for bit, in every lane's last logits and MoE drops and
+    in every pool block but the null one, which only the padding lanes
+    write; a replay adds one prefill kernel call a layer."""
+    cfg, params = _first_chunk_model(arch, cuda)
+    eng = _first_chunk_engine(cfg, params, cuda)
+    be = eng.backend
+    eng.warmup()
+    shapes = prefill_grid(64, be.bucket_lens(), 8)
+    assert list(be._first_graphs) == shapes and len(shapes) == 10
+    rng = np.random.default_rng(5)
+    pools = [p.clone() for p in be._pools().values()]
+    null = be._null_block
+
+    def restore():
+        for p, saved in zip(be._pools().values(), pools):
+            p.copy_(saved)
+
+    def written():
+        diff = sum((p != saved).flatten(2).any(-1).any(0).long()
+                   for p, saved in zip(be._pools().values(), pools))
+        return set(diff.nonzero()[:, 0].tolist())
+
+    for lanes, width in shapes:
+        n = 1 if lanes <= 2 else lanes // 2 + 1
+        group = [Request(100 + j, "", 0.0, width, 2) for j in range(n)]
+        lengths = rng.integers(width // 2 + 1, width + 1, n).tolist()
+        tokens = np.zeros((lanes, width), np.int64)
+        for j, (req, m) in enumerate(zip(group, lengths)):
+            eng.allocator.allocate(req.req_id, width)
+            be._slot_of[req.req_id] = j
+            tokens[j, :m] = rng.integers(1, cfg.vocab_size, m)
+        tokens[n:] = tokens[0]
+        out = {}
+        restore()
+        nb = -(-width // 16)
+        logits, _, aux = tfm.forward_seq(
+            be.params, cfg, torch.as_tensor(tokens, device=cuda),
+            cache=be._cache(group, np.zeros(n, np.int32), nb))
+        torch.cuda.synchronize()
+        out["eager"] = (logits[:, -1].clone(), aux["token_drops"].clone())
+        eager_blocks = written()
+        eager_pools = [p[:, :null].clone() for p in be._pools().values()]
+        restore()
+        lens, slots = be._stage_first((lanes, width), group, tokens, lengths)
+        before = flash_attention.launches
+        logits, drops = be._first_graphs[lanes, width]()
+        assert flash_attention.launches == before + cfg.num_layers
+        torch.cuda.synchronize()
+        out["graph"] = (logits.clone(), drops.clone())
+        assert lens.tolist() == lengths and slots.tolist() == list(range(n))
+        for e, g in zip(out["eager"], out["graph"]):
+            assert torch.equal(e, g), (lanes, width)
+        for p, e in zip(be._pools().values(), eager_pools):
+            assert torch.equal(p[:, :null], e), (lanes, width)
+        blocks = {b for req in group
+                  for b in eng.allocator.block_table(req.req_id)}
+        assert eager_blocks and eager_blocks <= blocks
+        assert written() == eager_blocks | ({null} if lanes > n else set())
+        for req in group:
+            eng.allocator.free(req.req_id)
+            del be._slot_of[req.req_id]
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonlight_16b_a3b"])
+def test_warmed_engine_serves_the_eager_first_chunks(cuda, arch):
+    """A 14-request burst behind 8 slots, prompts up to 120 tokens under
+    chunks of 64: warmed, every first chunk replays a graph (the second
+    half of a 128-token prompt runs eagerly as a continuation), and the
+    tokens and MoE drops equal those of the engine never warmed; the
+    prefill kernel launches once a layer a dispatch, replays counted."""
+    cfg, params = _first_chunk_model(arch, cuda)
+    runs = {}
+    for warm in (False, True):
+        eng = _first_chunk_engine(cfg, params, cuda, prompt_len=128)
+        be = eng.backend
+        if warm:
+            eng.warmup()
+        flash_attention.launches = 0
+        eng.submit([Request(i, _words(3 + 9 * i, f"p{i}"), 0.0, 128,
+                            3 + i % 5) for i in range(14)])
+        fin = eng.run()
+        runs[warm] = ({r.req_id: r.generated_tokens for r in fin},
+                      be.dropped_slots)
+        assert be.extend_dispatches > 0
+        assert flash_attention.launches == cfg.num_layers * (
+            be.prefill_dispatches + be.extend_dispatches)
+        assert be.prefill_graph_dispatches == (be.prefill_dispatches
+                                               if warm else 0)
+    assert runs[True] == runs[False]
+    assert len(runs[True][0]) == 14
+
+
+def test_no_collection_runs_during_a_first_chunk_capture(cuda):
+    """With collections due at every allocation and a dead engine's graphs
+    waiting as garbage, warming an engine captures every first-chunk
+    graph with the collector off and runs no collection during any
+    capture, and turns the collector back on."""
+    cfg, params = _first_chunk_model("olmoe_1b_7b", cuda)
+    _first_chunk_engine(cfg, params, cuda).warmup()     # now garbage
+    eng = _first_chunk_engine(cfg, params, cuda)
+    be = eng.backend
+    seen, collections = [], []
+    step = be._first_step
+
+    def watched(shape):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return step(shape)
+
+    def on_collection(phase, _info):
+        if phase == "start":
+            collections.append(torch.cuda.is_current_stream_capturing())
+    be._first_step = watched
+    thresholds = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    gc.callbacks.append(on_collection)
+    try:
+        eng.warmup()
+    finally:
+        gc.callbacks.remove(on_collection)
+        gc.set_threshold(*thresholds)
+    assert list(be._first_graphs) == prefill_grid(64, be.bucket_lens(), 8)
+    assert seen.count((True, False)) == len(be._first_graphs)
+    assert (True, True) not in seen and True not in collections
+    assert gc.isenabled()

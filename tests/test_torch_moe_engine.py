@@ -10,7 +10,10 @@ caching) at capacity factor 4.0; the reference's padding-lane overwrite
 (ROADMAP C3), which the port's engine does not copy; the decode step by
 batch bucket, as a CUDA graph holds it, run eagerly (the real rows' tokens
 and logits of the unpadded step, padding rows writing the null block
-alone, the graph counters), dense and MoE; and the launchers (the MoE smoke
+alone, the graph counters), dense and MoE; an MoE first chunk as its graph
+holds it (the grid of shapes, padding lanes staged on the all-null table
+keeping the real lanes' logits, K/V and drops, C3's dispatch included, the
+replayed engine's tokens and counters); and the launchers (the MoE smoke
 config trains with its auxiliary losses; ``--full`` refuses what fits no
 device). The model half is in ``test_torch_moe.py``.
 """
@@ -39,7 +42,7 @@ from repro_torch.launch import serve as launch_serve
 from repro_torch.launch import train as launch_train
 from repro_torch.models import model as tmodel
 from repro_torch.models import transformer as tfm
-from repro_torch.serving.engine import Engine, decode_buckets
+from repro_torch.serving.engine import Engine, decode_buckets, prefill_grid
 
 from _torch_moe_common import TOL, _bridged, _t
 
@@ -383,6 +386,153 @@ def test_contiguous_lanes_decode_eagerly():
         assert len(eng.run()) == 3
         assert not be.paged and be._meta_in is None and not be._graphs
         assert be.decode_steps > 0 and be.decode_graph_steps == 0
+
+
+# ---------------------------------------------------- first-chunk graphs
+BUCKETS = [8, 16, 32, 64, 128, 256, 512, 1024]
+
+
+@pytest.mark.parametrize("budget,buckets,max_batch,shapes", [
+    (512, BUCKETS, 64, 28),
+    (512, BUCKETS, 16, 25),
+    (None, BUCKETS, 64, 0),
+    (64, [8, 16, 32], 8, 9),
+])
+def test_prefill_grid(budget, buckets, max_batch, shapes):
+    """Every first chunk's (lanes, tokens) under a budget: the whole
+    prompts of each bucket up to it, and the budget itself where a longer
+    bucket is cut to it, at every power of two of lanes up to
+    ``max_batch`` whose tokens fit the budget; largest first. No budget,
+    no grid."""
+    grid = prefill_grid(budget, buckets, max_batch)
+    assert len(grid) == len(set(grid)) == shapes
+    for lanes, width in grid:
+        assert lanes & (lanes - 1) == 0 and lanes <= max_batch
+        assert lanes * width <= budget and width in buckets
+    tokens = [lanes * width for lanes, width in grid]
+    assert tokens == sorted(tokens, reverse=True)
+    if budget == 512 and max_batch == 64:
+        assert {w for _, w in grid} == set(BUCKETS[:-1])
+        assert {lanes for lanes, w in grid if w == 8} == {
+            1, 2, 4, 8, 16, 32, 64}
+
+
+def test_prefill_grid_takes_the_budget_as_a_cut_prompt():
+    """A budget that is no bucket is still a first chunk's length: the
+    first cut of every longer prompt."""
+    assert prefill_grid(24, [8, 16, 32], 4) == [(1, 24), (1, 16), (2, 8),
+                                                (1, 8)]
+
+
+def _first_chunk_engine(cfg, params, max_batch, chunk):
+    return Engine(cfg, params, Scheduler(policy=fcfs(), max_batch=max_batch),
+                  cache_len=128, prompt_len=32, prefill_chunk_tokens=chunk,
+                  record_tokens=True, device="cpu")
+
+
+def _replay_eagerly(be):
+    """What warmup captures on a card, run eagerly: each shape's
+    ``_first_step`` over the static inputs, which ``_stage_first``
+    fills."""
+    be._first_graphs = {s: functools.partial(be._first_step, s)
+                        for s in be._first_in}
+
+
+def test_padding_lanes_on_null_tables_keep_the_real_lanes():
+    """C3's dispatch (three prompts padded to four lanes, at the published
+    capacity factor, beside a one-lane bucket), staged as its graph holds
+    it: the padding lane's table is all null. The sampled logits, every
+    pool block but the null one (which the padding lane alone writes) and
+    the MoE drops equal today's path, whose cache takes the real rows
+    alone; the drops are not zero, so the lanes couple."""
+    jcfg, jparams, cfg, params = _bridged("olmoe_1b_7b")
+    runs = {}
+    for graphs in (False, True):
+        eng = _first_chunk_engine(cfg, params, 4, 128)
+        be = eng.backend
+        before = be.k_pool.clone(), be.v_pool.clone()
+        if graphs:
+            _replay_eagerly(be)
+        sampled = []
+        sample = be._sample
+
+        def recorded(logits):
+            sampled.append(logits.clone())
+            return sample(logits)
+        be._sample = recorded
+        eng.submit(_workload(Request)[:4])
+        eng.core.tick()                     # admission, prefill, one decode
+        null = be._null_block
+        changed = ((be.k_pool != before[0]) | (be.v_pool != before[1]))
+        runs[graphs] = (sampled, be.k_pool[:, :null], be.v_pool[:, :null],
+                        set(changed.flatten(2).any(-1).any(0).nonzero()[:, 0]
+                            .tolist()), be.dropped_slots)
+        assert be.prefill_dispatches == 2 and be.prefill_pad_lanes == 1
+        assert be.prefill_graph_dispatches == (2 if graphs else 0)
+    (eager, k0, v0, w0, d0), (graph, k1, v1, w1, d1) = runs[False], runs[True]
+    assert len(eager) == len(graph) == 3      # two first chunks, one decode
+    assert all(torch.equal(e, g) for e, g in zip(eager, graph))
+    assert torch.equal(k0, k1) and torch.equal(v0, v1)
+    assert null not in w0 and w1 == w0 | {null}
+    assert d0 == d1 > 0
+
+
+@pytest.mark.parametrize("arch,max_batch,chunk", [
+    ("olmoe_1b_7b", 4, 16),
+    ("moonlight_16b_a3b", 4, 16),
+    ("olmoe_1b_7b", 3, 32),
+])
+def test_first_chunk_replays_serve_the_eager_tokens(arch, max_batch, chunk):
+    """A 9-request burst at the published capacity factor: replaying each
+    first chunk that lies on the grid gives the eager engine's greedy
+    tokens and MoE drops. With 4 slots every first chunk is on it (a
+    32-token prompt's second half under a 16-token budget runs eagerly as
+    a continuation); with 3 the first wave's three 8-token prompts pad to
+    four lanes, more than the slots, and run eagerly."""
+    cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    runs = {}
+    for graphs in (False, True):
+        eng = _first_chunk_engine(cfg, params, max_batch, chunk)
+        be = eng.backend
+        if graphs:
+            _replay_eagerly(be)
+        words = [3, 5, 7, 20, 4, 12, 6, 25, 3] if chunk == 16 else [3] * 9
+        eng.submit([Request(i, _words(n, f"f{i}"), 0.0, 32, 3 + i % 4)
+                    for i, n in enumerate(words)])
+        runs[graphs] = ({r.req_id: r.generated_tokens for r in eng.run()},
+                        be.dropped_slots)
+        counts = (be.prefill_dispatches, be.prefill_graph_dispatches)
+        if not graphs:
+            assert counts[1] == 0
+        elif max_batch == 4:
+            assert counts[0] == counts[1] and be.extend_dispatches > 0
+        else:
+            assert 0 < counts[1] < counts[0]
+    assert runs[True] == runs[False]
+    assert len(runs[True][0]) == 9
+
+
+@pytest.mark.parametrize("arch,chunk,shapes", [
+    ("olmoe_1b_7b", 16, 3),
+    ("olmoe_1b_7b", None, 0),
+    ("llama3_2_3b", 16, 0),
+])
+def test_first_chunks_run_eagerly_on_the_cpu(arch, chunk, shapes):
+    """On the CPU a warmed engine captures nothing: its first chunks run
+    eagerly and ``prefill_graph_dispatches`` stays 0. Only an MoE model
+    with a budget builds the grid's static inputs."""
+    cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    eng = _first_chunk_engine(cfg, params, 4, chunk)
+    be = eng.backend
+    eng.warmup()
+    assert len(be._first_in) == shapes and not be._first_graphs
+    eng.submit([Request(i, _words(4 + 5 * i, f"c{i}"), 0.0, 32, 3)
+                for i in range(5)])
+    assert len(eng.run()) == 5
+    assert be.prefill_dispatches > 0 and be.prefill_graph_dispatches == 0
+    assert be.capture_seconds == be.prefill_capture_seconds == 0.0
 
 
 # ---------------------------------------------------------------- launchers

@@ -2,10 +2,11 @@
 counters, on the CPU at smoke widths: off, it records nothing and opens no
 range outside a profiler; on, the spans of a served burst form a tree on
 the profiler's clock with each request's id on its prefill and decode
-spans; the engine's decode and MoE drop counters and the predictor's
-scoring counters."""
+spans; the engine's decode and MoE drop counters, its first-chunk
+replays' span and counter, and the predictor's scoring counters."""
 import contextlib
 import dataclasses
+import functools
 import gc
 
 import numpy as np
@@ -235,6 +236,40 @@ def test_engine_counts_moe_drops_and_decode_steps(params, monkeypatch):
     assert isinstance(b.dropped_slots, int)
     # the pad token 0 is no prompt token
     assert all(0 not in b.tok.encode(r.prompt) for r in _requests())
+
+
+def test_first_chunk_replays_are_spans_and_counted(params):
+    """First chunks replayed as their graphs (run eagerly here, as the CPU
+    tests fill them): each replay is a ``backend.replay`` span inside
+    ``backend.prefill`` and one ``prefill_graph_dispatches``, here every
+    first chunk's; the replayed engine's tokens and MoE drops are the
+    eager one's, and the eager one counts no replay."""
+    runs = {}
+    for graphs in (False, True):
+        eng = Engine(_cfg(capacity_factor=0.5), params,
+                     Scheduler(policy=fcfs(), max_batch=4), cache_len=64,
+                     prompt_len=32, allocator=BlockAllocator(64, 16),
+                     record_tokens=True,
+                     config=ServingConfig(prefill_chunk_tokens=16),
+                     device="cpu")
+        b = eng.backend
+        if graphs:
+            b._first_graphs = {s: functools.partial(b._first_step, s)
+                               for s in b._first_in}
+        trace.enable()
+        eng.submit(_requests())
+        fin = eng.run()
+        trace.disable()
+        rec = trace.records()
+        trace.reset()
+        replays = [s for s in rec if s.name == "backend.replay"
+                   and rec[s.parent].name == "backend.prefill"]
+        assert len(replays) == b.prefill_graph_dispatches
+        assert b.prefill_graph_dispatches == (b.prefill_dispatches
+                                              if graphs else 0)
+        runs[graphs] = ({r.req_id: r.generated_tokens for r in fin},
+                        b.dropped_slots)
+    assert runs[True] == runs[False] and runs[True][1] > 0
 
 
 def test_predictor_counts_prompts_and_seconds():
