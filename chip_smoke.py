@@ -1618,13 +1618,16 @@ def phase_mla_serve(dev, idle) -> dict:
     eng.warmup()
     torch.cuda.synchronize()
     be = eng.backend
+
+    def graphs(shapes):
+        return sum(step.graph is not None for step in shapes.values())
     log(f"  {arch}: {cfg.num_layers} layers, "
         f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B params bf16, "
         f"latent pool {tuple(be.k_pool.shape)}; init and captures "
         f"{time.perf_counter() - t0:.1f} s (captures "
-        f"{be.capture_seconds:.2f} s: {len(be._first_graphs)} first-chunk "
+        f"{be.capture_seconds:.2f} s: {graphs(be._first_shapes)} first-chunk "
         f"graphs {be.prefill_capture_seconds:.2f} s, "
-        f"{len(be._graphs)} decode graphs the rest)")
+        f"{graphs(be._decode_shapes)} decode graphs the rest)")
     kernels = (latent_decode_attention, flash_attention)
     for k in (*kernels, *idle):
         k.launches = 0
@@ -1677,19 +1680,18 @@ def phase_mla_serve(dev, idle) -> dict:
 
     if dev.type == "cuda":
         position = 160
-        pos, tables = (t.numpy() for t in be._meta(be._meta_host))
         per = -(-(position + 1) // 16)
         steps = []
         for b in (1, 8, 16, 32, 56, 64):
-            pos[:] = 0
-            tables[:] = be._null_block
-            pos[:b] = position
-            for j in range(b):
-                tables[j, :per] = np.arange(j * per, (j + 1) * per)
-            be._meta_in.copy_(be._meta_host)
+            step = be._decode_shapes[b]
+            if step.graph is None:
+                raise AssertionError(f"decode bucket {b} holds no graph")
+            step.stage([list(range(j * per, (j + 1) * per))
+                        + [be._null_block] * (step.nb - per)
+                        for j in range(b)], [[position] * b])
             steps.append({"rows": b, "position": position,
-                          "replay_ms": cuda_ms(be._graphs[b], iters=10),
-                          "eager_ms": cuda_ms(lambda: be._bucket_step(b),
+                          "replay_ms": cuda_ms(step.run, iters=10),
+                          "eager_ms": cuda_ms(lambda: step.forward(step),
                                               iters=3, warmup=1)})
             log(f"  decode step, {b} rows at position {position}: replay "
                 f"{steps[-1]['replay_ms']:.2f} ms, eager "

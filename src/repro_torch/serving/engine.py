@@ -59,30 +59,22 @@ on its own, as the reference's continuation and decode programs do under
 ``vmap``, so padding them changes no real row; dense and VLM rows are
 independent.
 
-Decode graphs. A served decode step is a few hundred small launches, and
-the host issues them slower than the card runs them. So ``warmup`` on a
-CUDA device with a paged pool captures ``decode_step`` as one CUDA graph
-per batch bucket (:func:`decode_buckets`) over static inputs: the tokens,
-positions and block tables of ``max_batch`` rows, each bucket's graph
-reading the first rows. A decode step then fills those inputs, pads its
-batch to the smallest bucket that holds it with rows that own nothing
-(the all-null table at position 0: their K/V lands in the null block,
-whose reads are masked) and replays the graph; sampling stays outside.
-A backend that was never warmed, contiguous lanes and the CPU decode
-eagerly, unpadded.
-
-First-chunk graphs. An MoE model's first chunks come in few shapes: with a
-prefill budget, a chunk is a whole bucketed prompt or the budget itself,
-and its dispatch's lanes a power of two that fits the budget
-(:func:`prefill_grid`). So ``warmup`` also captures ``forward_seq`` as one
-graph per (lanes, tokens) shape of that grid, over static inputs of its
-own: the tokens, and the tables of the rows, the padding lanes' all null
-(their K/V lands in the null block, as decode's padding rows' does). A
-first-chunk group on the grid fills them and replays its graph, which
-returns the last position's logits and each position's MoE drops;
-sampling and the drop count stay outside. Continuation chunks, shapes off
-the grid, a backend without a budget or never warmed, the other families
-and the CPU run ``forward_seq`` eagerly.
+Captured steps. A served step is a few hundred small launches, and the
+host issues them slower than the card runs them. So a paged backend keeps
+one :class:`CapturedStep` per shape that a step can take, each over static
+inputs of its own, and ``warmup`` on a CUDA device captures each as a CUDA
+graph. Two kinds: ``decode_step`` per batch bucket (:func:`decode_buckets`),
+and an MoE model's first-chunk ``forward_seq`` per (lanes, tokens) shape of
+:func:`prefill_grid` (with a prefill budget, a first chunk is a whole
+bucketed prompt or the budget itself, its lanes a power of two that fits
+the budget). Every paged decode step, and every first-chunk group on the
+grid, stages its rows into its shape's inputs, padded with rows that own
+nothing (the all-null table, at position 0 for decode: their K/V lands in
+the null block, whose reads are masked), and runs the step: a replay once
+captured, the step itself on the CPU or before ``warmup``. The step
+returns the logits and each position's MoE drops; sampling and the drop
+count stay outside. Contiguous lanes, continuation chunks, first chunks
+off the grid and the other families run eagerly, unpadded.
 
 Prompt handling and completion length follow the reference: prompts are
 hash-tokenized into their bucket, and a request finishes after its
@@ -90,8 +82,6 @@ ground-truth ``true_length`` tokens (the forced-length protocol).
 """
 from __future__ import annotations
 
-import bisect
-import functools
 import gc
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -151,6 +141,99 @@ def decode_buckets(max_batch: int) -> List[int]:
     powers of two would pad 33 rows to 64."""
     return ([b for b in (1, 2, 4) if b < max_batch]
             + list(range(8, max_batch, 8)) + [max_batch])
+
+
+class CapturedStep:
+    """One shape of a served step that a CUDA graph may replay: a decode
+    bucket (``rows`` rows of one token) or a first-chunk grid shape
+    (``rows`` lanes of ``width`` tokens). Its static inputs on the device
+    are ``tokens`` and one int32 buffer of each row's first ``nb`` table
+    entries, ``tables``, then ``cols`` columns of a value a row,
+    ``columns`` (decode: the positions; first chunks: the prompt lengths
+    and the slots), filled from pinned twins: ``host``, and
+    ``host_tokens`` where the host gives the tokens (first chunks;
+    decode's come from the device). ``forward(step)`` runs the step over
+    the static inputs and returns ``(logits (rows, V), token_drops or
+    None)``, calling ``kernel`` once a layer."""
+
+    def __init__(self, forward: Callable, kernel, rows: int, width: int,
+                 nb: int, cols: int, null: int, device: torch.device, *,
+                 host_tokens: bool):
+        pin = device.type == "cuda"
+        self.forward, self.kernel = forward, kernel
+        self.rows, self.nb, self.null = rows, nb, null
+        self.host = torch.zeros(rows * (nb + cols), dtype=torch.int32,
+                                pin_memory=pin)
+        self.host[:rows * nb] = null              # every row a padding row
+        self.meta = self.host.to(device, copy=True)
+        self.tables = self.meta[:rows * nb].view(rows, nb)
+        self.columns = self.meta[rows * nb:].view(cols, rows)
+        self._host_tables = self.host[:rows * nb].view(rows, nb).numpy()
+        self._host_columns = self.host[rows * nb:].view(cols, rows).numpy()
+        self.tokens = torch.zeros(rows, width, dtype=torch.int64,
+                                  device=device)
+        self.host_tokens = (torch.zeros(rows, width, dtype=torch.int64,
+                                        pin_memory=pin)
+                            if host_tokens else None)
+        self.sent = torch.cuda.Event() if pin else None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.out: Optional[Tuple] = None     # the graph's static outputs
+        self.calls = 0                       # its calls of ``kernel``
+
+    def stage(self, tables: Sequence[Sequence[int]],
+              cols: Sequence[Sequence[int]], tokens=None) -> None:
+        """Fill the static inputs: the real rows' ``tables`` and columns
+        ``cols`` (one sequence a column), then the padding rows' all-null
+        tables and 0s, by one non-blocking copy of the pinned twin; then
+        ``tokens``, the real rows' on the device, or every row's (lanes
+        past the real rows replay lane 0) through their pinned twin. A
+        twin is rewritten only after the copy that read it last has
+        finished, as the event recorded after that copy tells: decode
+        stages once a step and a bucketed prefill each shape once, each
+        step ending in a synchronisation, but an unbucketed prefill stages
+        its one ``(1, prompt_len)`` shape once a request."""
+        if self.sent is not None:
+            self.sent.synchronize()
+        n = len(tables)
+        for j, table in enumerate(tables):
+            self._host_tables[j] = table
+        self._host_tables[n:] = self.null
+        self._host_columns[:, :n] = cols
+        self._host_columns[:, n:] = 0
+        self.meta.copy_(self.host, non_blocking=True)
+        if tokens is not None:
+            if self.host_tokens is not None:
+                self.host_tokens.numpy()[:] = tokens
+                tokens = self.host_tokens
+            self.tokens[:len(tokens)].copy_(tokens, non_blocking=True)
+        if self.sent is not None:
+            self.sent.record()
+
+    def capture(self, pool) -> None:
+        """Capture the step on the current stream as a CUDA graph whose
+        memory comes from ``pool``. The capture's calls of ``kernel``
+        launch nothing, so its ``launches`` leaves them out; each replay
+        adds them."""
+        graph = torch.cuda.CUDAGraph()
+        before = self.kernel.launches
+        graph.capture_begin(pool=pool)
+        try:
+            out = self.forward(self)
+        finally:
+            graph.capture_end()
+        self.calls = self.kernel.launches - before
+        self.kernel.launches = before
+        self.graph, self.out = graph, out
+
+    def run(self) -> Tuple:
+        """The step over the staged inputs: once captured, its graph's
+        replay; else the step itself."""
+        if self.graph is None:
+            return self.forward(self)
+        with trace.span("backend.replay"):
+            self.graph.replay()
+        self.kernel.launches += self.calls
+        return self.out
 
 
 class RealBackend:
@@ -219,24 +302,11 @@ class RealBackend:
         self.v_pool: Optional[torch.Tensor] = None
         self._null_block: Optional[int] = None
         self._lane_blocks: Optional[int] = None    # cache_len // block_size
-        # the decode graphs' static inputs (built with the pool): max_batch
-        # rows of tokens, and of positions and tables, the last two in one
-        # int32 buffer filled by one copy from its host twin
-        self._tokens_in: Optional[torch.Tensor] = None
-        self._meta_host: Optional[torch.Tensor] = None
-        self._meta_in: Optional[torch.Tensor] = None
-        # bucket -> a replay of its graph, returning its static outputs
-        # (logits, the positions' MoE drops or None); set by ``warmup``
-        self._graphs: Dict[int, Callable[[], Tuple]] = {}
-        # the first-chunk graphs' static inputs (built with the pool, an
-        # MoE model's with a prefill budget): (lanes, tokens) -> the tokens
-        # (lanes, tokens), and the lanes' tables then their prompt lengths
-        # and slots in one int32 buffer
-        self._first_in: Dict[Tuple[int, int],
-                             Tuple[torch.Tensor, torch.Tensor]] = {}
-        # (lanes, tokens) -> a replay of its graph, returning (the last
-        # position's logits (lanes, V), token_drops (lanes, tokens))
-        self._first_graphs: Dict[Tuple[int, int], Callable[[], Tuple]] = {}
+        # the captured steps (built with the pool), each table largest
+        # first: decode bucket -> its step; (lanes, tokens) -> an MoE
+        # model's first-chunk step, with a prefill budget
+        self._decode_shapes: Dict[int, CapturedStep] = {}
+        self._first_shapes: Dict[Tuple[int, int], CapturedStep] = {}
         # req_id -> tokens resident in the request's lane: the prefill target
         # at prompt completion, +1 per decode step (recompute re-admissions
         # restart at the target)
@@ -250,7 +320,7 @@ class RealBackend:
         self.decode_steps = 0         # decode_step dispatches
         self.decode_seconds = 0.0     # their wall time, timed as prefill's
         self.decode_graph_steps = 0   # decode steps served by a graph replay
-        self.decode_pad_rows = 0      # padding rows those replays ran
+        self.decode_pad_rows = 0      # padding rows the decode steps ran
         self.prefill_graph_dispatches = 0  # first chunks served by a replay
         self.capture_seconds = 0.0    # wall time of warmup's captures
         self.prefill_capture_seconds = 0.0  # the first-chunk graphs' part
@@ -334,24 +404,21 @@ class RealBackend:
                      cfg.num_kv_heads, cfg.head_dim)
             self.k_pool = torch.zeros(shape, dtype=dtype, device=self.device)
             self.v_pool = torch.zeros(shape, dtype=dtype, device=self.device)
-        rows = self.max_batch
-        self._tokens_in = torch.zeros(rows, 1, dtype=torch.int64,
-                                      device=self.device)
-        self._meta_host = torch.empty(
-            rows * (1 + self._lane_blocks), dtype=torch.int32,
-            pin_memory=self.device.type == "cuda")
-        self._meta_in = torch.empty_like(self._meta_host, device=self.device)
+        decode_kernel = (latent_decode_attention if self.latent
+                         else paged_decode_attention)
+        self._decode_shapes = {
+            b: CapturedStep(self._decode_forward, decode_kernel, b, 1,
+                            self._lane_blocks, 1, self._null_block,
+                            self.device, host_tokens=False)
+            for b in reversed(decode_buckets(self.max_batch))}
         if cfg.family != MOE:
             return
         for lanes, width in prefill_grid(self.core.prefill_chunk_tokens,
-                                         self.bucket_lens(), rows):
-            nb = -(-width // alloc.block_size)
-            meta = torch.zeros(lanes * (nb + 2), dtype=torch.int32,
-                               device=self.device)
-            meta[:lanes * nb] = self._null_block
-            self._first_in[lanes, width] = (
-                torch.zeros(lanes, width, dtype=torch.int64,
-                            device=self.device), meta)
+                                         self.bucket_lens(), self.max_batch):
+            self._first_shapes[lanes, width] = CapturedStep(
+                self._first_forward, flash_attention, lanes, width,
+                -(-width // alloc.block_size), 2, self._null_block,
+                self.device, host_tokens=True)
 
     def _pools(self) -> tfm.Cache:
         """The pools as a paged cache holds them."""
@@ -359,123 +426,53 @@ class RealBackend:
             return {"latent": self.k_pool}
         return {"k": self.k_pool, "v": self.v_pool}
 
-    def _meta(self, meta: torch.Tensor):
-        """``meta``'s (positions (max_batch,), tables (max_batch,
-        lane_blocks)) views."""
-        rows = self.max_batch
-        return meta[:rows], meta[rows:].view(rows, self._lane_blocks)
-
-    def _stage(self, reqs: Sequence[Request], active: Sequence[int],
-               b: int) -> None:
-        """Fill the decode graphs' inputs for ``reqs`` (in slots ``active``)
-        padded to ``b`` rows: the real rows' tokens, positions and tables,
-        then padding rows at position 0 on the all-null table."""
-        n = len(reqs)
-        pos, tables = (t.numpy() for t in self._meta(self._meta_host))
-        pos[:n] = [self._pos[r.req_id] for r in reqs]
-        pos[n:b] = 0
-        for j, req in enumerate(reqs):
-            tables[j] = self._table(req, self._lane_blocks)
-        tables[n:b] = self._null_block
-        self._meta_in.copy_(self._meta_host, non_blocking=True)
-        if n:
-            self._tokens_in[:n, 0] = self.slot_tokens[active]
-
-    def _bucket_step(self, b: int):
-        """``decode_step`` over the first ``b`` rows of the static inputs,
-        what bucket ``b``'s graph holds: ``(logits (b, V), token_drops
-        (b, 1) or None)``."""
-        pos, tables = self._meta(self._meta_in)
-        cache = {**self._pools(), "pos": pos[:b], "tables": tables[:b]}
-        logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
-                                         self._tokens_in[:b])
+    def _decode_forward(self, step: CapturedStep):
+        """``decode_step`` over a decode bucket's static inputs."""
+        logits, _, aux = tfm.decode_step(
+            self.params, self.cfg, {**self._pools(), "pos": step.columns[0],
+                                    "tables": step.tables}, step.tokens)
         return logits, aux.get("token_drops")
 
-    def _stage_first(self, shape: Tuple[int, int],
-                     group: Sequence[Request], tokens: np.ndarray,
-                     lengths: Sequence[int]):
-        """Fill the inputs of ``shape``'s first-chunk graph for ``group``
-        (the ``tokens`` of its lanes, lane 0's replayed past them, and
-        their prompt ``lengths``): the real rows' tables, the padding
-        rows' all null, by one copy each from pinned memory, which waits
-        for nothing. Returns the real rows' lengths and slots on the
-        device."""
-        lanes, width = shape
-        n = len(group)
-        nb = -(-width // self.k_pool.shape[2])
-        meta = np.zeros(lanes * (nb + 2), np.int32)
-        tables = meta[:lanes * nb].reshape(lanes, nb)
-        for j, req in enumerate(group):
-            tables[j] = self._table(req, nb)
-        tables[n:] = self._null_block
-        at = lanes * nb
-        meta[at:at + n] = lengths
-        meta[at + lanes:at + lanes + n] = [self._slot_of[r.req_id]
-                                           for r in group]
-        tokens_in, meta_in = self._first_in[shape]
-        for dst, src in ((tokens_in, tokens), (meta_in, meta)):
-            src = torch.from_numpy(src)
-            if self.device.type == "cuda":
-                src = src.pin_memory()
-            dst.copy_(src.view(dst.shape), non_blocking=True)
-        return meta_in[at:at + n], meta_in[at + lanes:at + lanes + n]
-
-    def _first_step(self, shape: Tuple[int, int]):
-        """``forward_seq`` over the static inputs of ``shape``, what its
-        first-chunk graph holds: ``(the last position's logits (lanes,
-        V), token_drops (lanes, tokens))``."""
-        lanes, width = shape
-        tokens, meta = self._first_in[shape]
-        nb = -(-width // self.k_pool.shape[2])
-        cache = {**self._pools(),
-                 "tables": meta[:lanes * nb].view(lanes, nb)}
-        logits, _, aux = tfm.forward_seq(self.params, self.cfg, tokens,
-                                         cache=cache)
-        # a copy, so that the graph's output is not every position's logits
+    def _first_forward(self, step: CapturedStep):
+        """``forward_seq`` over a first-chunk shape's static inputs, the
+        last position's logits (a copy: the graph keeps no others)."""
+        logits, _, aux = tfm.forward_seq(
+            self.params, self.cfg, step.tokens,
+            cache={**self._pools(), "tables": step.tables})
         return logits[:, -1].clone(), aux["token_drops"]
 
     def _capture(self) -> None:
-        """The first-chunk graphs, one per shape of the grid, then one CUDA
-        graph of ``_bucket_step`` per decode bucket, each kind largest
-        first, all in one private memory pool: the graphs run one at a
-        time, and each one's outputs are read before the next replay.
-        The largest of each kind runs once eagerly before its kind's
-        captures (the lazy initialisations a capture cannot hold); the
-        other shapes need no pass of their own. The captures go straight
-        to the graph, without the collection, the synchronisation and the
-        emptied caches that ``torch.cuda.graph`` adds to each. No garbage collection runs
+        """A CUDA graph of every captured step, the first-chunk shapes then
+        the decode buckets, each kind largest first, all on one side
+        stream in one private memory pool (so that each capture reuses
+        the memory the one before it freed): the graphs run one at a time,
+        and each one's outputs are read before the next replay. The
+        largest of each kind runs once eagerly before its kind's captures
+        (the lazy initialisations a capture cannot hold); the other shapes
+        need no pass of their own. The captures go straight to the graph,
+        without the collection, the synchronisation and the emptied caches
+        that ``torch.cuda.graph`` adds to each. No garbage collection runs
         during them: one could destroy a dead engine's graphs, which a
-        capture does not permit. The captures launch nothing, so a
-        kernel's ``launches`` leaves them out; each replay adds the calls
-        its graph holds."""
-        buckets = decode_buckets(self.max_batch)
-        self._stage([], [], self.max_batch)
+        capture does not permit."""
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         pool = torch.cuda.graph_pool_handle()
-        decode_kernel = (latent_decode_attention if self.latent
-                         else paged_decode_attention)
         collecting = gc.isenabled()
         gc.disable()
         try:
             with torch.cuda.stream(side):
                 t0 = time.perf_counter()
-                if self._first_in:
-                    shapes = list(self._first_in)
-                    self._first_step(shapes[0])
-                    side.synchronize()
-                    for shape in shapes:
-                        self._first_graphs[shape] = _captured(
-                            functools.partial(self._first_step, shape), pool,
-                            flash_attention)
-                self.prefill_capture_seconds = time.perf_counter() - t0
-                self._bucket_step(buckets[-1])
-                side.synchronize()
-                for b in reversed(buckets):
-                    self._graphs[b] = _captured(
-                        functools.partial(self._bucket_step, b), pool,
-                        decode_kernel)
+                for shapes in (self._first_shapes, self._decode_shapes):
+                    steps = list(shapes.values())
+                    if steps:
+                        steps[0].forward(steps[0])
+                        side.synchronize()
+                    for step in steps:
+                        step.capture(pool)
+                    if shapes is self._first_shapes:
+                        self.prefill_capture_seconds = (time.perf_counter()
+                                                        - t0)
         finally:
             if collecting:
                 gc.enable()
@@ -490,7 +487,7 @@ class RealBackend:
                if self.core is not None else [])
         return tbl + [self._null_block] * (n - len(tbl))
 
-    def _cache(self, reqs: Sequence[Request], pos: np.ndarray,
+    def _cache(self, reqs: Sequence[Request], pos: Sequence[int],
                n_blocks: Optional[int] = None) -> tfm.Cache:
         """The model's view of the KV for one dispatch over ``reqs`` at
         per-row positions ``pos``: the pool with the requests' first
@@ -561,7 +558,8 @@ class RealBackend:
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             build.build_all()
-            if self.k_pool is not None and not self._graphs:
+            if self._decode_shapes and \
+                    self._decode_shapes[self.max_batch].graph is None:
                 t1 = time.perf_counter()
                 self._capture()
                 self.capture_seconds = time.perf_counter() - t1
@@ -591,23 +589,21 @@ class RealBackend:
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample(logits, self._gen, self._sampler_cfg)
 
-    def _real(self, lengths: Sequence[int], width: int):
-        """An MoE model's mask, on the card, of the prompt positions of
-        rows ``lengths`` long padded to ``width`` (the rest are pad, and a
-        replayed lane is none of its rows); None for the other families."""
-        if self.cfg.moe is None:
-            return None
-        real = np.arange(width)[None] < np.asarray(lengths)[:, None]
-        return torch.as_tensor(real, device=self.device)
-
-    def _count_drops(self, aux: dict, real=None) -> None:
-        """Add a forward's capacity drops at the positions ``real`` marks
-        (every position of a decode step is real)."""
-        if "token_drops" not in aux:
+    def _count_drops(self, drops: Optional[torch.Tensor], n: int,
+                     lengths=None) -> None:
+        """Add a dispatch's MoE capacity drops (``token_drops``, None for
+        the other families) at its real positions: those of its first ``n``
+        rows (a replayed lane is none of them) that lie before each row's
+        length in ``lengths``, where given (every position of a decode step
+        is real)."""
+        if drops is None:
             return
-        drops = (aux["dropped_slots"] if real is None
-                 else (aux["token_drops"][:real.shape[0]] * real).sum())
-        self._dropped = self._dropped + drops
+        drops = drops[:n]
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=self.device)
+            drops = drops * (torch.arange(drops.shape[1], device=self.device)
+                             < lengths[:, None])
+        self._dropped = self._dropped + drops.sum()
 
     @property
     def dropped_slots(self) -> int:
@@ -711,7 +707,7 @@ class RealBackend:
             # an MoE dispatch replays lane 0 up to a power of two (see the
             # module docstring); the cache takes the first n rows only
             lanes = _next_pow2(n) if self.cfg.family == MOE else n
-            graph = self._first_graphs.get((lanes, bucket_len))
+            step = self._first_shapes.get((lanes, bucket_len))
             with trace.span("backend.tables"):
                 tokens = np.zeros((lanes, bucket_len), np.int64)
                 lengths = []
@@ -720,30 +716,26 @@ class RealBackend:
                     tokens[j, :len(ids)] = ids      # tail = pad token 0
                     lengths.append(len(ids))
                 tokens[n:] = tokens[0]
-                if graph is not None:
-                    lens, slots = self._stage_first((lanes, bucket_len),
-                                                    group, tokens, lengths)
+                slots = [self._slot_of[r.req_id] for r in group]
+                if step is not None:
+                    step.stage([self._table(r, step.nb) for r in group],
+                               [lengths, slots], tokens)
+                    lengths, slots = step.columns[:, :n]
+                    slots = slots.long()
                 else:
                     # the pool blocks that hold the bucket
                     nb = (-(-bucket_len // self.k_pool.shape[2])
                           if self.paged else None)
                     tokens = torch.as_tensor(tokens, device=self.device)
-                    real = self._real(lengths, bucket_len)
                     cache = self._cache(group, np.zeros(n, np.int32), nb)
-                    slots = [self._slot_of[r.req_id] for r in group]
-            if graph is not None:
-                with trace.span("backend.replay"):
-                    logits, drops = graph()
-                real = (torch.arange(bucket_len, device=self.device)[None]
-                        < lens[:, None])
-                self._dropped = self._dropped + (drops[:n] * real).sum()
-                slots = slots.long()
-                self.prefill_graph_dispatches += 1
+            if step is not None:
+                logits, drops = step.run()
+                self.prefill_graph_dispatches += step.graph is not None
             else:
                 logits, _, aux = tfm.forward_seq(self.params, self.cfg,
                                                  tokens, cache=cache)
-                self._count_drops(aux, real)
-                logits = logits[:, -1]
+                logits, drops = logits[:, -1], aux.get("token_drops")
+            self._count_drops(drops, n, lengths)
             with trace.span("backend.sample"):
                 self.slot_tokens[slots] = self._sample(logits[:n])
             self.prefill_dispatches += 1
@@ -761,7 +753,6 @@ class RealBackend:
                     commit.append(end >= self.prefill_total(req))
                     lengths.append(len(ids))
                 tokens = torch.as_tensor(tokens, device=self.device)
-                real = self._real(lengths, chunk_len)
                 # a latent lane is up-projected whole: gather only the
                 # entries the chunks' keys reach
                 nb = (-(-(int(starts.max()) + chunk_len)
@@ -773,7 +764,7 @@ class RealBackend:
                                                   * self.cfg.num_layers)
             logits, _, aux = tfm.forward_chunk(self.params, self.cfg, tokens,
                                                cache)
-            self._count_drops(aux, real)
+            self._count_drops(aux.get("token_drops"), len(group), lengths)
             with trace.span("backend.sample"):
                 nxt = self._sample(logits[:, -1])
                 # mid-prompt samples are meaningless: only completing chunks
@@ -826,19 +817,28 @@ class RealBackend:
         t0 = time.perf_counter()
         reqs = [self.slot_req[i] for i in active]
         trace.ids(reqs)
-        if self._graphs:
-            logits = self._replay_step(reqs, active)
-        else:
-            with trace.span("backend.tables"):
-                poss = np.asarray([self._pos[r.req_id] for r in reqs],
-                                  np.int32)
+        n = len(reqs)
+        with trace.span("backend.tables"):
+            tokens = self.slot_tokens[active][:, None]
+            poss = [self._pos[r.req_id] for r in reqs]
+            if self.paged:      # the smallest bucket that holds the rows
+                step = self._decode_shapes[min(b for b in self._decode_shapes
+                                               if b >= n)]
+                step.stage([self._table(r, step.nb) for r in reqs], [poss],
+                           tokens)
+            else:
                 cache = self._cache(reqs, poss)
-                tokens = self.slot_tokens[active][:, None]
+        if self.paged:
+            logits, drops = step.run()
+            self.decode_graph_steps += step.graph is not None
+            self.decode_pad_rows += step.rows - n
+        else:
             logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
                                              tokens)
-            self._count_drops(aux)
+            drops = aux.get("token_drops")
+        self._count_drops(drops, n)
         with trace.span("backend.sample"):
-            self.slot_tokens[active] = self._sample(logits)
+            self.slot_tokens[active] = self._sample(logits[:n])
         with trace.span("backend.sync"):
             self._sync()
         self.decode_seconds += time.perf_counter() - t0
@@ -853,55 +853,12 @@ class RealBackend:
                     self._record(req, toks[i], now)
         return now
 
-    def _replay_step(self, reqs: Sequence[Request],
-                     active: Sequence[int]) -> torch.Tensor:
-        """The decode step of ``reqs`` by the graph of the smallest bucket
-        that holds them; returns the real rows' logits."""
-        n = len(reqs)
-        buckets = sorted(self._graphs)
-        b = buckets[bisect.bisect_left(buckets, n)]
-        with trace.span("backend.tables"):
-            self._stage(reqs, active, b)
-        with trace.span("backend.replay"):
-            logits, drops = self._graphs[b]()
-        if drops is not None:
-            self._dropped = self._dropped + drops[:n].sum()
-        self.decode_graph_steps += 1
-        self.decode_pad_rows += b - n
-        return logits[:n]
-
     def release(self, req: Request) -> None:
         self._ids.pop(req.req_id, None)
         self._pos.pop(req.req_id, None)
         slot = self._slot_of.pop(req.req_id, None)
         if slot is not None:
             self.slot_req[slot] = None
-
-
-def _captured(step: Callable[[], Tuple], pool, kernel):
-    """``step`` captured on the current stream as a CUDA graph whose memory
-    comes from ``pool``: its replay (:func:`_replay`). The capture's calls
-    of ``kernel`` launch nothing, so its ``launches`` leaves them out."""
-    graph = torch.cuda.CUDAGraph()
-    before = kernel.launches
-    graph.capture_begin(pool=pool)
-    try:
-        out = step()
-    finally:
-        graph.capture_end()
-    calls = kernel.launches - before
-    kernel.launches = before
-    return _replay(graph, out, kernel, calls)
-
-
-def _replay(graph, out, kernel, calls: int):
-    """A replay of ``graph`` that returns its static outputs ``out`` and
-    counts the ``calls`` of the ``kernel`` it holds."""
-    def replay():
-        graph.replay()
-        kernel.launches += calls
-        return out
-    return replay
 
 
 class TracedCore(ServingCore):

@@ -23,7 +23,8 @@ Moonlight's widths against their plain versions, and a latent decode
 graph's replay equal to the eager step bitwise; an MoE first chunk's graph
 (OLMoE and Moonlight) equal to today's eager ``forward_seq`` bitwise at every
 shape of its grid, its padding lanes writing the null block alone, a warmed
-engine's burst (first chunks replayed) equal to an unwarmed one's, and no
+engine's burst (first chunks replayed, each replay a span) equal to an
+unwarmed one's, one shape staged twice in one unbucketed prefill, and no
 collection during those captures; the prefill kernel without the causal mask and ring decode over
 encoder lanes equal unmasked attention; Whisper through ``build()`` gives
 the CPU's logits with exact launch counts; the hybrid, SSM and
@@ -35,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import trace
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.scheduler.policies import fcfs
 from repro_torch.core.scheduler.request import Request
@@ -595,19 +597,47 @@ def _graph_engine(cfg, params, device, max_batch=8):
                   device=device)
 
 
+def _captured(shapes):
+    """The shapes of a backend's table of captured steps that hold a
+    graph, in the table's order."""
+    return [shape for shape, step in shapes.items() if step.graph is not None]
+
+
+def _stage_decode(be, reqs, active, b):
+    """Decode's staging of ``reqs`` (in slots ``active``) into bucket
+    ``b``'s captured step; returns the step."""
+    step = be._decode_shapes[b]
+    step.stage([be._table(r, step.nb) for r in reqs],
+               [[be._pos[r.req_id] for r in reqs]],
+               be.slot_tokens[active][:, None])
+    return step
+
+
+def _watch(shapes, seen):
+    """Note in ``seen``, at each run of a step of ``shapes``' (captures
+    included), whether a capture is under way and the collector on."""
+    for step in shapes.values():
+        def forward(s, inner=step.forward):
+            seen.append((torch.cuda.is_current_stream_capturing(),
+                         gc.isenabled()))
+            return inner(s)
+        step.forward = forward
+
+
 @pytest.mark.parametrize("arch", ["llama3_2_3b", "olmoe_1b_7b"])
 def test_decode_graph_replay_is_the_eager_step_bitwise(cuda, arch):
     """Three decode-ready rows of the f32 smoke model: at every bucket of
     ``max_batch`` 8, the bucket's replay gives the logits, MoE drops and
     pool (null block aside, where padding rows race) of the same
-    ``_bucket_step`` run eagerly, bit for bit; a replay adds the paged
+    bucket's step run eagerly, bit for bit; a replay adds the paged
     kernel's calls its graph holds, one a layer."""
     cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
     params = tfm.init_params(cfg, 0, device=cuda)
     eng = _graph_engine(cfg, params, cuda)
     be = eng.backend
     eng.warmup()
-    assert sorted(be._graphs) == decode_buckets(8) == [1, 2, 4, 8]
+    assert sorted(_captured(be._decode_shapes)) == decode_buckets(8) == [
+        1, 2, 4, 8]
     eng.submit([Request(i, _words(5 + 4 * i, f"g{i}"), 0.0, 32, 9)
                 for i in range(3)])
     eng.core.tick()                   # admission, prefill, one decode step
@@ -621,10 +651,10 @@ def test_decode_graph_replay_is_the_eager_step_bitwise(cuda, arch):
         for how in ("eager", "graph"):
             be.k_pool.copy_(pools[0])
             be.v_pool.copy_(pools[1])
-            be._stage(reqs[:n], active[:n], b)
+            step = _stage_decode(be, reqs[:n], active[:n], b)
             before = paged_decode_attention.launches
-            logits, drops = (be._bucket_step(b) if how == "eager"
-                             else be._graphs[b]())
+            logits, drops = (step.forward(step) if how == "eager"
+                             else step.run())
             assert paged_decode_attention.launches == before + cfg.num_layers
             torch.cuda.synchronize()
             out[how] = (logits.clone(),
@@ -638,7 +668,7 @@ def test_decode_graph_replay_is_the_eager_step_bitwise(cuda, arch):
 def test_warmed_engine_serves_the_eager_tokens(cuda, arch):
     """A 7-request paged burst behind 5 slots in f32: warmed, every decode
     step replays a graph and the greedy tokens and MoE drops equal the
-    never-warmed engine's, which decodes eagerly."""
+    never-warmed engine's, which runs the same bucket's step eagerly."""
     cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
     params = tfm.init_params(cfg, 0, device=cuda)
     runs = {}
@@ -671,20 +701,14 @@ def test_no_collection_runs_during_a_capture(cuda):
     eng = _graph_engine(cfg, params, cuda)
     be = eng.backend
     seen = []
-    step = be._bucket_step
-
-    def watched(b):
-        seen.append((torch.cuda.is_current_stream_capturing(),
-                     gc.isenabled()))
-        return step(b)
-    be._bucket_step = watched
+    _watch(be._decode_shapes, seen)
     thresholds = gc.get_threshold()
     gc.set_threshold(1, 1, 1)
     try:
         eng.warmup()
     finally:
         gc.set_threshold(*thresholds)
-    assert sorted(be._graphs) == decode_buckets(8)
+    assert sorted(_captured(be._decode_shapes)) == decode_buckets(8)
     assert (True, False) in seen and (True, True) not in seen
     assert gc.isenabled()
 
@@ -765,7 +789,7 @@ def _latent_card_cfg():
 def test_latent_decode_graph_replay_is_the_eager_step_bitwise(cuda):
     """Three decode-ready rows over the latent pool: at every bucket of
     ``max_batch`` 8, the bucket's replay gives the logits, MoE drops and
-    latent pool (null block aside) of the same ``_bucket_step`` run
+    latent pool (null block aside) of the same bucket's step run
     eagerly, bit for bit; a replay adds the latent kernel's calls its graph
     holds, one a layer, and the paged GQA kernel's none."""
     from repro_torch.kernels.flash_decode.ops import latent_decode_attention
@@ -775,7 +799,7 @@ def test_latent_decode_graph_replay_is_the_eager_step_bitwise(cuda):
     be = eng.backend
     eng.warmup()
     assert be.v_pool is None and be.k_pool.shape[-1] == 576
-    assert sorted(be._graphs) == decode_buckets(8)
+    assert sorted(_captured(be._decode_shapes)) == decode_buckets(8)
     eng.submit([Request(i, _words(5 + 4 * i, f"m{i}"), 0.0, 32, 9)
                 for i in range(3)])
     eng.core.tick()
@@ -789,10 +813,10 @@ def test_latent_decode_graph_replay_is_the_eager_step_bitwise(cuda):
         out = {}
         for how in ("eager", "graph"):
             be.k_pool.copy_(pool)
-            be._stage(reqs[:n], active[:n], b)
+            step = _stage_decode(be, reqs[:n], active[:n], b)
             before = latent_decode_attention.launches
-            logits, drops = (be._bucket_step(b) if how == "eager"
-                             else be._graphs[b]())
+            logits, drops = (step.forward(step) if how == "eager"
+                             else step.run())
             assert latent_decode_attention.launches == \
                 before + cfg.num_layers
             torch.cuda.synchronize()
@@ -833,7 +857,7 @@ def test_first_chunk_graph_replay_is_the_eager_forward_bitwise(cuda, arch):
     be = eng.backend
     eng.warmup()
     shapes = prefill_grid(64, be.bucket_lens(), 8)
-    assert list(be._first_graphs) == shapes and len(shapes) == 10
+    assert _captured(be._first_shapes) == shapes and len(shapes) == 10
     rng = np.random.default_rng(5)
     pools = [p.clone() for p in be._pools().values()]
     null = be._null_block
@@ -868,9 +892,12 @@ def test_first_chunk_graph_replay_is_the_eager_forward_bitwise(cuda, arch):
         eager_blocks = written()
         eager_pools = [p[:, :null].clone() for p in be._pools().values()]
         restore()
-        lens, slots = be._stage_first((lanes, width), group, tokens, lengths)
+        step = be._first_shapes[lanes, width]
+        step.stage([be._table(r, step.nb) for r in group],
+                   [lengths, [be._slot_of[r.req_id] for r in group]], tokens)
+        lens, slots = step.columns[:, :n]
         before = flash_attention.launches
-        logits, drops = be._first_graphs[lanes, width]()
+        logits, drops = step.run()
         assert flash_attention.launches == before + cfg.num_layers
         torch.cuda.synchronize()
         out["graph"] = (logits.clone(), drops.clone())
@@ -893,8 +920,11 @@ def test_warmed_engine_serves_the_eager_first_chunks(cuda, arch):
     """A 14-request burst behind 8 slots, prompts up to 120 tokens under
     chunks of 64: warmed, every first chunk replays a graph (the second
     half of a 128-token prompt runs eagerly as a continuation), and the
-    tokens and MoE drops equal those of the engine never warmed; the
-    prefill kernel launches once a layer a dispatch, replays counted."""
+    tokens and MoE drops equal those of an engine never warmed whose first
+    chunks all take the eager path of the shapes off the grid; the
+    prefill kernel launches once a layer a dispatch, replays counted, each
+    a ``backend.replay`` span (in ``backend.prefill`` or
+    ``backend.decode``)."""
     cfg, params = _first_chunk_model(arch, cuda)
     runs = {}
     for warm in (False, True):
@@ -902,10 +932,18 @@ def test_warmed_engine_serves_the_eager_first_chunks(cuda, arch):
         be = eng.backend
         if warm:
             eng.warmup()
+        else:
+            be._first_shapes.clear()
         flash_attention.launches = 0
         eng.submit([Request(i, _words(3 + 9 * i, f"p{i}"), 0.0, 128,
                             3 + i % 5) for i in range(14)])
-        fin = eng.run()
+        trace.enable()
+        try:
+            fin = eng.run()
+            rec = trace.records()
+        finally:
+            trace.disable()
+            trace.reset()
         runs[warm] = ({r.req_id: r.generated_tokens for r in fin},
                       be.dropped_slots)
         assert be.extend_dispatches > 0
@@ -913,8 +951,60 @@ def test_warmed_engine_serves_the_eager_first_chunks(cuda, arch):
             be.prefill_dispatches + be.extend_dispatches)
         assert be.prefill_graph_dispatches == (be.prefill_dispatches
                                                if warm else 0)
+        assert be.decode_graph_steps == (be.decode_steps if warm else 0)
+        replays = [rec[s.parent].name for s in rec
+                   if s.name == "backend.replay"]
+        assert replays.count("backend.prefill") == \
+            be.prefill_graph_dispatches
+        assert replays.count("backend.decode") == be.decode_graph_steps
+        assert len(replays) == (be.prefill_graph_dispatches
+                                + be.decode_graph_steps)
     assert runs[True] == runs[False]
     assert len(runs[True][0]) == 14
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonlight_16b_a3b"])
+def test_one_shape_staged_twice_in_one_prefill(cuda, arch):
+    """Unbucketed prefill sends one request a dispatch, every one of shape
+    (1, ``prompt_len``), on the grid: a step's four first chunks stage the
+    same captured step four times in one ``_prefill`` before it
+    synchronises, each staging from the third on finding the copy before
+    it queued behind a replay, and waiting for it to read the pinned twin.
+    Replayed, the greedy tokens and MoE drops equal the eager first
+    chunks' (off the grid), unwarmed and unstaged."""
+    cfg, params = _first_chunk_model(arch, cuda)
+    runs = {}
+    for warm in (False, True):
+        eng = Engine(cfg, params, Scheduler(policy=fcfs(), max_batch=8),
+                     cache_len=64, prompt_len=16, bucketed=False,
+                     prefill_chunk_tokens=64, record_tokens=True,
+                     device=cuda)
+        be = eng.backend
+        assert list(be._first_shapes) == [(4, 16), (2, 16), (1, 16)]
+        if warm:
+            eng.warmup()
+        else:
+            be._first_shapes.clear()
+        per_prefill = []
+        prefill = be.prefill
+
+        def counted(chunks, now):
+            before = be.prefill_graph_dispatches
+            out = prefill(chunks, now)
+            per_prefill.append(be.prefill_graph_dispatches - before)
+            return out
+        be.prefill = counted
+        eng.submit([Request(i, _words(3 + i, f"u{i}"), 0.0, 16,
+                            3 + i % 4) for i in range(8)])
+        fin = eng.run()
+        runs[warm] = ({r.req_id: r.generated_tokens for r in fin},
+                      be.dropped_slots)
+        assert be.prefill_graph_dispatches == (be.prefill_dispatches
+                                               if warm else 0)
+        if warm:
+            assert max(per_prefill) == 4
+    assert runs[True] == runs[False]
+    assert len(runs[True][0]) == 8
 
 
 def test_no_collection_runs_during_a_first_chunk_capture(cuda):
@@ -927,17 +1017,11 @@ def test_no_collection_runs_during_a_first_chunk_capture(cuda):
     eng = _first_chunk_engine(cfg, params, cuda)
     be = eng.backend
     seen, collections = [], []
-    step = be._first_step
-
-    def watched(shape):
-        seen.append((torch.cuda.is_current_stream_capturing(),
-                     gc.isenabled()))
-        return step(shape)
+    _watch(be._first_shapes, seen)
 
     def on_collection(phase, _info):
         if phase == "start":
             collections.append(torch.cuda.is_current_stream_capturing())
-    be._first_step = watched
     thresholds = gc.get_threshold()
     gc.set_threshold(1, 1, 1)
     gc.callbacks.append(on_collection)
@@ -946,7 +1030,8 @@ def test_no_collection_runs_during_a_first_chunk_capture(cuda):
     finally:
         gc.callbacks.remove(on_collection)
         gc.set_threshold(*thresholds)
-    assert list(be._first_graphs) == prefill_grid(64, be.bucket_lens(), 8)
-    assert seen.count((True, False)) == len(be._first_graphs)
+    assert _captured(be._first_shapes) == prefill_grid(64, be.bucket_lens(),
+                                                       8)
+    assert seen.count((True, False)) == len(be._first_shapes)
     assert (True, True) not in seen and True not in collections
     assert gc.isenabled()

@@ -8,17 +8,16 @@ positions included); the paged engine's greedy tokens per ``req_id``
 against the JAX ``Engine`` (FCFS and PARS, chunked prefill, prefix
 caching) at capacity factor 4.0; the reference's padding-lane overwrite
 (ROADMAP C3), which the port's engine does not copy; the decode step by
-batch bucket, as a CUDA graph holds it, run eagerly (the real rows' tokens
-and logits of the unpadded step, padding rows writing the null block
-alone, the graph counters), dense and MoE; an MoE first chunk as its graph
-holds it (the grid of shapes, padding lanes staged on the all-null table
-keeping the real lanes' logits, K/V and drops, C3's dispatch included, the
-replayed engine's tokens and counters); and the launchers (the MoE smoke
+batch bucket, staged into its captured step and run eagerly, as the CPU
+runs it (the real rows' tokens and logits of the unpadded step, padding
+rows writing the null block alone, contiguous lanes' tokens, the
+counters), dense and MoE; an MoE first chunk staged as its graph holds it
+(the grid of shapes, padding lanes on the all-null table keeping the real
+lanes' logits, K/V and drops, C3's dispatch included, the eager first
+chunks' tokens, the counters); and the launchers (the MoE smoke
 config trains with its auxiliary losses; ``--full`` refuses what fits no
 device). The model half is in ``test_torch_moe.py``.
 """
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -288,12 +287,36 @@ def _graph_engine(arch, max_batch=8, *, paged=None):
                   record_tokens=True, device="cpu")
 
 
+def _stage_decode(be, reqs, active, b):
+    """Decode's staging of ``reqs`` (in slots ``active``) into bucket
+    ``b``'s captured step; returns the step."""
+    step = be._decode_shapes[b]
+    step.stage([be._table(r, step.nb) for r in reqs],
+               [[be._pos[r.req_id] for r in reqs]],
+               be.slot_tokens[active][:, None])
+    return step
+
+
+def _staged(steps):
+    """Spy on the staging of each of ``steps`` (a backend's table of
+    captured steps): the list it fills, one (real rows, the shape's rows)
+    a staging."""
+    seen = []
+    for step in steps.values():
+        def stage(tables, cols, tokens=None, step=step, inner=step.stage):
+            seen.append((len(tables), step.rows))
+            inner(tables, cols, tokens)
+        step.stage = stage
+    return seen
+
+
 @pytest.mark.parametrize("arch", ["llama3_2_3b", "olmoe_1b_7b"])
 def test_bucketed_step_matches_the_unpadded_step(arch):
     """Three decode-ready rows padded to buckets 4 and 8: the real rows'
     logits equal the unpadded eager step's at f32 tolerance (the same
-    greedy tokens, the same MoE drops), and the padding rows write no pool
-    block but the null block."""
+    greedy tokens, the same MoE drops), the padding rows write no pool
+    block but the null block, and a bucket staged with fewer rows than
+    before pads the rest again."""
     eng = _graph_engine(arch)
     be = eng.backend
     eng.submit([Request(i, _words(5 + 4 * i, f"g{i}"), 0.0, 32, 9)
@@ -302,6 +325,9 @@ def test_bucketed_step_matches_the_unpadded_step(arch):
     active = [i for i, r in enumerate(be.slot_req) if r is not None]
     reqs = [be.slot_req[i] for i in active]
     assert len(reqs) == 3
+    # the null block zeroed: the tick's own decode step padded its rows
+    be.k_pool[:, be._null_block] = 0
+    be.v_pool[:, be._null_block] = 0
     pools = (be.k_pool.clone(), be.v_pool.clone())
 
     def changed_blocks():
@@ -320,8 +346,7 @@ def test_bucketed_step_matches_the_unpadded_step(arch):
     assert be._null_block not in written and written
     for b in (4, 8):
         restore()
-        be._stage(reqs, active, b)
-        out, drops = be._bucket_step(b)
+        out, drops = _stage_decode(be, reqs, active, b).run()
         assert out.shape[0] == b
         torch.testing.assert_close(out[:3], logits, atol=1e-5, rtol=1e-5)
         assert torch.equal(out[:3].argmax(-1), logits.argmax(-1))
@@ -330,52 +355,47 @@ def test_bucketed_step_matches_the_unpadded_step(arch):
             assert drops is None
         else:
             assert torch.equal(drops[:3], aux["token_drops"])
+    # staged again with fewer rows, the rest are padding rows again
+    step = _stage_decode(be, reqs[:1], active[:1], 4)
+    assert (step.tables[1:] == be._null_block).all()
+    assert (step.columns[:, 1:] == 0).all()
 
 
 @pytest.mark.parametrize("arch", ["llama3_2_3b", "olmoe_1b_7b"])
 def test_bucketed_decode_serves_the_eager_tokens(arch):
-    """A 7-request burst behind 5 slots (buckets 1, 2, 4, 5): decoding by
-    bucket gives the eager engine's greedy tokens and MoE drops; every
-    decode step is a replay, padded to the smallest bucket that holds it,
-    and the counters say so. A backend never warmed (or warmed on the CPU)
-    decodes eagerly and leaves them at 0."""
+    """A 7-request burst behind 5 slots (buckets 1, 2, 4, 5): the paged
+    engine, whose every decode step is staged into the smallest bucket
+    that holds it and runs that bucket's step (eagerly, on the CPU), gives
+    the greedy tokens and MoE drops of contiguous lanes, which decode
+    unpadded; the pad rows are counted, and no replay is, on the CPU or
+    in lanes."""
     runs = {}
-    for graphs in (False, True):
-        eng = _graph_engine(arch, max_batch=5)
+    for paged in (False, True):
+        eng = _graph_engine(arch, max_batch=5, paged=paged)
         be = eng.backend
         eng.warmup()
-        assert not be._graphs                # nothing captured on the CPU
-        staged = []
-        if graphs:
-            # what warmup captures on a card, run eagerly: each bucket's
-            # _bucket_step over the static inputs, which _stage fills
-            be._graphs = {b: functools.partial(be._bucket_step, b)
-                          for b in decode_buckets(5)}
-            stage = be._stage
-
-            def counted(reqs, active, b):
-                staged.append((len(reqs), b))
-                stage(reqs, active, b)
-            be._stage = counted
+        staged = _staged(be._decode_shapes)
         eng.submit([Request(i, _words(6 + 3 * i, f"r{i}"), 0.0, 32, 5 + i)
                     for i in range(7)])
-        runs[graphs] = ({r.req_id: r.generated_tokens for r in eng.run()},
-                        be.dropped_slots)
-        if graphs:
-            assert be.decode_graph_steps == be.decode_steps == len(staged)
+        runs[paged] = ({r.req_id: r.generated_tokens for r in eng.run()},
+                       be.dropped_slots)
+        assert be.decode_steps > 0 and be.decode_graph_steps == 0
+        if paged:
+            assert be.decode_steps == len(staged)
             assert all(b == min(x for x in decode_buckets(5) if x >= n)
                        for n, b in staged)
             assert be.decode_pad_rows == sum(b - n for n, b in staged) > 0
         else:
-            assert be.decode_steps > 0
-            assert be.decode_graph_steps == be.decode_pad_rows == 0
+            assert not staged and be.decode_pad_rows == 0
     assert runs[True] == runs[False]
     assert len(runs[True][0]) == 7
+    if arch == "olmoe_1b_7b":
+        assert runs[True][1] > 0
 
 
 def test_contiguous_lanes_decode_eagerly():
     """Contiguous lanes (hymba's rings, or a dense model with
-    ``paged=False``) build no static inputs and decode eagerly, warmed or
+    ``paged=False``) build no captured step and decode eagerly, warmed or
     not."""
     for arch, paged in (("hymba_1_5b", None), ("llama3_2_3b", False)):
         eng = _graph_engine(arch, max_batch=3, paged=paged)
@@ -384,8 +404,10 @@ def test_contiguous_lanes_decode_eagerly():
         eng.submit([Request(i, _words(6, f"c{i}"), 0.0, 32, 4)
                     for i in range(3)])
         assert len(eng.run()) == 3
-        assert not be.paged and be._meta_in is None and not be._graphs
+        assert not be.paged and not be._decode_shapes
+        assert not be._first_shapes
         assert be.decode_steps > 0 and be.decode_graph_steps == 0
+        assert be.decode_pad_rows == 0
 
 
 # ---------------------------------------------------- first-chunk graphs
@@ -430,29 +452,30 @@ def _first_chunk_engine(cfg, params, max_batch, chunk):
                   record_tokens=True, device="cpu")
 
 
-def _replay_eagerly(be):
-    """What warmup captures on a card, run eagerly: each shape's
-    ``_first_step`` over the static inputs, which ``_stage_first``
-    fills."""
-    be._first_graphs = {s: functools.partial(be._first_step, s)
-                        for s in be._first_in}
+def _eager_first_chunks(be):
+    """Empty ``be``'s table of first-chunk steps: every first chunk then
+    takes the path of the shapes off the grid, an eager ``forward_seq``
+    whose cache takes the real rows alone."""
+    be._first_shapes.clear()
 
 
 def test_padding_lanes_on_null_tables_keep_the_real_lanes():
     """C3's dispatch (three prompts padded to four lanes, at the published
-    capacity factor, beside a one-lane bucket), staged as its graph holds
-    it: the padding lane's table is all null. The sampled logits, every
-    pool block but the null one (which the padding lane alone writes) and
-    the MoE drops equal today's path, whose cache takes the real rows
-    alone; the drops are not zero, so the lanes couple."""
+    capacity factor, beside a one-lane bucket), staged into its captured
+    step as its graph holds it: the padding lane's table is all null. The
+    sampled logits, every pool block but the null one (which the padding
+    lane alone writes) and the MoE drops equal the eager path's, whose
+    cache takes the real rows alone; the drops are not zero, so the lanes
+    couple."""
     jcfg, jparams, cfg, params = _bridged("olmoe_1b_7b")
     runs = {}
-    for graphs in (False, True):
+    for staged in (False, True):
         eng = _first_chunk_engine(cfg, params, 4, 128)
         be = eng.backend
         before = be.k_pool.clone(), be.v_pool.clone()
-        if graphs:
-            _replay_eagerly(be)
+        if not staged:
+            _eager_first_chunks(be)
+        stagings = _staged(be._first_shapes)
         sampled = []
         sample = be._sample
 
@@ -464,11 +487,12 @@ def test_padding_lanes_on_null_tables_keep_the_real_lanes():
         eng.core.tick()                     # admission, prefill, one decode
         null = be._null_block
         changed = ((be.k_pool != before[0]) | (be.v_pool != before[1]))
-        runs[graphs] = (sampled, be.k_pool[:, :null], be.v_pool[:, :null],
+        runs[staged] = (sampled, be.k_pool[:, :null], be.v_pool[:, :null],
                         set(changed.flatten(2).any(-1).any(0).nonzero()[:, 0]
                             .tolist()), be.dropped_slots)
         assert be.prefill_dispatches == 2 and be.prefill_pad_lanes == 1
-        assert be.prefill_graph_dispatches == (2 if graphs else 0)
+        assert be.prefill_graph_dispatches == 0
+        assert sorted(stagings) == ([(1, 1), (3, 4)] if staged else [])
     (eager, k0, v0, w0, d0), (graph, k1, v1, w1, d1) = runs[False], runs[True]
     assert len(eager) == len(graph) == 3      # two first chunks, one decode
     assert all(torch.equal(e, g) for e, g in zip(eager, graph))
@@ -483,32 +507,35 @@ def test_padding_lanes_on_null_tables_keep_the_real_lanes():
     ("olmoe_1b_7b", 3, 32),
 ])
 def test_first_chunk_replays_serve_the_eager_tokens(arch, max_batch, chunk):
-    """A 9-request burst at the published capacity factor: replaying each
-    first chunk that lies on the grid gives the eager engine's greedy
-    tokens and MoE drops. With 4 slots every first chunk is on it (a
-    32-token prompt's second half under a 16-token budget runs eagerly as
-    a continuation); with 3 the first wave's three 8-token prompts pad to
-    four lanes, more than the slots, and run eagerly."""
+    """A 9-request burst at the published capacity factor: staging each
+    first chunk that lies on the grid into its captured step, and running
+    the step as its graph would replay it, gives the greedy tokens and MoE
+    drops of the eager first chunks. With 4 slots every first chunk is on
+    the grid (a 32-token prompt's second half under a 16-token budget runs
+    eagerly as a continuation); with 3 the first wave's three 8-token
+    prompts pad to four lanes, more than the slots, and run eagerly."""
     cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
     params = tfm.init_params(cfg, 0, device="cpu")
     runs = {}
-    for graphs in (False, True):
+    for staged in (False, True):
         eng = _first_chunk_engine(cfg, params, max_batch, chunk)
         be = eng.backend
-        if graphs:
-            _replay_eagerly(be)
+        if not staged:
+            _eager_first_chunks(be)
+        stagings = _staged(be._first_shapes)
         words = [3, 5, 7, 20, 4, 12, 6, 25, 3] if chunk == 16 else [3] * 9
         eng.submit([Request(i, _words(n, f"f{i}"), 0.0, 32, 3 + i % 4)
                     for i, n in enumerate(words)])
-        runs[graphs] = ({r.req_id: r.generated_tokens for r in eng.run()},
+        runs[staged] = ({r.req_id: r.generated_tokens for r in eng.run()},
                         be.dropped_slots)
-        counts = (be.prefill_dispatches, be.prefill_graph_dispatches)
-        if not graphs:
-            assert counts[1] == 0
+        assert be.prefill_graph_dispatches == 0
+        if not staged:
+            assert not stagings
         elif max_batch == 4:
-            assert counts[0] == counts[1] and be.extend_dispatches > 0
+            assert len(stagings) == be.prefill_dispatches
+            assert be.extend_dispatches > 0
         else:
-            assert 0 < counts[1] < counts[0]
+            assert 0 < len(stagings) < be.prefill_dispatches
     assert runs[True] == runs[False]
     assert len(runs[True][0]) == 9
 
@@ -520,18 +547,22 @@ def test_first_chunk_replays_serve_the_eager_tokens(arch, max_batch, chunk):
 ])
 def test_first_chunks_run_eagerly_on_the_cpu(arch, chunk, shapes):
     """On the CPU a warmed engine captures nothing: its first chunks run
-    eagerly and ``prefill_graph_dispatches`` stays 0. Only an MoE model
-    with a budget builds the grid's static inputs."""
+    eagerly, staged or not, and ``prefill_graph_dispatches`` stays 0. Only
+    an MoE model with a budget builds the grid's captured steps."""
     cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
     params = tfm.init_params(cfg, 0, device="cpu")
     eng = _first_chunk_engine(cfg, params, 4, chunk)
     be = eng.backend
     eng.warmup()
-    assert len(be._first_in) == shapes and not be._first_graphs
+    assert len(be._first_shapes) == shapes
+    assert all(s.graph is None for s in (*be._first_shapes.values(),
+                                         *be._decode_shapes.values()))
+    stagings = _staged(be._first_shapes)
     eng.submit([Request(i, _words(4 + 5 * i, f"c{i}"), 0.0, 32, 3)
                 for i in range(5)])
     assert len(eng.run()) == 5
     assert be.prefill_dispatches > 0 and be.prefill_graph_dispatches == 0
+    assert len(stagings) == (be.prefill_dispatches if shapes else 0)
     assert be.capture_seconds == be.prefill_capture_seconds == 0.0
 
 

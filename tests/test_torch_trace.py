@@ -6,7 +6,6 @@ spans; the engine's decode and MoE drop counters, its first-chunk
 replays' span and counter, and the predictor's scoring counters."""
 import contextlib
 import dataclasses
-import functools
 import gc
 
 import numpy as np
@@ -188,10 +187,10 @@ def test_engine_counts_moe_drops_and_decode_steps(params, monkeypatch):
     """At capacity factor 0.5 the dispatches drop slots: the engine's
     ``dropped_slots`` is the sum, over every forward (first chunks,
     continuation chunks and decode steps), of the drops at real positions:
-    the rows the dispatch caches (not an MoE first chunk's replayed lanes)
-    and the non-pad tokens; pad positions drop slots too, and are left
-    out. ``decode_steps`` and ``decode_seconds`` advance once per decode
-    dispatch."""
+    the rows on a real table (not a decode step's padding rows, nor an MoE
+    first chunk's replayed lanes) and the non-pad tokens; pad positions
+    drop slots too, and are left out. ``decode_steps`` and
+    ``decode_seconds`` advance once per decode dispatch."""
     cfg = _cfg(capacity_factor=0.5)
     seen = {"drops": 0, "all": 0, "calls": 0}
 
@@ -202,7 +201,8 @@ def test_engine_counts_moe_drops_and_decode_steps(params, monkeypatch):
             # (tokens, cache) but decode_step's (cache, token)
             tokens, cache = ((y, x) if fn is decode_step
                              else (x, k.get("cache", y)))
-            rows = len(cache["pos"])
+            # the rows on a real table: no padding row, no replayed lane
+            rows = int((cache["tables"][:, 0] != b._null_block).sum())
             drops = out[-1]["token_drops"]
             assert int(drops.sum()) == int(out[-1]["dropped_slots"])
             seen["all"] += int(drops.sum())
@@ -239,13 +239,14 @@ def test_engine_counts_moe_drops_and_decode_steps(params, monkeypatch):
 
 
 def test_first_chunk_replays_are_spans_and_counted(params):
-    """First chunks replayed as their graphs (run eagerly here, as the CPU
-    tests fill them): each replay is a ``backend.replay`` span inside
-    ``backend.prefill`` and one ``prefill_graph_dispatches``, here every
-    first chunk's; the replayed engine's tokens and MoE drops are the
-    eager one's, and the eager one counts no replay."""
+    """First chunks on the grid stage into their captured steps inside
+    ``backend.tables`` in ``backend.prefill``, every first chunk here, and
+    run the steps, which the CPU cannot replay: no ``backend.replay`` span
+    and no ``prefill_graph_dispatches`` (a replay is one of each). The
+    staged engine's tokens and MoE drops are those of the eager first
+    chunks, which stage nothing."""
     runs = {}
-    for graphs in (False, True):
+    for staged in (False, True):
         eng = Engine(_cfg(capacity_factor=0.5), params,
                      Scheduler(policy=fcfs(), max_batch=4), cache_len=64,
                      prompt_len=32, allocator=BlockAllocator(64, 16),
@@ -253,9 +254,13 @@ def test_first_chunk_replays_are_spans_and_counted(params):
                      config=ServingConfig(prefill_chunk_tokens=16),
                      device="cpu")
         b = eng.backend
-        if graphs:
-            b._first_graphs = {s: functools.partial(b._first_step, s)
-                               for s in b._first_in}
+        if not staged:             # every first chunk as off the grid
+            b._first_shapes.clear()
+        for step in b._first_shapes.values():
+            def stage(*args, inner=step.stage):
+                with trace.span("test.stage"):
+                    inner(*args)
+            step.stage = stage
         trace.enable()
         eng.submit(_requests())
         fin = eng.run()
@@ -264,10 +269,13 @@ def test_first_chunk_replays_are_spans_and_counted(params):
         trace.reset()
         replays = [s for s in rec if s.name == "backend.replay"
                    and rec[s.parent].name == "backend.prefill"]
-        assert len(replays) == b.prefill_graph_dispatches
-        assert b.prefill_graph_dispatches == (b.prefill_dispatches
-                                              if graphs else 0)
-        runs[graphs] = ({r.req_id: r.generated_tokens for r in fin},
+        stagings = [s for s in rec if s.name == "test.stage"]
+        assert all(rec[s.parent].name == "backend.tables"
+                   and rec[rec[s.parent].parent].name == "backend.prefill"
+                   for s in stagings)
+        assert len(stagings) == (b.prefill_dispatches if staged else 0)
+        assert len(replays) == b.prefill_graph_dispatches == 0
+        runs[staged] = ({r.req_id: r.generated_tokens for r in fin},
                         b.dropped_slots)
     assert runs[True] == runs[False] and runs[True][1] > 0
 
