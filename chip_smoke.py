@@ -80,7 +80,11 @@ failed check raises and the script exits non-zero:
    decode kernel exactly 27 a decode step, all of them replays, the
    prefill kernel exactly 27 a prefill or extend dispatch, no other
    kernel; then each batch bucket's replayed decode step and the eager
-   step timed (rows at position 160). Then
+   step timed (rows at position 160), with the expert rows and routed
+   slots a step adds, and the replay of a 64-token first chunk. Then full
+   ``olmoe_1b_7b`` in the benchmark cell's engine (64 slots, chunks of
+   512), its steps timed the same way: decode buckets 1 to 64 and first
+   chunks of 1 x 512, 8 x 64 and 1 x 8 tokens. Then
    ``whisper_tiny`` at its published widths through ``build(cfg)`` (the
    reference's inference path; neither engine serves the family): f32,
    TF32 off, ``prefill`` and 8 greedy ``decode_step``s on the card against
@@ -1249,13 +1253,13 @@ SERVED = {
 
 
 def make_engine(cfg, params, policy, dev, *, chunk, caching, kv_blocks,
-                cache_len, max_batch=8):
+                cache_len, max_batch=8, prompt_len=128):
     from repro_torch.core.scheduler.scheduler import Scheduler
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.kv_cache import BlockAllocator
 
     return Engine(cfg, params, Scheduler(policy=policy, max_batch=max_batch),
-                  cache_len=cache_len, prompt_len=128,
+                  cache_len=cache_len, prompt_len=prompt_len,
                   allocator=BlockAllocator(kv_blocks, 16),
                   prefill_chunk_tokens=chunk, prefix_caching=caching,
                   record_tokens=True, device=dev)
@@ -1532,7 +1536,9 @@ def phase_serve(dev, arch: str, kernels, idle=(),
             f"{eng.backend.capture_seconds:.2f} s, first chunks' "
             f"{eng.backend.prefill_capture_seconds:.2f} s of it); MoE "
             f"dropped slots "
-            f"{eng.backend.dropped_slots}; scorer failures "
+            f"{eng.backend.dropped_slots}, expert rows "
+            f"{eng.backend.expert_rows} for {eng.backend.routed_slots} "
+            f"routed slots; scorer failures "
             f"{policy.scorer_failures}, degradations {policy.degradations}")
         problems = []
         if len(fin) != len(reqs):
@@ -1652,7 +1658,8 @@ def phase_mla_serve(dev, idle) -> dict:
         f"{be.prefix_installs}; latent rows expanded "
         f"{be.latent_rows_expanded}; decode {be.decode_steps} steps, "
         f"{be.decode_graph_steps} of them replays padded by "
-        f"{be.decode_pad_rows} rows; MoE dropped slots {be.dropped_slots}")
+        f"{be.decode_pad_rows} rows; MoE dropped slots {be.dropped_slots}, "
+        f"expert rows {be.expert_rows} for {be.routed_slots} routed slots")
     problems = []
     if counts != want:
         problems.append(f"launches {counts}, expected {want}")
@@ -1679,26 +1686,92 @@ def phase_mla_serve(dev, idle) -> dict:
         raise AssertionError(f"serving {arch}: {problems}")
 
     if dev.type == "cuda":
-        position = 160
-        per = -(-(position + 1) // 16)
-        steps = []
-        for b in (1, 8, 16, 32, 56, 64):
-            step = be._decode_shapes[b]
-            if step.graph is None:
-                raise AssertionError(f"decode bucket {b} holds no graph")
-            step.stage([list(range(j * per, (j + 1) * per))
-                        + [be._null_block] * (step.nb - per)
-                        for j in range(b)], [[position] * b])
-            steps.append({"rows": b, "position": position,
-                          "replay_ms": cuda_ms(step.run, iters=10),
-                          "eager_ms": cuda_ms(lambda: step.forward(step),
-                                              iters=3, warmup=1)})
-            log(f"  decode step, {b} rows at position {position}: replay "
-                f"{steps[-1]['replay_ms']:.2f} ms, eager "
-                f"{steps[-1]['eager_ms']:.2f} ms")
+        time_steps(be, cfg, first=((1, 64),))
     del params, predictor, eng, fin, be
     free_memory()
     return {k: v for k, v in counts.items() if v}
+
+
+def time_steps(be, cfg, buckets=(1, 8, 16, 32, 56, 64), position=160,
+               first=((1, 512), (8, 64), (1, 8))) -> dict:
+    """A warmed MoE backend's captured steps timed with CUDA events: each
+    decode bucket of ``buckets``, rows at ``position`` on blocks of their
+    own, replayed and eager, with the expert rows and routed slots that a
+    step adds to ``expert_rows`` and ``routed_slots`` (their ratio the
+    expert rows' use); then the replay of each first-chunk shape of
+    ``first`` on the grid, every lane on blocks of its own and every token
+    real."""
+    from repro_torch.configs.latent import dense_layers
+    from repro_torch.models.moe import expert_rows, groups_of
+
+    moe = cfg.moe
+    layers = cfg.num_layers - dense_layers(cfg)
+    per = -(-(position + 1) // 16)
+    out = {"decode": [], "first": []}
+    for b in buckets:
+        step = be._decode_shapes[b]
+        if step.graph is None:
+            raise AssertionError(f"decode bucket {b} holds no graph")
+        step.stage([list(range(j * per, (j + 1) * per))
+                    + [be._null_block] * (step.nb - per)
+                    for j in range(b)], [[position] * b])
+        rows = layers * expert_rows(*groups_of(b, 1, moe, True), moe)
+        slots = layers * moe.top_k * b
+        out["decode"].append({
+            "rows": b, "position": position,
+            "replay_ms": cuda_ms(step.run, iters=10),
+            "eager_ms": cuda_ms(lambda: step.forward(step), iters=3,
+                                warmup=1),
+            "expert_rows": rows, "routed_slots": slots})
+        log(f"  decode step, {b} rows at position {position}: replay "
+            f"{out['decode'][-1]['replay_ms']:.2f} ms, eager "
+            f"{out['decode'][-1]['eager_ms']:.2f} ms; expert rows {rows} "
+            f"for {slots} routed slots (use {slots / rows:.4f})")
+    gen = torch.Generator(device=be.device).manual_seed(SEED)
+    for lanes, width in first:
+        step = be._first_shapes.get((lanes, width))
+        if step is None or step.graph is None:
+            raise AssertionError(f"first-chunk shape {(lanes, width)} holds "
+                                 f"no graph")
+        tokens = torch.randint(1, cfg.vocab_size, (lanes, width),
+                               generator=gen, device=be.device)
+        step.stage([list(range(j * step.nb, (j + 1) * step.nb))
+                    for j in range(lanes)],
+                   [[width] * lanes, list(range(lanes))],
+                   tokens.cpu().numpy())
+        out["first"].append({"lanes": lanes, "tokens": width,
+                             "replay_ms": cuda_ms(step.run, iters=10)})
+        log(f"  first chunk, {lanes} x {width} tokens: replay "
+            f"{out['first'][-1]['replay_ms']:.2f} ms")
+    return out
+
+
+def phase_moe_steps(dev) -> dict:
+    """Full ``olmoe_1b_7b`` (16 layers, 64 experts, bf16) in the benchmark
+    cell's engine (64 slots, prompts of up to 1,024 tokens, 2,048
+    positions, 8,192 blocks of 16, chunks of 512, prefix caching), its
+    decode buckets and first-chunk shapes captured: each step timed by
+    :func:`time_steps`."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler.policies import fcfs
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_config("olmoe_1b_7b")
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, SEED, device=dev)
+    eng = make_engine(cfg, params, fcfs(), dev, chunk=512, caching=True,
+                      kv_blocks=8192, cache_len=2048, max_batch=64,
+                      prompt_len=1024)
+    eng.warmup()
+    torch.cuda.synchronize()
+    be = eng.backend
+    log(f"  olmoe_1b_7b: init and captures {time.perf_counter() - t0:.1f} s "
+        f"(captures {be.capture_seconds:.2f} s, first chunks' "
+        f"{be.prefill_capture_seconds:.2f} s of it)")
+    out = time_steps(be, cfg)
+    del params, eng, be
+    free_memory()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2841,6 +2914,9 @@ def main() -> int:
         f"(at {time.perf_counter() - t_start:.1f} s)")
     served["moonlight_16b_a3b"] = phase_mla_serve(
         dev, tuple(k for k in everything if k is not flash_attention))
+    log(f"== phase 4: olmoe_1b_7b's captured steps timed "
+        f"(at {time.perf_counter() - t_start:.1f} s)")
+    phase_moe_steps(dev)
     log(f"== phase 4: whisper_tiny through build() "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     whisper = phase_whisper(dev, everything)

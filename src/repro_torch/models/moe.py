@@ -11,11 +11,15 @@ output depends on every other token of its group.
 
 The reference builds ``(G, T, E, C)`` one-hot dispatch and combine tensors
 and contracts them with einsums. The port computes the same function by
-index: each kept slot's token is copied into row ``pos`` of its expert's
-``G * C`` rows, one batched product per projection runs every expert over
-its rows (rows that no token took stay zero, as the reference's empty
-capacity does), and each token sums its kept slots' outputs weighted by
-their gates. These are plain large products, outside any kernel in both.
+index: each kept slot's token is copied into row ``pos`` of its (expert,
+group) block of ``min(C, tg)`` rows, one batched product per projection
+runs every expert over its rows (rows that no token took stay zero, as the
+reference's empty capacity does), and each token sums its kept slots'
+outputs weighted by their gates. The width is exact: a token's k choices
+are distinct, so a group of ``tg`` tokens sends an expert at most ``tg``
+slots and ``pos < tg`` always (a one-token decode group fills one row per
+expert, not C). These are plain large products, outside any kernel in
+both.
 
 The router is the reference's softmax over the experts, or, with
 :class:`SigmoidRouting` (DeepSeek-V3's ``noaux_tc`` in one group,
@@ -91,6 +95,27 @@ def _capacity(group_size: int, moe: MoEConfig) -> int:
     return max(8, -(-c // 8) * 8)  # round up to multiple of 8, min 8
 
 
+def groups_of(b: int, s: int, moe: MoEConfig,
+              per_row: bool = False) -> Tuple[int, int]:
+    """``(tg, g)``: the group size and the number of groups of a dispatch
+    of ``b`` rows of ``s`` tokens (``per_row``: each row a dispatch of its
+    own)."""
+    tg = min(moe.group_size, s if per_row else b * s)
+    return tg, b * s // tg
+
+
+def _width(tg: int, moe: MoEConfig) -> int:
+    """The expert rows of each (expert, group) of ``tg`` tokens: ``min(C,
+    tg)``, since no expert takes more slots than the group has tokens."""
+    return min(_capacity(tg, moe), tg)
+
+
+def expert_rows(tg: int, g: int, moe: MoEConfig) -> int:
+    """The expert rows that a dispatch of ``g`` groups of ``tg`` tokens lays
+    out and runs every projection over, all experts together."""
+    return moe.num_experts * g * _width(tg, moe)
+
+
 def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
               per_row: bool = False,
               routing: Optional[SigmoidRouting] = None
@@ -117,10 +142,9 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
     ``(G, E, C, d)`` layout."""
     b, s, d = x.shape
     tokens = s if per_row else b * s
-    tg = min(moe.group_size, tokens)
+    tg, g = groups_of(b, s, moe, per_row)
     if tokens % tg:
         raise ValueError(f"tokens={tokens} not divisible by group={tg}")
-    g = b * s // tg
     e = moe.num_experts
     xg = with_sharding(x.reshape(g, tg, d), ("moe_group_dp", None, None))
     weights = (p["router"], p["w_up"], p.get("w_gate"), p["w_down"])
@@ -220,6 +244,7 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
     g, tg, d = xg.shape
     e, k = moe.num_experts, moe.top_k
     cap = _capacity(tg, moe)
+    width = _width(tg, moe)
     dev = xg.device
 
     with trace.span("moe.router"):
@@ -247,17 +272,18 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
         pos = ((onehot.cumsum(1) - 1) * onehot).sum(-1)  # place in expert
         keep = pos < cap
         here = keep & (expert >= first) & (expert < first + experts)
-        # row of each kept slot in the (experts, G*C) expert rows; dropped
-        # slots and other ranks' experts point at one spare row past the
-        # end, zero in the output
+        # row of each kept slot in the (experts, G*width) expert rows (pos
+        # < min(cap, tg): the capacity decides drops, the width the
+        # layout); dropped slots and other ranks' experts point at one
+        # spare row past the end, zero in the output
         group = torch.arange(g, device=dev)[:, None]
-        row = torch.where(here, ((expert - first) * g + group) * cap + pos,
-                          experts * g * cap)
+        row = torch.where(here, ((expert - first) * g + group) * width + pos,
+                          experts * g * width)
         token = group * tg + torch.arange(tg, device=dev).repeat(k)[None]
     with trace.span("moe.dispatch"):
-        xe = xg.new_zeros(experts * g * cap + 1, d)
+        xe = xg.new_zeros(experts * g * width + 1, d)
         xe[row.reshape(-1)] = xg.reshape(-1, d)[token.reshape(-1)]
-        xe = xe[:-1].view(experts, g * cap, d)
+        xe = xe[:-1].view(experts, g * width, d)
     with trace.span("moe.experts"):
         up = torch.bmm(xe, w_up)
         gate = torch.bmm(xe, w_gate) if w_gate is not None else None

@@ -91,7 +91,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.configs.base import AUDIO, MOE, ModelConfig
-from repro_torch.configs.latent import is_latent
+from repro_torch.configs.latent import dense_layers, is_latent
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
@@ -101,6 +101,7 @@ from repro_torch.kernels.flash_decode.ops import (latent_decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_prefill.ops import flash_attention
 from repro_torch.models import transformer as tfm
+from repro_torch.models.moe import expert_rows, groups_of
 from repro_torch.serving.config import ServingConfig, resolve_config
 from repro_torch.serving.core import PrefillChunk, ServingCore, WallClock
 from repro_torch.serving.kv_cache import (UNBOUNDED_BLOCKS, BlockAllocator,
@@ -321,6 +322,10 @@ class RealBackend:
         self.decode_seconds = 0.0     # their wall time, timed as prefill's
         self.decode_graph_steps = 0   # decode steps served by a graph replay
         self.decode_pad_rows = 0      # padding rows the decode steps ran
+        # MoE expert rows the dispatches' products ran and the real
+        # positions' slots routed to them, summed over MoE layers
+        self.expert_rows = 0
+        self.routed_slots = 0
         self.prefill_graph_dispatches = 0  # first chunks served by a replay
         self.capture_seconds = 0.0    # wall time of warmup's captures
         self.prefill_capture_seconds = 0.0  # the first-chunk graphs' part
@@ -605,6 +610,19 @@ class RealBackend:
                              < lengths[:, None])
         self._dropped = self._dropped + drops.sum()
 
+    def _count_rows(self, b: int, s: int, per_row: bool, real: int) -> None:
+        """Add an MoE dispatch of ``b`` rows of ``s`` tokens (padding
+        included) to ``expert_rows``, and ``real`` positions' slots to
+        ``routed_slots``, in every MoE layer: counted from the shape on the
+        host, since a replay runs no Python."""
+        moe = self.cfg.moe
+        if moe is None:
+            return
+        layers = self.cfg.num_layers - dense_layers(self.cfg)
+        self.expert_rows += layers * expert_rows(
+            *groups_of(b, s, moe, per_row), moe)
+        self.routed_slots += layers * moe.top_k * real
+
     @property
     def dropped_slots(self) -> int:
         """MoE token-slots of real prompt and output positions dropped at
@@ -716,6 +734,7 @@ class RealBackend:
                     tokens[j, :len(ids)] = ids      # tail = pad token 0
                     lengths.append(len(ids))
                 tokens[n:] = tokens[0]
+                real = sum(lengths)
                 slots = [self._slot_of[r.req_id] for r in group]
                 if step is not None:
                     step.stage([self._table(r, step.nb) for r in group],
@@ -736,6 +755,7 @@ class RealBackend:
                                                  tokens, cache=cache)
                 logits, drops = logits[:, -1], aux.get("token_drops")
             self._count_drops(drops, n, lengths)
+            self._count_rows(lanes, bucket_len, False, real)
             with trace.span("backend.sample"):
                 self.slot_tokens[slots] = self._sample(logits[:n])
             self.prefill_dispatches += 1
@@ -765,6 +785,7 @@ class RealBackend:
             logits, _, aux = tfm.forward_chunk(self.params, self.cfg, tokens,
                                                cache)
             self._count_drops(aux.get("token_drops"), len(group), lengths)
+            self._count_rows(len(group), chunk_len, True, sum(lengths))
             with trace.span("backend.sample"):
                 nxt = self._sample(logits[:, -1])
                 # mid-prompt samples are meaningless: only completing chunks
@@ -837,6 +858,7 @@ class RealBackend:
                                              tokens)
             drops = aux.get("token_drops")
         self._count_drops(drops, n)
+        self._count_rows(step.rows if self.paged else n, 1, True, n)
         with trace.span("backend.sample"):
             self.slot_tokens[active] = self._sample(logits[:n])
         with trace.span("backend.sync"):

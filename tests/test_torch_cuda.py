@@ -25,7 +25,11 @@ graph's replay equal to the eager step bitwise; an MoE first chunk's graph
 shape of its grid, its padding lanes writing the null block alone, a warmed
 engine's burst (first chunks replayed, each replay a span) equal to an
 unwarmed one's, one shape staged twice in one unbucketed prefill, and no
-collection during those captures; the prefill kernel without the causal mask and ring decode over
+collection during those captures; an MoE decode step's replay at buckets
+1, 8 and 64 equal to the eager step, whose expert products run one row
+an expert a row, and a served window's ``expert_rows``, ``routed_slots``
+and MoE drops as counted from its shapes and from capacity-wide rows;
+the prefill kernel without the causal mask and ring decode over
 encoder lanes equal unmasked attention; Whisper through ``build()`` gives
 the CPU's logits with exact launch counts; the hybrid, SSM and
 encoder-decoder families' train steps equal the CPU's.
@@ -1035,3 +1039,147 @@ def test_no_collection_runs_during_a_first_chunk_capture(cuda):
     assert seen.count((True, False)) == len(be._first_shapes)
     assert (True, True) not in seen and True not in collections
     assert gc.isenabled()
+
+
+# ---------------------------------------------------------------------------
+# Expert rows sized to the group (MoE decode: one row an expert)
+# ---------------------------------------------------------------------------
+def _moe_rows(monkeypatch, seen):
+    """Note in ``seen`` the rows of each eager MoE dispatch's first expert
+    product (a replay runs no Python, so it notes nothing)."""
+    apply_moe, bmm = tfm.apply_moe, torch.bmm
+
+    def spied(p, x, moe_cfg, act, *, per_row=False, routing=None):
+        rows = []
+        monkeypatch.setattr(torch, "bmm", lambda a, b: rows.append(
+            a.shape[0] * a.shape[1]) or bmm(a, b))
+        try:
+            return apply_moe(p, x, moe_cfg, act, per_row=per_row,
+                             routing=routing)
+        finally:
+            monkeypatch.setattr(torch, "bmm", bmm)
+            seen.append(rows[0])
+    monkeypatch.setattr(tfm, "apply_moe", spied)
+
+
+def _moe_layers(cfg):
+    return cfg.num_layers - getattr(cfg, "first_k_dense", 0)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonlight_16b_a3b"])
+def test_moe_decode_replay_at_buckets_to_64_is_the_eager_step(
+        cuda, arch, monkeypatch):
+    """64 decode-ready rows of the OLMoE smoke model (f32) or Moonlight's
+    two-layer card model (bf16): at buckets 1, 8 and 64 of ``max_batch``
+    64, the replay gives the logits, greedy tokens and MoE drops of the
+    same bucket's step run eagerly, bit for bit, and the eager step's
+    expert products run E rows a MoE layer for each row of the bucket (one
+    row an expert, not the capacity's 8)."""
+    cfg, params = _first_chunk_model(arch, cuda)
+    eng = _graph_engine(cfg, params, cuda, max_batch=64)
+    be = eng.backend
+    eng.warmup()
+    assert sorted(_captured(be._decode_shapes)) == decode_buckets(64)
+    eng.submit([Request(i, _words(3 + i % 13, f"b{i}"), 0.0, 32, 9)
+                for i in range(64)])
+    eng.core.tick()
+    active = [i for i, r in enumerate(be.slot_req) if r is not None]
+    reqs = [be.slot_req[i] for i in active]
+    assert len(reqs) == 64
+    pools = [p.clone() for p in be._pools().values()]
+    real = slice(0, be._null_block)
+    seen = []
+    _moe_rows(monkeypatch, seen)
+    for b in (1, 8, 64):
+        out = {}
+        for how in ("eager", "graph"):
+            for p, saved in zip(be._pools().values(), pools):
+                p.copy_(saved)
+            step = _stage_decode(be, reqs[:b], active[:b], b)
+            seen.clear()
+            logits, drops = (step.forward(step) if how == "eager"
+                             else step.run())
+            torch.cuda.synchronize()
+            assert seen == ([cfg.moe.num_experts * b] * _moe_layers(cfg)
+                            if how == "eager" else [])
+            out[how] = (logits.clone(), logits.argmax(-1), drops.clone(),
+                        *(p[:, real].clone() for p in be._pools().values()))
+        for e, g in zip(out["eager"], out["graph"]):
+            assert torch.equal(e, g), b
+
+
+# The MoE drops of ``_served_window`` (seed 0) as the engine counted them
+# on an H100 with every group's expert rows as wide as its capacity (8 a
+# decode row). Moonlight's card model (8 experts, top 6) has capacity 64
+# at 64 tokens a group, so its first chunks drop nothing either.
+WINDOW_DROPS = {"olmoe_1b_7b": 153, "moonlight_16b_a3b": 0}
+
+
+def _served_window(cfg, params, device):
+    """A warmed engine (8 slots, chunks of 64) serves a 14-request burst of
+    prompts up to 64 tokens, every first chunk and decode step replayed.
+    Returns the engine, the finished requests and, from spies on the
+    stagings and on ``forward_chunk``, the decode steps' bucket rows, the
+    first chunks' (lanes, tokens) and the continuation chunks' (rows,
+    tokens)."""
+    eng = _first_chunk_engine(cfg, params, device)
+    be = eng.backend
+    eng.warmup()
+    decode, first, chunks = [], [], []
+    for shapes, seen in ((be._decode_shapes, decode),
+                         (be._first_shapes, first)):
+        for step in shapes.values():
+            def stage(tables, cols, tokens=None, step=step, seen=seen,
+                      inner=step.stage):
+                seen.append(step.rows if seen is decode
+                            else tuple(step.tokens.shape))
+                inner(tables, cols, tokens)
+            step.stage = stage
+    forward_chunk = tfm.forward_chunk
+
+    def spied(params, cfg, tokens, cache, **kw):
+        chunks.append(tuple(tokens.shape))
+        return forward_chunk(params, cfg, tokens, cache, **kw)
+    tfm.forward_chunk = spied
+    try:
+        eng.submit([Request(i, _words(4 + 5 * i, f"w{i}"), 0.0, 64,
+                            3 + i % 5) for i in range(14)])
+        fin = eng.run()
+    finally:
+        tfm.forward_chunk = forward_chunk
+    assert len(fin) == 14
+    assert be.decode_graph_steps == be.decode_steps == len(decode)
+    assert be.prefill_graph_dispatches == be.prefill_dispatches == len(first)
+    return eng, fin, decode, first, chunks
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonlight_16b_a3b"])
+def test_served_window_counts_expert_rows_and_keeps_its_drops(cuda, arch):
+    """Over a served window, ``expert_rows`` is E x bucket rows for each
+    replayed decode step, and E x groups x min(C, tokens a group) for each
+    first chunk (and continuation chunk, each row a dispatch), in every
+    MoE layer; ``routed_slots`` is k for every real prompt and output
+    position in every MoE layer; the MoE drops are those counted with
+    capacity-wide rows: a one-token group drops nothing at either width,
+    and first chunks keep their width."""
+    cfg, params = _first_chunk_model(arch, cuda)
+    eng, fin, decode, first, chunks = _served_window(cfg, params, cuda)
+    be = eng.backend
+    moe = cfg.moe
+    e, k = moe.num_experts, moe.top_k
+
+    def rows(groups, tg):       # E x groups x min(capacity, tg)
+        cap = max(8, -(-int(tg * k * moe.capacity_factor / e) // 8) * 8)
+        return e * groups * min(cap, tg)
+    want = sum(rows(1, 1) * b for b in decode)
+    for lanes, width in first:
+        tg = min(moe.group_size, lanes * width)
+        want += rows(lanes * width // tg, tg)
+    for b, s in chunks:
+        tg = min(moe.group_size, s)
+        want += rows(b * s // tg, tg)
+    layers = _moe_layers(cfg)
+    assert be.expert_rows == layers * want
+    assert be.routed_slots == layers * k * sum(
+        len(be._prompt_ids(r)) + r.true_length - 1 for r in fin)
+    assert be.dropped_slots == WINDOW_DROPS[arch]

@@ -4,7 +4,9 @@ model.
 Bridged reference weights, seeded numpy inputs, f32 with JAX at "highest"
 matmul precision: ``apply_moe`` (outputs, both auxiliary losses, dropped
 slots at the published capacity factor 1.25, top-k ties, each row routed
-alone as the reference engine's ``vmap`` does), ``apply_mrope``;
+alone as the reference engine's ``vmap`` does; rows of 1 to 64 tokens,
+softmax and sigmoid routers, laid out ``min(C, tg)`` expert rows a group
+against capacity-wide rows), ``apply_mrope``;
 ``forward_seq``, ``forward_chunk`` and ``decode_step`` logits at 1e-4 for
 the ``olmoe_1b_7b``, ``moonshot_v1_16b_a3b`` (shared expert),
 ``kimi_k2_1t_a32b`` and ``qwen2_vl_72b`` smoke configs, every lane of a
@@ -102,6 +104,108 @@ def test_apply_moe_per_row_is_the_reference_under_vmap():
     assert aux["dropped_slots"].item() > 0
     batched, _ = moe.apply_moe(p, _t(x), m, "silu")
     assert not np.allclose(batched.numpy(), y.numpy(), atol=1e-3)
+
+
+def _cap_wide(x, p, m, act, idx, gates):
+    """The reference's layout, written out: per group (G, T, d), a (T, E, C)
+    one-hot dispatch of capacity C = the reference's ``_capacity``, slot
+    positions counted slot-major, a slot at C or later dropped; in f64.
+    ``idx``/``gates`` (G, T, k) are the router's choices. Returns ``(y (G,
+    T, d), drops of each token (G, T))``."""
+    g, t, _ = x.shape
+    e, k = m.num_experts, m.top_k
+    cap = jmoe._capacity(t, m)
+    x = x.double()
+    dispatch = torch.zeros(g, t, e, cap, dtype=torch.float64)
+    combine = torch.zeros_like(dispatch)
+    drops = torch.zeros(g, t, dtype=torch.int64)
+    for gi in range(g):
+        counts = [0] * e
+        for j in range(k):
+            for ti in range(t):
+                ex = int(idx[gi, ti, j])
+                if counts[ex] < cap:
+                    dispatch[gi, ti, ex, counts[ex]] = 1.0
+                    combine[gi, ti, ex, counts[ex]] = float(gates[gi, ti, j])
+                else:
+                    drops[gi, ti] += 1
+                counts[ex] += 1
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, x)
+    up = torch.einsum("gecd,edf->gecf", xe, p["w_up"].double())
+    gate = (torch.einsum("gecd,edf->gecf", xe, p["w_gate"].double())
+            if "w_gate" in p else None)
+    ye = torch.einsum("gecf,efd->gecd", common.activate(up, gate, act),
+                      p["w_down"].double())
+    return torch.einsum("gtec,gecd->gtd", combine, ye), drops
+
+
+def _sigmoid_choice(x, p, m, scale):
+    """DeepSeek-V3's sigmoid router in f64: the top k of score plus bias
+    (ties to the lower index), gates normalised over the k, scaled."""
+    scores = torch.sigmoid(x.double() @ p["router"].double())
+    order = torch.sort(scores + p["router_bias"].double(), dim=-1,
+                       descending=True, stable=True).indices[..., :m.top_k]
+    gates = scores.gather(-1, order)
+    return order, gates / gates.sum(-1, keepdim=True) * scale
+
+
+@pytest.mark.parametrize("tg,router,e,k,cf", [
+    (1, "softmax", 4, 2, 1.25),     # a decode row: one row per expert
+    (3, "softmax", 4, 2, 1.25),     # a short continuation chunk
+    (8, "softmax", 4, 2, 1.25),     # min(C, tg) = C = tg
+    (64, "softmax", 4, 2, 1.25),    # C = 40 < tg: the width is C, drops
+    (1, "sigmoid", 16, 4, 1.25),
+    (3, "sigmoid", 16, 4, 1.25),
+    (8, "sigmoid", 16, 4, 1.25),
+    (64, "sigmoid", 16, 4, 1.25),   # C = 24 < tg
+    (8, "softmax", 4, 2, 4.0),      # k * cf > E: C = 16 > tg
+])
+def test_per_row_expert_rows_fit_the_group(tg, router, e, k, cf,
+                                           monkeypatch):
+    """Four rows of ``tg`` tokens, each a dispatch of its own, laid out
+    ``min(C, tg)`` rows per (expert, group): the outputs are the
+    reference's under ``vmap`` (softmax) or a C-wide one-hot dispatch
+    (sigmoid), and the drops of each token exactly those of C-wide rows,
+    computed from the reference's routing; the expert products run, and
+    ``expert_rows`` counts, E x groups x min(C, tg) rows."""
+    jm = JaxMoEConfig(e, k, 32, cf, 64)
+    m = MoEConfig(e, k, 32, cf, 64)
+    x = _skewed(4, tg, seed=tg + e)
+    if router == "softmax":
+        jp = jmoe.init_moe(jax.random.PRNGKey(tg), 64, jm, "silu",
+                           jnp.float32)
+        p = {n: _t(v) for n, v in jp.items()}
+        routing = None
+        jy = jax.vmap(lambda r: jmoe.apply_moe(jp, r[None], jm, "silu")[0][0])(
+            jnp.asarray(x))
+        logits = jnp.einsum("btd,de->bte", jnp.asarray(x), jp["router"],
+                            precision="highest")
+        jg, ji = jax.lax.top_k(jax.nn.softmax(logits, -1), k)
+        _, want_drops = _cap_wide(_t(x), p, m, "silu", _t(ji).long(), _t(jg))
+        want = torch.from_numpy(np.array(jy)).double()
+    else:
+        gen = torch.Generator().manual_seed(tg)
+        p = {n: v[0] for n, v in moe.init_moe(gen, 64, m, "silu",
+                                              torch.float32, 1,
+                                              router_bias=True).items()}
+        p["router_bias"] = torch.randn(e, generator=gen) * 0.1
+        routing = moe.SigmoidRouting(2.446)
+        idx, gates = _sigmoid_choice(_t(x), p, m, routing.routed_scaling_factor)
+        want, want_drops = _cap_wide(_t(x), p, m, "silu", idx, gates)
+    rows, bmm = [], torch.bmm
+    monkeypatch.setattr(torch, "bmm", lambda a, b: rows.append(
+        a.shape[0] * a.shape[1]) or bmm(a, b))
+    y, aux = moe.apply_moe(p, _t(x), m, "silu", per_row=True, routing=routing)
+    monkeypatch.undo()
+    np.testing.assert_allclose(y.double().numpy(), want.numpy(), atol=1e-5,
+                               rtol=1e-5)
+    assert torch.equal(aux["token_drops"].long(), want_drops)
+    assert aux["dropped_slots"].item() == int(want_drops.sum())
+    assert (int(want_drops.sum()) > 0) == (tg == 64)
+    cap = jmoe._capacity(tg, jm)
+    assert moe.groups_of(4, tg, m, per_row=True) == (tg, 4)
+    assert moe.expert_rows(tg, 4, m) == e * 4 * min(cap, tg)
+    assert rows == [e * 4 * min(cap, tg)] * 3       # up, gate, down
 
 
 def test_apply_moe_refuses_a_group_that_does_not_divide():

@@ -14,9 +14,11 @@ rows writing the null block alone, contiguous lanes' tokens, the
 counters), dense and MoE; an MoE first chunk staged as its graph holds it
 (the grid of shapes, padding lanes on the all-null table keeping the real
 lanes' logits, K/V and drops, C3's dispatch included, the eager first
-chunks' tokens, the counters); and the launchers (the MoE smoke
-config trains with its auxiliary losses; ``--full`` refuses what fits no
-device). The model half is in ``test_torch_moe.py``.
+chunks' tokens, the counters); ``expert_rows`` and ``routed_slots``
+against the rows the products ran and the real positions; and the
+launchers (the MoE smoke config trains with its auxiliary losses;
+``--full`` refuses what fits no device). The model half is in
+``test_torch_moe.py``.
 """
 import jax
 import jax.numpy as jnp
@@ -538,6 +540,48 @@ def test_first_chunk_replays_serve_the_eager_tokens(arch, max_batch, chunk):
             assert 0 < len(stagings) < be.prefill_dispatches
     assert runs[True] == runs[False]
     assert len(runs[True][0]) == 9
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonlight_16b_a3b"])
+def test_expert_rows_count_the_rows_the_products_ran(arch, monkeypatch):
+    """A 9-request burst under chunks of 16 (first chunks on the grid,
+    continuation chunks, decode buckets): ``expert_rows`` is the sum of the
+    rows that every MoE dispatch's expert products ran, a decode step's
+    one row an expert for each row of its bucket; ``routed_slots`` is k
+    slots for every real prompt and output position in each MoE layer."""
+    cfg = get_smoke_config(arch).replace(dtype="float32", vocab_size=2048)
+    params = tfm.init_params(cfg, 0, device="cpu")
+    eng = _first_chunk_engine(cfg, params, 4, 16)
+    be = eng.backend
+    buckets = _staged(be._decode_shapes)
+    ran = []                        # (tokens a row, per_row, expert rows)
+    apply_moe, bmm = tfm.apply_moe, torch.bmm
+
+    def spied(p, x, moe_cfg, act, *, per_row=False, routing=None):
+        rows = []
+        monkeypatch.setattr(torch, "bmm", lambda a, b: rows.append(
+            a.shape[0] * a.shape[1]) or bmm(a, b))
+        try:
+            out = apply_moe(p, x, moe_cfg, act, per_row=per_row,
+                            routing=routing)
+        finally:
+            monkeypatch.setattr(torch, "bmm", bmm)
+        ran.append((x.shape[1], per_row, rows[0]))
+        return out
+    monkeypatch.setattr(tfm, "apply_moe", spied)
+    words = [3, 5, 7, 20, 4, 12, 6, 25, 3]
+    eng.submit([Request(i, _words(n, f"x{i}"), 0.0, 32, 3 + i % 4)
+                for i, n in enumerate(words)])
+    fin = eng.run()
+    assert len(fin) == 9 and be.extend_dispatches > 0
+    e, k = cfg.moe.num_experts, cfg.moe.top_k
+    layers = cfg.num_layers - getattr(cfg, "first_k_dense", 0)
+    assert be.expert_rows == sum(rows for *_, rows in ran)
+    decode = [rows for s, per_row, rows in ran if per_row and s == 1]
+    assert len(decode) == layers * be.decode_steps
+    assert sum(decode) == layers * e * sum(b for _, b in buckets)
+    assert be.routed_slots == layers * k * sum(
+        len(be._prompt_ids(r)) + r.true_length - 1 for r in fin)
 
 
 @pytest.mark.parametrize("arch,chunk,shapes", [
