@@ -36,7 +36,12 @@ failed check raises and the script exits non-zero:
    128) instance on first chunks of 1 to 512 tokens and on continuation
    chunks over longer lanes; for each, planted faults (a length one short
    and a wrong scale; a wrong scale and the causal mask one position late)
-   must fall outside the tolerance. Times the kernel, the plain version and, where one exists, one PyTorch
+   must fall outside the tolerance. Kimi K2's: the latent decode kernel's
+   64-head instance at YaRN's scale (0.130861), 1, 16 and 64 rows at
+   positions 159 and 2,047 (a planted fault, the scale without mscale^2,
+   must fall outside), timed at 1, 16 and 64 rows of 160 (row 5a), and
+   the prefill kernel's (192, 128) instance at H = KH = 64 with that
+   scale (row 2e's H 64 entry). Times the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (``library_ms``, timed here
    only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
    ``library_ms``: L2-warm, and at small times partly the host's), and
@@ -81,7 +86,13 @@ failed check raises and the script exits non-zero:
    prefill kernel exactly 27 a prefill or extend dispatch, no other
    kernel; then each batch bucket's replayed decode step and the eager
    step timed (rows at position 160), with the expert rows and routed
-   slots a step adds, and the replay of a 64-token first chunk. Then full
+   slots a step adds, and the replay of a 64-token first chunk. Then
+   ``kimi_k2_instruct``, one H100's share of Kimi K2 (11 layers: 64 heads
+   of MLA with a query low-rank path and YaRN, 48 of 384 experts held;
+   23.41 B in bf16, weights drawn by the benchmark's ``mla_ep``), the
+   same way: the latent decode kernel's 64-head instance exactly 11 a
+   decode step, every decode step and first chunk replayed, and
+   ``held_slots / routed_slots`` and ``expert_rows`` printed. Then full
    ``olmoe_1b_7b`` in the benchmark cell's engine (64 slots, chunks of
    512), its steps timed the same way: decode buckets 1 to 64 and first
    chunks of 1 x 512, 8 x 64 and 1 x 8 tokens. Then
@@ -189,6 +200,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -731,10 +743,11 @@ MLA_QK, MLA_V = 192, 128                   # non-absorbed prefill widths
 MLA_BS, MLA_TABLE = 16, 128                # 16-row blocks, 2,048 positions
 
 
-def _latent_inputs(gen, dev, lengths):
-    """Absorbed queries, a latent pool, tables and lengths as the served
-    path holds them: each row on blocks of its own in shuffled order, the
-    table's other entries on the null block (the pool's last)."""
+def _latent_inputs(gen, dev, lengths, heads=MLA_HEADS):
+    """Absorbed queries (``heads`` of them), a latent pool, tables and
+    lengths as the served path holds them: each row on blocks of its own
+    in shuffled order, the table's other entries on the null block (the
+    pool's last)."""
     bf = torch.bfloat16
     used = [-(-n // MLA_BS) for n in lengths]
     n = sum(used)
@@ -746,8 +759,7 @@ def _latent_inputs(gen, dev, lengths):
     for i, u in enumerate(used):
         tables[i, :u] = perm[at:at + u]
         at += u
-    q = torch.randn(len(lengths), MLA_HEADS, MLA_KD, generator=gen,
-                    device=dev)
+    q = torch.randn(len(lengths), heads, MLA_KD, generator=gen, device=dev)
     return (q.to(bf), pool.to(bf), tables,
             torch.as_tensor(lengths, dtype=torch.int32, device=dev))
 
@@ -761,6 +773,40 @@ def check_fault(name: str, fault, right, tol: float) -> float:
                              f"(max_abs_err {err:.3e})")
     log(f"  {name}: max_abs_err={err:.3e}, outside tol {tol:g}")
     return err
+
+
+def _latent_timings(gen, dev, h: int, scale: float, length: int = 160):
+    """The latent decode kernel at ``h`` heads timed at 1, 16 and 64 rows of
+    ``length`` positions: device-only (L2-warm and cold), back-to-back,
+    the plain version, and the bound. Returns the timings by rows and the
+    64 rows' inputs."""
+    from repro_torch.kernels.flash_decode.ops import (
+        latent_decode_attention, latent_decode_attention_plain)
+
+    timed = {}
+    for b in (1, 16, 64):
+        made = {0: _latent_inputs(gen, dev, [length] * b, h)}
+
+        def call(i, made=made, b=b):
+            if i not in made:
+                made[i] = _latent_inputs(gen, dev, [length] * b, h)
+            return lambda: latent_decode_attention(*made[i], MLA_VD, scale)
+        rows_bytes = b * length * MLA_KD * 2
+        nbytes = (rows_bytes + b * h * (MLA_KD + MLA_VD) * 2
+                  + b * 4 + b * -(-length // MLA_BS) * 4)
+        t = {"rows": b, "length": length}
+        t["device_ms"], t["cold_ms"] = device_times(call, rows_bytes)
+        t["ms"] = cuda_ms(call(0), 200)
+        t["plain_ms"] = cuda_ms(lambda: latent_decode_attention_plain(
+            *made[0], MLA_VD, scale), 10)
+        t["bound_ms"], t["bound_by"] = bound(
+            nbytes, 2 * h * (MLA_KD + MLA_VD) * b * length)
+        log(f"  latent decode H {h} bf16, {b} rows of {length}: device-only "
+            f"{t['device_ms']:.5f} ms warm, {t['cold_ms']:.5f} ms L2-cold; "
+            f"back-to-back {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
+        timed[b] = t
+    return timed, made[0]
 
 
 def phase_latent_decode_kernel(dev) -> dict:
@@ -810,31 +856,7 @@ def phase_latent_decode_kernel(dev) -> dict:
     check_fault("fault: scale 1/sqrt(576)", latent_decode_attention_plain(
         q, pool, tables, lens, MLA_VD, MLA_KD ** -0.5), right, tol)
 
-    timed = {}
-    length = 160
-    for b in (1, 16, 64):
-        made = {0: _latent_inputs(gen, dev, [length] * b)}
-
-        def call(i, made=made, b=b):
-            if i not in made:
-                made[i] = _latent_inputs(gen, dev, [length] * b)
-            return lambda: latent_decode_attention(*made[i], MLA_VD, scale)
-        rows_bytes = b * length * MLA_KD * 2
-        nbytes = (rows_bytes + b * MLA_HEADS * (MLA_KD + MLA_VD) * 2
-                  + b * 4 + b * -(-length // MLA_BS) * 4)
-        t = {"rows": b, "length": length}
-        t["device_ms"], t["cold_ms"] = device_times(call, rows_bytes)
-        t["ms"] = cuda_ms(call(0), 200)
-        t["plain_ms"] = cuda_ms(lambda: latent_decode_attention_plain(
-            *made[0], MLA_VD, scale), 10)
-        t["bound_ms"], t["bound_by"] = bound(
-            nbytes, 2 * MLA_HEADS * (MLA_KD + MLA_VD) * b * length)
-        log(f"  latent decode bf16, {b} rows of {length}: device-only "
-            f"{t['device_ms']:.5f} ms warm, {t['cold_ms']:.5f} ms L2-cold; "
-            f"back-to-back {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms; "
-            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']})")
-        timed[b] = t
-    args64 = made[0]
+    timed, args64 = _latent_timings(gen, dev, MLA_HEADS, scale)
     t = timed[64]
     return {"name": "latent_decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_decode_latent.cu",
@@ -847,20 +869,63 @@ def phase_latent_decode_kernel(dev) -> dict:
             "call": lambda: latent_decode_attention(*args64, MLA_VD, scale)}
 
 
-def phase_prefill_mla_instance(dev) -> dict:
+KIMI_HEADS = 64
+KIMI_SCALE = MLA_QK ** -0.5 * (0.1 * math.log(32.0) + 1.0) ** 2  # 0.130861
+
+
+def phase_latent_decode_kernel_64(dev) -> dict:
+    """The latent decode kernel's 64-head instance (Kimi K2: four M-tiles
+    of 16 heads over the same shared rows) at YaRN's scale in bf16
+    against its plain version at 2e-2: 1, 16 and 64 rows at positions 159
+    and 2,047 (the full table); a planted fault (the scale without
+    mscale^2) must fall outside the tolerance. Timed at 1, 16 and 64 rows
+    of 160 positions as row 5 is. Returns ``h64_*`` keys for the latent
+    kernel's entry."""
+    from repro_torch.kernels.flash_decode.ops import (
+        latent_decode_attention, latent_decode_attention_plain)
+
+    h, scale, tol = KIMI_HEADS, KIMI_SCALE, 2e-2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 64)
+    log(f"latent decode: H={h} rows of {MLA_KD} (V {MLA_VD}) scale "
+        f"{scale:.6f} bs={MLA_BS} max_blocks={MLA_TABLE}")
+
+    def both(args, s=scale):
+        out = latent_decode_attention(*args, MLA_VD, s)
+        torch.cuda.synchronize()
+        return out, latent_decode_attention_plain(*args, MLA_VD, s)
+
+    err = 0.0
+    for b in (1, 16, 64):
+        for position in (159, 2047):
+            args = _latent_inputs(gen, dev, [position + 1] * b, h)
+            out, right = both(args)
+            err = max(err, check_close(
+                f"latent decode H {h}, {b} rows at {position} bf16", out,
+                right, tol))
+    check_fault("fault: the scale without mscale^2",
+                latent_decode_attention_plain(*args, MLA_VD, MLA_QK ** -0.5),
+                right, tol)
+    timed, _ = _latent_timings(gen, dev, h, scale)
+    return {"h64_max_abs_err": err,
+            "h64_by_rows": {str(b): t for b, t in timed.items()}}
+
+
+def phase_prefill_mla_instance(dev, h=MLA_HEADS, scale=None) -> dict:
     """The prefill kernel's (192, 128) instance (MLA's non-absorbed
-    prefill, H = KH = 16, bf16) against its plain version at 2e-2: first
+    prefill, H = KH = ``h``, bf16; the softmax scale ``scale``, or
+    1/sqrt(192)) against its plain version at 2e-2: first
     chunks of 1 to 512 tokens and continuation chunks at per-row offsets
     over longer lanes, as ``forward_chunk`` gathers them; two planted
     faults must fall outside the tolerance (the scale 1/sqrt(128), the
     causal mask one position late). Timed on first chunks of 8 x 128,
     1 x 512 and 4 x 512 beside SDPA. Returns keys for the prefill kernel's
-    entry."""
+    entry (``mla_*``, ``mla_h64_*`` at 64 heads)."""
     from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                        flash_attention_plain)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    h, tol = MLA_HEADS, 2e-2
+    tol = 2e-2
+    key = "mla" if h == MLA_HEADS else f"mla_h{h}"
 
     def inputs(b, sq, skv, starts, lens):
         r = lambda *s: torch.randn(*s, generator=gen, device=dev).to(  # noqa
@@ -871,11 +936,12 @@ def phase_prefill_mla_instance(dev) -> dict:
                 i32(starts), i32(lens))
 
     def both(args):
-        out = flash_attention(*args)
+        out = flash_attention(*args, scale=scale)
         torch.cuda.synchronize()
-        return out, flash_attention_plain(*args)
+        return out, flash_attention_plain(*args, scale=scale)
 
-    log(f"prefill MLA instance: H = KH = {h}, QK {MLA_QK}, V {MLA_V}, bf16")
+    log(f"prefill MLA instance: H = KH = {h}, QK {MLA_QK}, V {MLA_V}, bf16, "
+        f"scale {scale or MLA_QK ** -0.5:.6f}")
     err = 0.0
     for b, s in ((8, 128), (1, 512), (4, 512), (3, 1), (2, 7)):
         err = max(err, check_close(
@@ -891,10 +957,11 @@ def phase_prefill_mla_instance(dev) -> dict:
     q, k, v, qs, kl = args = inputs(8, 128, 128, [0] * 8, [128] * 8)
     _, right = both(args)
     check_fault("fault: scale 1/sqrt(128)", flash_attention_plain(
-        (q.float() * (MLA_QK / MLA_V) ** 0.5).to(q.dtype), k, v, qs, kl),
-        right, tol)
+        (q.float() * (MLA_QK / MLA_V) ** 0.5).to(q.dtype), k, v, qs, kl,
+        scale=scale), right, tol)
     check_fault("fault: the causal mask one position late",
-                flash_attention_plain(q, k, v, qs + 1, kl), right, tol)
+                flash_attention_plain(q, k, v, qs + 1, kl, scale=scale),
+                right, tol)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     timed = []
@@ -908,15 +975,19 @@ def phase_prefill_mla_instance(dev) -> dict:
         nbytes = b * h * s * (2 * MLA_QK + 2 * MLA_V) * 2
         t = {"rows": b, "tokens": s}
         t["device_ms"], t["cold_ms"] = device_times(
-            lambda i: (lambda a=copy(i): flash_attention(*a)), nbytes)
+            lambda i: (lambda a=copy(i): flash_attention(*a, scale=scale)),
+            nbytes)
         t["library_device_ms"], t["library_cold_ms"] = device_times(
             lambda i: (lambda a=copy(i): sdpa(a[0], a[1], a[2],
-                                             is_causal=True)), nbytes)
+                                             is_causal=True, scale=scale)),
+            nbytes)
         a = made[0]
-        t["ms"] = cuda_ms(lambda: flash_attention(*a), 100)
-        t["plain_ms"] = cuda_ms(lambda: flash_attention_plain(*a), 5)
+        t["ms"] = cuda_ms(lambda: flash_attention(*a, scale=scale), 100)
+        t["plain_ms"] = cuda_ms(lambda: flash_attention_plain(
+            *a, scale=scale), 5)
         t["library_ms"] = cuda_ms(lambda: sdpa(a[0], a[1], a[2],
-                                               is_causal=True), 100)
+                                               is_causal=True, scale=scale),
+                                  100)
         t["bound_ms"], t["bound_by"] = bound(
             nbytes, 2 * h * (MLA_QK + MLA_V) * b * s * (s + 1) // 2)
         log(f"  prefill MLA bf16 {b} x {s}: device-only {t['device_ms']:.5f}"
@@ -926,7 +997,8 @@ def phase_prefill_mla_instance(dev) -> dict:
             f"SDPA {t['library_ms']:.4f} ms; bound {t['bound_ms']:.5f} ms "
             f"({t['bound_by']})")
         timed.append(t)
-    return {"flash_attention": {"mla_max_abs_err": err, "mla_timed": timed}}
+    return {"flash_attention": {f"{key}_max_abs_err": err,
+                                f"{key}_timed": timed}}
 
 
 def phase_ring_decode_kernel(dev):
@@ -1249,6 +1321,8 @@ SERVED = {
                      kv_blocks=8 * 12),
     "moonlight_16b_a3b": dict(cache_len=2048, chunk=64, caching=True,
                               kv_blocks=8192),
+    "kimi_k2_instruct": dict(cache_len=2048, chunk=64, caching=True,
+                             kv_blocks=8192),
 }
 
 
@@ -1592,9 +1666,13 @@ def phase_serve(dev, arch: str, kernels, idle=(),
     return launches["pars"]
 
 
-def phase_mla_serve(dev, idle) -> dict:
+def phase_mla_serve(dev, idle, arch="moonlight_16b_a3b") -> dict:
     """Full ``moonlight_16b_a3b`` (27 layers of MLA, layer 0 dense, 26 of
-    sigmoid-routed experts beside shared ones; bf16, 15.96 B) behind a
+    sigmoid-routed experts beside shared ones; bf16, 15.96 B), or
+    ``kimi_k2_instruct`` (one H100's share of Kimi K2: 11 layers of
+    64-head MLA with a query path and YaRN, 48 of 384 experts held; bf16,
+    23.41 B, drawn by the benchmark's ``mla_ep`` in bf16, as
+    ``init_params``'s f32 draws would not fit beside them), behind a
     ``pars_bert_base``-width predictor, in the benchmark cell's engine (64
     slots, 2,048 positions, 8,192 blocks of 16) with chunks of 64 and
     prefix caching, its decode graphs captured: a 16-request burst under
@@ -1604,7 +1682,8 @@ def phase_mla_serve(dev, idle) -> dict:
     decode step (every step a replay), the prefill kernel's exactly once a
     layer a prefill or extend dispatch, and no kernel of ``idle``. Then
     each bucket's replayed step and the eager step, rows at position 160 on
-    blocks of their own, timed with CUDA events. Returns the run's launch
+    blocks of their own, timed with CUDA events; a share of the experts
+    prints ``held_slots / routed_slots``. Returns the run's launch
     counts."""
     from repro_torch.configs import get_config
     from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
@@ -1614,10 +1693,13 @@ def phase_mla_serve(dev, idle) -> dict:
     from repro_torch.kernels.flash_prefill.ops import flash_attention
     from repro_torch.models import transformer as tfm
 
-    arch = "moonlight_16b_a3b"
     cfg = get_config(arch)
     t0 = time.perf_counter()
-    params = tfm.init_params(cfg, SEED, device=dev)
+    if getattr(cfg, "experts_held", 0):
+        from bench.harness import spec
+        params = spec.arch("mla_ep").make_params(cfg, SEED, dev)
+    else:
+        params = tfm.init_params(cfg, SEED, device=dev)
     predictor = RankingPredictor.init(PRED_CONFIG, SEED, device=dev)
     policy = make_policy("pars", predictor)
     eng = make_engine(cfg, params, policy, dev, max_batch=64, **SERVED[arch])
@@ -1659,7 +1741,9 @@ def phase_mla_serve(dev, idle) -> dict:
         f"{be.latent_rows_expanded}; decode {be.decode_steps} steps, "
         f"{be.decode_graph_steps} of them replays padded by "
         f"{be.decode_pad_rows} rows; MoE dropped slots {be.dropped_slots}, "
-        f"expert rows {be.expert_rows} for {be.routed_slots} routed slots")
+        f"expert rows {be.expert_rows} for {be.routed_slots} routed slots, "
+        f"held_slots / routed_slots {be.held_slots} / {be.routed_slots} = "
+        f"{be.held_slots / max(be.routed_slots, 1):.4f}")
     problems = []
     if counts != want:
         problems.append(f"launches {counts}, expected {want}")
@@ -1701,7 +1785,7 @@ def time_steps(be, cfg, buckets=(1, 8, 16, 32, 56, 64), position=160,
     expert rows' use); then the replay of each first-chunk shape of
     ``first`` on the grid, every lane on blocks of its own and every token
     real."""
-    from repro_torch.configs.latent import dense_layers
+    from repro_torch.configs.latent import dense_layers, experts_held
     from repro_torch.models.moe import expert_rows, groups_of
 
     moe = cfg.moe
@@ -1715,7 +1799,8 @@ def time_steps(be, cfg, buckets=(1, 8, 16, 32, 56, 64), position=160,
         step.stage([list(range(j * per, (j + 1) * per))
                     + [be._null_block] * (step.nb - per)
                     for j in range(b)], [[position] * b])
-        rows = layers * expert_rows(*groups_of(b, 1, moe, True), moe)
+        rows = layers * expert_rows(*groups_of(b, 1, moe, True), moe,
+                                    experts_held(cfg))
         slots = layers * moe.top_k * b
         out["decode"].append({
             "rows": b, "position": position,
@@ -2864,7 +2949,10 @@ def main() -> int:
     for name, keys in phase_whisper_instances(dev).items():
         next(e for e in entries if e["name"] == name).update(keys)
     entries.append(phase_latent_decode_kernel(dev))
-    for name, keys in phase_prefill_mla_instance(dev).items():
+    entries[-1].update(phase_latent_decode_kernel_64(dev))
+    for name, keys in (*phase_prefill_mla_instance(dev).items(),
+                       *phase_prefill_mla_instance(
+                           dev, KIMI_HEADS, KIMI_SCALE).items()):
         next(e for e in entries if e["name"] == name).update(keys)
 
     log(f"== phase 3: parity at full width, 4 layers, f32 "
@@ -2914,6 +3002,11 @@ def main() -> int:
         f"(at {time.perf_counter() - t_start:.1f} s)")
     served["moonlight_16b_a3b"] = phase_mla_serve(
         dev, tuple(k for k in everything if k is not flash_attention))
+    log(f"== phase 4: serving kimi_k2_instruct (one H100's share) under "
+        f"PARS (at {time.perf_counter() - t_start:.1f} s)")
+    served["kimi_k2_instruct"] = phase_mla_serve(
+        dev, tuple(k for k in everything if k is not flash_attention),
+        "kimi_k2_instruct")
     log(f"== phase 4: olmoe_1b_7b's captured steps timed "
         f"(at {time.perf_counter() - t_start:.1f} s)")
     phase_moe_steps(dev)

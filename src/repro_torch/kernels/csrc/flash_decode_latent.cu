@@ -14,7 +14,7 @@
 // 1/sqrt(KD)). bf16 only.
 //
 // Layouts (all contiguous, 16-byte aligned):
-//   q        (B, H, KD)             the absorbed queries, H = 16
+//   q        (B, H, KD)             the absorbed queries, H = 16 or 64
 //   pool     (N, block_size, KD)    one layer of the engine's latent pool
 //   tables   (B, max_blocks) int32  physical block of each logical block
 //   lengths  (B,) int32             valid rows per sequence
@@ -23,11 +23,12 @@
 //            partial (max, sum); unused with one split
 //
 // What bounds it on the H100: bytes, KD * 2 per cached row, read once for
-// all 16 heads, against 3.35 TB/s. The arithmetic, 16 * (KD + VD)
-// multiply-adds a row (30 flops a byte), would hold CUDA cores near the
-// bandwidth line, so both products run on the tensor cores: the 16 heads
-// are exactly the M = 16 of mma.m16n8k16, and a 16-row tile of the pool is
-// the N of S = Q K^T and the K of O = P V. The design:
+// all H heads, against 3.35 TB/s. The arithmetic, H * (KD + VD)
+// multiply-adds a row (30 flops a byte at 16 heads, 121 at 64, against a
+// ridge near 295), would hold CUDA cores near or past the bandwidth line,
+// so both products run on the tensor cores: each 16 heads are exactly the
+// M = 16 of mma.m16n8k16, and a 16-row tile of the pool is the N of
+// S = Q K^T and the K of O = P V. The design:
 //
 // * Split-KV (flash-decoding) as the paged GQA kernel: the grid is
 //   (splits, B), a split a fixed run of `entries_per_split` table entries
@@ -38,19 +39,22 @@
 //   (sequence, head) in split order: no atomics, so aliased tables give
 //   bitwise-equal outputs. With one split the first kernel writes the
 //   output itself.
-// * The queries (16 x KD) and 16-row tiles of the pool sit in shared memory
+// * The queries (H x KD) and 16-row tiles of the pool sit in shared memory
 //   with rows padded to KD + 8 columns (successive rows 4 banks apart, so
 //   ldmatrix reads them without conflicts); the tiles come through a ring
 //   of 4 stages of cp.async 16-byte copies (a 64-row split in flight at
 //   once), rows past the split zero-filled.
-// * Four warps. Each computes the tile's scores S (16 heads x 16 rows) by
-//   itself, KD / 16 k-steps of two m16n8k16 products in two accumulator
-//   chains, operands by ldmatrix; runs the online softmax on the
-//   accumulator fragments (row max and sum by quad shuffles, log2 domain);
-//   rounds P to bf16 in registers, where the accumulator layout is already
-//   the A fragment of P V; and accumulates O over its own 128 of the VD
-//   value columns (16 n-tiles, V read by ldmatrix.trans from the same
-//   tile).
+// * Four warps for each 16 heads (one M-tile): 4 at 16 heads, 16 at 64,
+//   all over the same shared tiles, so that a CTA reads each row once for
+//   every head. Each warp computes its M-tile's scores S (16 heads x 16
+//   rows) by itself, KD / 16 k-steps of two m16n8k16 products in two
+//   accumulator chains, operands by ldmatrix; runs the online softmax on
+//   the accumulator fragments (row max and sum by quad shuffles, log2
+//   domain); rounds P to bf16 in registers, where the accumulator layout
+//   is already the A fragment of P V; and accumulates O over its own 128
+//   of the VD value columns (16 n-tiles, V read by ldmatrix.trans from the
+//   same tile). At 64 heads the CTA holds 150 KB of shared memory and 512
+//   threads, one CTA an SM.
 //
 // lengths[b] == 0 walks the whole table with every row masked: every
 // split's max is the finite NEG_INF, so the result is the uniform average
@@ -71,21 +75,28 @@ using repro_kernels::pack_bf16;
 using repro_kernels::smem_addr;
 using bf16 = __nv_bfloat16;
 
-constexpr int kH = 16;          // heads: the M of m16n8k16
+constexpr int kMH = 16;         // heads of one M-tile: the M of m16n8k16
 constexpr int kKD = 576;        // latent row: kv_lora_rank 512 + rope 64
 constexpr int kVD = 512;        // V: the row's first kv_lora_rank columns
 constexpr int kStride = kKD + 8;  // padded shared-memory row, in elements
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kTileWarps = 4;   // warps of one M-tile, over VD's columns
 constexpr int kTileRows = 16;   // rows per pipeline stage
 constexpr int kStages = 4;
 constexpr int kChunksPerRow = kKD * 2 / 16;
 constexpr int kTileBytes = kTileRows * kStride * 2;
-constexpr int kQBytes = kH * kStride * 2;
-constexpr int kVColsPerWarp = kVD / kWarps;        // 128
+constexpr int kVColsPerWarp = kVD / kTileWarps;    // 128
 constexpr int kNTiles = kVColsPerWarp / 8;         // 16 n-tiles of O
 constexpr float kLog2e = 1.4426950408889634f;
-static_assert(kKD % 32 == 0 && kVD % (16 * kWarps) == 0, "tile shapes");
+static_assert(kKD % 32 == 0 && kVD % (16 * kTileWarps) == 0, "tile shapes");
+
+// The shape of one instance: kMT M-tiles of 16 heads.
+template <int kMT>
+struct Heads {
+  static constexpr int kH = kMH * kMT;
+  static constexpr int kThreads = 32 * kTileWarps * kMT;
+  static constexpr int kQBytes = kH * kStride * 2;
+  static constexpr int kSmem = kQBytes + kStages * kTileBytes;
+};
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
   asm volatile(
@@ -116,7 +127,8 @@ __device__ __forceinline__ int walked_entries(int len, int block_size,
   return n < max_blocks ? n : max_blocks;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int kMT>
+__global__ void __launch_bounds__(Heads<kMT>::kThreads)
 latent_decode_split_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ pool,
                            const int* __restrict__ tables,
@@ -124,12 +136,18 @@ latent_decode_split_kernel(const bf16* __restrict__ q,
                            bf16* __restrict__ out, float* __restrict__ part,
                            int batch, int block_size, int max_blocks,
                            int entries_per_split, float scale_log2) {
+  constexpr int kH = Heads<kMT>::kH;
+  constexpr int kThreads = Heads<kMT>::kThreads;
+  constexpr int kQBytes = Heads<kMT>::kQBytes;
   const int split = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int g = lane >> 2;  // accumulator row (head) g and g + 8
+  // the warp's M-tile (heads 16 mt ..) and its quarter of the value columns
+  const int mt = kMT == 1 ? 0 : warp / kTileWarps;
+  const int wq = kMT == 1 ? warp : warp % kTileWarps;
+  const int g = lane >> 2;  // accumulator row (head) 16 mt + g and + 8
   const int c = lane & 3;   // accumulator columns 2c, 2c + 1
 
   const int len = lengths[b];
@@ -182,11 +200,11 @@ latent_decode_split_kernel(const bf16* __restrict__ q,
   const int mi = lane >> 3;   // which of the four 8 x 8 matrices
   const int mr = lane & 7;    // its row
   const uint32_t a_off =
-      ((mi & 1) * 8 + mr) * kStride * 2 + (mi >> 1) * 16;
+      (mt * kMH + (mi & 1) * 8 + mr) * kStride * 2 + (mi >> 1) * 16;
   const uint32_t b_off =
       ((mi >> 1) * 8 + mr) * kStride * 2 + (mi & 1) * 16;
   const uint32_t v_off = ((mi & 1) * 8 + mr) * kStride * 2 +
-                         (warp * kVColsPerWarp + (mi >> 1) * 8) * 2;
+                         (wq * kVColsPerWarp + (mi >> 1) * 8) * 2;
 
   float o[kNTiles][4];
 #pragma unroll
@@ -268,12 +286,13 @@ latent_decode_split_kernel(const bf16* __restrict__ q,
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  const int col0 = warp * kVColsPerWarp + 2 * c;
+  const int col0 = wq * kVColsPerWarp + 2 * c;
+  const int h0 = mt * kMH + g;
   if (gridDim.x == 1) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float inv = 1.f / fmaxf(l[i], 1e-30f);
-      bf16* oh = out + ((size_t)b * kH + g + 8 * i) * kVD + col0;
+      bf16* oh = out + ((size_t)b * kH + h0 + 8 * i) * kVD + col0;
 #pragma unroll
       for (int j = 0; j < kNTiles; ++j) {
         *reinterpret_cast<__nv_bfloat162*>(oh + 8 * j) =
@@ -285,14 +304,14 @@ latent_decode_split_kernel(const bf16* __restrict__ q,
   const int n_splits = gridDim.x;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const size_t pi = ((size_t)b * kH + g + 8 * i) * n_splits + split;
+    const size_t pi = ((size_t)b * kH + h0 + 8 * i) * n_splits + split;
     float* a = part + pi * kVD + col0;
 #pragma unroll
     for (int j = 0; j < kNTiles; ++j) {
       *reinterpret_cast<float2*>(a + 8 * j) =
           make_float2(o[j][2 * i], o[j][2 * i + 1]);
     }
-    if (warp == 0 && c == 0) {
+    if (wq == 0 && c == 0) {
       float* ml = part + (size_t)batch * kH * n_splits * kVD;
       ml[pi * 2] = m[i];
       ml[pi * 2 + 1] = l[i];
@@ -301,6 +320,7 @@ latent_decode_split_kernel(const bf16* __restrict__ q,
 }
 
 // Merges the splits of one (sequence, head) in split order.
+template <int kH>
 __global__ void latent_decode_combine_kernel(const float* __restrict__ part,
                                              const int* __restrict__ lengths,
                                              bf16* __restrict__ out,
@@ -329,42 +349,56 @@ __global__ void latent_decode_combine_kernel(const float* __restrict__ part,
   }
 }
 
+template <int kMT>
+int launch(const void* q, const void* pool, const void* tables,
+           const void* lengths, void* out, void* scratch, int batch,
+           int block_size, int max_blocks, int entries_per_split,
+           float scale, cudaStream_t s) {
+  using Shape = Heads<kMT>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      latent_decode_split_kernel<kMT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Shape::kSmem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int n_splits = (max_blocks + entries_per_split - 1) / entries_per_split;
+  if (n_splits > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  latent_decode_split_kernel<kMT>
+      <<<dim3(n_splits, batch), Shape::kThreads, Shape::kSmem, s>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
+          static_cast<const int*>(tables), static_cast<const int*>(lengths),
+          static_cast<bf16*>(out), static_cast<float*>(scratch), batch,
+          block_size, max_blocks, entries_per_split, scale * kLog2e);
+  if (n_splits > 1) {
+    latent_decode_combine_kernel<Shape::kH>
+        <<<dim3(Shape::kH, batch), 128, 0, s>>>(
+            static_cast<const float*>(scratch),
+            static_cast<const int*>(lengths), static_cast<bf16*>(out), batch,
+            block_size, max_blocks, entries_per_split);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns a cudaError_t code; 0 means the kernels were launched. The one
-// compiled shape is MLA's at kv_lora_rank 512 and rope dim 64 with 16
-// heads (k_dim 576, v_dim 512), bf16. `scratch` holds batch * heads *
-// splits * (v_dim + 2) floats, splits = ceil(max_blocks /
-// entries_per_split); it may be null with one split.
+// Returns a cudaError_t code; 0 means the kernels were launched. The
+// compiled shapes are MLA's at kv_lora_rank 512 and rope dim 64 with 16
+// heads (Moonlight) or 64 (Kimi K2) (k_dim 576, v_dim 512), bf16.
+// `scratch` holds batch * heads * splits * (v_dim + 2) floats, splits =
+// ceil(max_blocks / entries_per_split); it may be null with one split.
 extern "C" int latent_decode(int dtype, const void* q, const void* pool,
                              const void* tables, const void* lengths,
                              void* out, void* scratch, int batch, int heads,
                              int k_dim, int v_dim, int block_size,
                              int max_blocks, int entries_per_split,
                              float scale, void* stream) {
-  if (dtype != repro_kernels::kBFloat16 || heads != kH || k_dim != kKD ||
-      v_dim != kVD || block_size < 1 || max_blocks < 1 || batch < 1 ||
-      batch > 65535 || entries_per_split < 1) {
+  if (dtype != repro_kernels::kBFloat16 || (heads != 16 && heads != 64) ||
+      k_dim != kKD || v_dim != kVD || block_size < 1 || max_blocks < 1 ||
+      batch < 1 || batch > 65535 || entries_per_split < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  constexpr int smem = kQBytes + kStages * kTileBytes;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      latent_decode_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (attr != cudaSuccess) return (int)attr;
-  const int n_splits = (max_blocks + entries_per_split - 1) / entries_per_split;
-  if (n_splits > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  latent_decode_split_kernel<<<dim3(n_splits, batch), kThreads, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
-      static_cast<const int*>(tables), static_cast<const int*>(lengths),
-      static_cast<bf16*>(out), static_cast<float*>(scratch), batch,
-      block_size, max_blocks, entries_per_split, scale * kLog2e);
-  if (n_splits > 1) {
-    latent_decode_combine_kernel<<<dim3(kH, batch), 128, 0, s>>>(
-        static_cast<const float*>(scratch), static_cast<const int*>(lengths),
-        static_cast<bf16*>(out), batch, block_size, max_blocks,
-        entries_per_split);
-  }
-  return (int)cudaGetLastError();
+  return heads == 16
+             ? launch<1>(q, pool, tables, lengths, out, scratch, batch,
+                         block_size, max_blocks, entries_per_split, scale, s)
+             : launch<4>(q, pool, tables, lengths, out, scratch, batch,
+                         block_size, max_blocks, entries_per_split, scale, s);
 }

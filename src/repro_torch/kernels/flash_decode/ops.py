@@ -155,8 +155,8 @@ paged_decode_attention.launches = 0
 # Latent (MLA) pools
 # ---------------------------------------------------------------------------
 # (heads, k_dim, v_dim) the latent kernel compiles: MLA at kv_lora_rank 512,
-# rope dim 64, 16 heads
-LATENT_SHAPES = ((16, 576, 512),)
+# rope dim 64, 16 heads (Moonlight) or 64 (Kimi K2)
+LATENT_SHAPES = ((16, 576, 512), (64, 576, 512))
 
 
 def latent_decode_attention_plain(q: torch.Tensor, pool: torch.Tensor,

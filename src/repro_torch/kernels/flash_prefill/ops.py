@@ -45,15 +45,17 @@ MLA_DIMS = ((192, 128),)
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           q_start: torch.Tensor, kv_len: torch.Tensor, *,
                           causal: bool = True,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Sq, dh); k: (B, KH, Skv, dh); v: (B, KH, Skv, dv); q_start,
     kv_len: (B,) int -> (B, H, Sq, dv). f32 math, as the reference's
-    ``flash_prefill_ref``; the scale is ``dh ** -0.5``."""
+    ``flash_prefill_ref``; the scale is ``scale``, or ``dh ** -0.5``."""
     b, h, sq, dh = q.shape
     kh, skv = k.shape[1], k.shape[2]
     kk = k.float().repeat_interleave(h // kh, dim=1)
     vv = v.float().repeat_interleave(h // kh, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * dh ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) * (
+        dh ** -0.5 if scale is None else scale)
     qpos = (q_start.to(q.device).long()[:, None]
             + torch.arange(sq, device=q.device)[None, :])       # (B, Sq)
     kpos = torch.arange(skv, device=q.device)[None, None, :]    # (1, 1, Skv)
@@ -118,16 +120,18 @@ def wgmma_tile_check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_start: torch.Tensor, kv_len: torch.Tensor, *,
                     causal: bool = True,
-                    window: Optional[int] = None) -> torch.Tensor:
+                    window: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, H, Sq, dh); k: (B, KH, Skv, dh); v: (B, KH, Skv, dv); q_start,
     kv_len: (B,) int32 -> (B, H, Sq, dv). KV head of query head h is
-    ``h // (H // KH)``; the scale is ``dh ** -0.5``. ``dv`` is ``dh``, or a
+    ``h // (H // KH)``; the scale is ``scale``, or ``dh ** -0.5``. ``dv``
+    is ``dh``, or a
     pair of ``MLA_DIMS`` in bf16. Refuses operands that require grad (no
     backward)."""
     build.refuse_grad("flash_attention", q, k, v)
     if build.plain_device(q):
         return flash_attention_plain(q, k, v, q_start, kv_len, causal=causal,
-                                     window=window)
+                                     window=window, scale=scale)
     what = "flash_attention"
     build.require_cuda_operands(what, q, k, v, q_start, kv_len)
     b, h, sq, dh = q.shape
@@ -151,6 +155,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be positive")
     build.require_aligned(what, q, k, v)
+    scale = dh ** -0.5 if scale is None else scale
     out = torch.empty(b, h, sq, dv, dtype=q.dtype, device=q.device)
     lib = _lib()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_start.data_ptr(),
@@ -159,10 +164,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if dv == dh:
         code = lib.flash_prefill(
             build.DTYPE_CODES[q.dtype], *args, dh, int(causal), window or 0,
-            dh ** -0.5, build.current_stream(q.device))
+            scale, build.current_stream(q.device))
     else:
         code = lib.flash_prefill_mla(
-            *args, dh, dv, int(causal), window or 0, dh ** -0.5,
+            *args, dh, dv, int(causal), window or 0, scale,
             build.current_stream(q.device))
     build.check_launch(lib, code, what)
     flash_attention.launches += 1

@@ -217,15 +217,17 @@ def prefill_cache(lanes: torch.Tensor, slots: torch.Tensor,
 def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_start: torch.Tensor, kv_len: torch.Tensor, *,
                       causal: bool = True,
-                      window: Optional[int] = None) -> torch.Tensor:
+                      window: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Prefill attention on the prefill kernel, causal unless told not to
     be (an encoder's self-attention, cross-attention onto its rows).
 
     q: (B, S, H, dh) at absolute positions ``q_start[b] + i``; k/v:
     (B, KH, Skv, dh) lanes holding positions ``0 .. Skv-1``; keys at
-    positions >= ``kv_len[b]`` are masked. Returns (B, S, H, dh)."""
+    positions >= ``kv_len[b]`` are masked; the softmax scale ``scale``, or
+    ``dh ** -0.5``. Returns (B, S, H, dh)."""
     out = flash_attention(q.transpose(1, 2).contiguous(), k, v,
                           q_start.to(torch.int32), kv_len.to(torch.int32),
-                          causal=causal, window=window)
+                          causal=causal, window=window, scale=scale)
     return out.transpose(1, 2)
 

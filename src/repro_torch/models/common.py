@@ -130,14 +130,20 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """Rotate the two halves. x: (B, S, H, dh); positions: (B, S) int."""
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: Optional[torch.Tensor] = None,
+               scale: float = 1.0) -> torch.Tensor:
+    """Rotate the two halves. x: (B, S, H, dh); positions: (B, S) int.
+    ``freqs`` (dh//2,) in place of :func:`rope_freqs`'s, and cos and sin
+    times ``scale`` (YaRN's, ``configs/latent.py``)."""
     half = x.shape[-1] // 2
-    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (half,)
+    if freqs is None:
+        freqs = rope_freqs(x.shape[-1], theta, x.device)       # (half,)
     ang = positions[..., None].float() * freqs                 # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]                        # (B, S, 1, half)
     sin = torch.sin(ang)[:, :, None, :]
+    if scale != 1.0:
+        cos, sin = cos * scale, sin * scale
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      -1).to(x.dtype)

@@ -1,19 +1,23 @@
 """Multi-head latent attention (MLA), DeepSeek-V2/V3's attention
-[arXiv:2405.04434 §2.1], as Moonlight-16B-A3B publishes it: no query
-low-rank path, a latent KV of ``kv_lora_rank`` columns beside one rotary
-key shared by every head.
+[arXiv:2405.04434 §2.1]: a latent KV of ``kv_lora_rank`` columns beside one
+rotary key shared by every head, the query straight from the input (as
+Moonlight-16B-A3B publishes it) or through a low-rank path (DeepSeek-V3,
+Kimi K2).
 
-Per layer ``p`` holds ``wq`` (d, H*(dn+dr)), ``wkv_a`` (d, r+dr),
-``kv_norm`` (the latent's RMSNorm scale, r), ``wkv_b`` (r, H*(dn+dv)) and
-``wo`` (H*dv, d), with ``dn, dr, dv, r`` the config's ``qk_nope_head_dim``,
-``qk_rope_head_dim``, ``v_head_dim`` and ``kv_lora_rank``::
+Per layer ``p`` holds ``wq`` (d, H*(dn+dr)), or with a ``q_lora_rank`` of
+``qr`` ``wq_a`` (d, qr), ``q_norm`` (its RMSNorm scale, qr) and ``wq_b``
+(qr, H*(dn+dr)); then ``wkv_a`` (d, r+dr), ``kv_norm`` (the latent's
+RMSNorm scale, r), ``wkv_b`` (r, H*(dn+dv)) and ``wo`` (H*dv, d), with
+``dn, dr, dv, r`` the config's ``qk_nope_head_dim``, ``qk_rope_head_dim``,
+``v_head_dim`` and ``kv_lora_rank``::
 
-    q = x wq                      per head [q_nope (dn) | q_pe (dr)]
+    q = x wq, or rmsnorm(x wq_a) wq_b   per head [q_nope (dn) | q_pe (dr)]
     [c | k_pe] = x wkv_a;  c = rmsnorm(c)
-    q_pe, k_pe rotated (rotate-half RoPE at the token's position)
+    q_pe, k_pe rotated (rotate-half RoPE at the token's position; YaRN's
+        frequencies and cos/sin scale where the config scales its rope)
     [k_nope | v] = c wkv_b        per head
-    attention of [q_nope | q_pe] over [k_nope | k_pe], scale 1/sqrt(dn+dr),
-    weighting v; out = attention wo
+    attention of [q_nope | q_pe] over [k_nope | k_pe], scale 1/sqrt(dn+dr)
+        (times YaRN's mscale^2), weighting v; out = attention wo
 
 The decode cache holds the latent row ``[c | k_pe]`` (r + dr columns) a
 token a layer, one pool ``(L, N+1, bs, r+dr)`` in place of K and V pools.
@@ -36,9 +40,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch import trace
+from repro_torch.configs.latent import norm_eps, yarn_of
 from repro_torch.kernels.flash_decode.ops import latent_decode_attention
 from repro_torch.models.attention import prefill_attention, write_paged
-from repro_torch.models.common import apply_norm, apply_rope, dense_init
+from repro_torch.models.common import (apply_norm, apply_rope, dense_init,
+                                       rope_freqs)
 
 
 def init_attn(gen, cfg, dtype: torch.dtype, n: int) -> dict:
@@ -51,19 +57,59 @@ def init_attn(gen, cfg, dtype: torch.dtype, n: int) -> dict:
     def dense(*shape):
         return dense_init(gen, (n,) + shape, in_axis_size=shape[0],
                           dtype=dtype)
-    return {"wq": dense(d, h * dqk), "wkv_a": dense(d, r + dr),
-            "kv_norm": {"scale": torch.ones(n, r, dtype=dtype,
-                                            device=gen.device)},
+
+    def ones(width):
+        return {"scale": torch.ones(n, width, dtype=dtype, device=gen.device)}
+    qr = cfg.q_lora_rank
+    q = ({"wq_a": dense(d, qr), "q_norm": ones(qr), "wq_b": dense(qr, h * dqk)}
+         if qr else {"wq": dense(d, h * dqk)})
+    return {**q, "wkv_a": dense(d, r + dr), "kv_norm": ones(r),
             "wkv_b": dense(r, h * (cfg.qk_nope_head_dim + dv)),
             "wo": dense(h * dv, d)}
 
 
 def param_count(cfg) -> int:
     """Parameters of one layer's MLA weights."""
-    d, h, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
-    return (d * h * cfg.qk_head_dim + d * (r + cfg.qk_rope_head_dim) + r
+    d, h, r, qr = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank, \
+        cfg.q_lora_rank
+    q = d * qr + qr + qr * h * cfg.qk_head_dim if qr else \
+        d * h * cfg.qk_head_dim
+    return (q + d * (r + cfg.qk_rope_head_dim) + r
             + r * h * (cfg.qk_nope_head_dim + cfg.v_head_dim)
             + h * cfg.v_head_dim * d)
+
+
+_YARN_FREQS: dict = {}
+
+
+def _yarn_freqs(cfg, y, device: torch.device) -> torch.Tensor:
+    """YaRN's rope frequencies (dr/2,) f32: each pair's ``theta^(-2i/dr)``
+    times ``1 - ramp_i``, plus that over ``factor`` times ``ramp_i``,
+    ``ramp_i = clamp((i - low) / (high - low), 0, 1)``. Kept per device
+    (a step's graphs replay them), but not from a capture, whose tensors
+    hold nothing until a replay."""
+    dr = cfg.qk_rope_head_dim
+    key = (dr, cfg.rope_theta, y, device)
+    if key in _YARN_FREQS:
+        return _YARN_FREQS[key]
+    base = rope_freqs(dr, cfg.rope_theta, device)
+    ramp = ((torch.arange(dr // 2, dtype=torch.float32, device=device)
+             - y.low) / (y.high - y.low)).clamp(0, 1)
+    freqs = base / y.factor * ramp + base * (1 - ramp)
+    if not (device.type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        _YARN_FREQS[key] = freqs
+    return freqs
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, cfg) -> torch.Tensor:
+    """The rope columns ``x`` (B, S, h, dr) rotated at ``positions``: plain
+    rope, or YaRN's where the config scales its rope."""
+    y = yarn_of(cfg)
+    if y is None:
+        return apply_rope(x, positions, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta,
+                      _yarn_freqs(cfg, y, x.device), y.rope_scale)
 
 
 def project(p: dict, xn: torch.Tensor, cfg, positions: torch.Tensor):
@@ -71,13 +117,18 @@ def project(p: dict, xn: torch.Tensor, cfg, positions: torch.Tensor):
     inputs ``xn`` (B, S, d) at ``positions`` (B, S), their rope parts
     rotated."""
     b, s, _ = xn.shape
-    dn, r = cfg.qk_nope_head_dim, cfg.kv_lora_rank
-    q = (xn @ p["wq"]).view(b, s, cfg.num_heads, cfg.qk_head_dim)
-    q = torch.cat([q[..., :dn], apply_rope(q[..., dn:], positions,
-                                           cfg.rope_theta)], -1)
+    dn, r, eps = cfg.qk_nope_head_dim, cfg.kv_lora_rank, norm_eps(cfg)
+    if cfg.q_lora_rank:
+        with trace.span("mla.q_lora"):
+            q = apply_norm(p["q_norm"], xn @ p["wq_a"], "rmsnorm",
+                           eps) @ p["wq_b"]
+    else:
+        q = xn @ p["wq"]
+    q = q.view(b, s, cfg.num_heads, cfg.qk_head_dim)
+    q = torch.cat([q[..., :dn], _rope(q[..., dn:], positions, cfg)], -1)
     kv = xn @ p["wkv_a"]
-    c = apply_norm(p["kv_norm"], kv[..., :r], "rmsnorm")
-    k_pe = apply_rope(kv[..., None, r:], positions, cfg.rope_theta)
+    c = apply_norm(p["kv_norm"], kv[..., :r], "rmsnorm", eps)
+    k_pe = _rope(kv[..., None, r:], positions, cfg)
     return q, torch.cat([c, k_pe[:, :, 0]], -1)
 
 
@@ -118,7 +169,11 @@ def unabsorb(p: dict, out: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def scale(cfg) -> float:
-    return cfg.qk_head_dim ** -0.5
+    """The softmax scale: ``1/sqrt(dn+dr)``, times YaRN's mscale^2 where
+    the config scales its rope."""
+    y = yarn_of(cfg)
+    base = cfg.qk_head_dim ** -0.5
+    return base if y is None else base * y.softmax_scale
 
 
 def seq_attention(p: dict, xn: torch.Tensor, cfg, positions: torch.Tensor,
@@ -134,7 +189,8 @@ def seq_attention(p: dict, xn: torch.Tensor, cfg, positions: torch.Tensor,
     k, v = expand(p, latent, cfg)
     return prefill_attention(
         q, k, v, torch.zeros(b, dtype=torch.int32, device=xn.device),
-        torch.full((b,), s, dtype=torch.int32, device=xn.device))
+        torch.full((b,), s, dtype=torch.int32, device=xn.device),
+        scale=scale(cfg))
 
 
 def chunk_attention(p: dict, xn: torch.Tensor, cfg, positions: torch.Tensor,
@@ -151,7 +207,7 @@ def chunk_attention(p: dict, xn: torch.Tensor, cfg, positions: torch.Tensor,
     with trace.span("mla.expand"):
         lane = pool[tables.long()].reshape(b, -1, pool.shape[-1])
         k, v = expand(p, lane, cfg)
-    return prefill_attention(q, k, v, pos0, kv_len)
+    return prefill_attention(q, k, v, pos0, kv_len, scale=scale(cfg))
 
 
 def decode_attention(p: dict, xn: torch.Tensor, cfg,

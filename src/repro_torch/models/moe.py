@@ -32,6 +32,14 @@ in f32 (the softmax router rounds them to the activation dtype first, as
 the reference does). Both choose with a stable sort, ties to the lower
 index.
 
+One chip's share of an expert-parallel layer (``held`` of the ``E``
+experts, the first ``held``): the router scores and chooses over all E,
+the capacity is reckoned over all E, and only the held experts' rows are
+laid out and run, so slots routed elsewhere add nothing here (the
+deployment's other chips add them). ``aux["token_held"]`` then counts each
+position's slots routed to a held expert, drops included. With every
+expert held the dispatch is the whole layer's, op for op.
+
 The four stages are the tracer's spans (``repro_torch.trace``):
 ``moe.router``, ``moe.dispatch``, ``moe.experts`` and ``moe.combine``, so a
 profile with host activity attributes the device time of each stage's
@@ -69,20 +77,21 @@ def routing_of(cfg) -> Optional[SigmoidRouting]:
 
 def init_moe(gen: torch.Generator, d_model: int, moe: MoEConfig,
              activation: str, dtype: torch.dtype, num_layers: int,
-             router_bias: bool = False) -> dict:
+             router_bias: bool = False, held: int = 0) -> dict:
     """Stacked expert parameters: an f32 ``router`` (L, d, E) and the
-    experts' ``w_up``/``w_gate`` (L, E, d, f) and ``w_down`` (L, E, f, d);
-    with ``router_bias`` a sigmoid router's f32 selection bias (L, E),
-    zeros."""
+    experts' ``w_up``/``w_gate`` (L, H, d, f) and ``w_down`` (L, H, f, d),
+    ``H`` the ``held`` experts (0: all E); with ``router_bias`` a sigmoid
+    router's f32 selection bias (L, E), zeros."""
     e, f, L = moe.num_experts, moe.expert_d_ff, num_layers
+    h = held or e
     p = {"router": dense_init(gen, (L, d_model, e), in_axis_size=d_model,
                               dtype=torch.float32),
-         "w_up": dense_init(gen, (L, e, d_model, f), in_axis_size=d_model,
+         "w_up": dense_init(gen, (L, h, d_model, f), in_axis_size=d_model,
                             dtype=dtype),
-         "w_down": dense_init(gen, (L, e, f, d_model), in_axis_size=f,
+         "w_down": dense_init(gen, (L, h, f, d_model), in_axis_size=f,
                               dtype=dtype)}
     if gated(activation):
-        p["w_gate"] = dense_init(gen, (L, e, d_model, f),
+        p["w_gate"] = dense_init(gen, (L, h, d_model, f),
                                  in_axis_size=d_model, dtype=dtype)
     if router_bias:
         p["router_bias"] = torch.zeros(L, e, dtype=torch.float32,
@@ -110,16 +119,17 @@ def _width(tg: int, moe: MoEConfig) -> int:
     return min(_capacity(tg, moe), tg)
 
 
-def expert_rows(tg: int, g: int, moe: MoEConfig) -> int:
+def expert_rows(tg: int, g: int, moe: MoEConfig, held: int = 0) -> int:
     """The expert rows that a dispatch of ``g`` groups of ``tg`` tokens lays
-    out and runs every projection over, all experts together."""
-    return moe.num_experts * g * _width(tg, moe)
+    out and runs every projection over, all ``held`` experts (0: all E)
+    together."""
+    return (held or moe.num_experts) * g * _width(tg, moe)
 
 
 def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
               per_row: bool = False,
-              routing: Optional[SigmoidRouting] = None
-              ) -> Tuple[torch.Tensor, dict]:
+              routing: Optional[SigmoidRouting] = None,
+              held: int = 0) -> Tuple[torch.Tensor, dict]:
     """x: (B, S, d) -> ``(y (B, S, d), aux)``.
 
     ``aux`` holds the scaled ``load_balance_loss`` (top-1 fraction times
@@ -132,7 +142,9 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
     decode programs compute, which route one row at a time under ``vmap``.
     Raises where the group size does not divide the dispatch, as the
     reference asserts. ``routing`` selects the sigmoid router (its bias is
-    ``p["router_bias"]``); None, the softmax router.
+    ``p["router_bias"]``); None, the softmax router. ``held`` experts of
+    E (0: all), the first ones, are the weights' (the module docstring's
+    share); fewer than E adds ``token_held`` (B, S) to ``aux``.
 
     Under sharding rules (DTensor operands) the dispatch groups shard over
     the reference's group axes (``"moe_group_dp"``) and the experts over
@@ -148,20 +160,27 @@ def apply_moe(p: dict, x: torch.Tensor, moe: MoEConfig, activation: str, *,
     e = moe.num_experts
     xg = with_sharding(x.reshape(g, tg, d), ("moe_group_dp", None, None))
     weights = (p["router"], p["w_up"], p.get("w_gate"), p["w_down"])
+    share = 0 < held < e
     if not _sharded(xg):
-        y, frac, mean_p, z, drops = _dispatch(
+        y, frac, mean_p, z, drops, *here = _dispatch(
             xg, *weights, moe=moe, activation=activation, first=0,
-            experts=e, routing=routing, bias=p.get("router_bias"))
+            experts=held if share else e, routing=routing,
+            bias=p.get("router_bias"), count_held=share)
+    elif share:
+        raise NotImplementedError("a chip's share of the experts runs "
+                                  "unsharded")
     elif routing is not None:
         raise NotImplementedError("the sigmoid router runs unsharded")
     else:
         y, frac, mean_p, z, drops = _sharded_dispatch(
             xg, *weights, moe=moe, activation=activation)
     lb = e * torch.sum(frac * mean_p)
-    return y.reshape(b, s, d), {
-        "load_balance_loss": lb * moe.aux_loss_coef,
-        "router_z_loss": z * moe.router_z_coef,
-        "dropped_slots": drops.sum(), "token_drops": drops.reshape(b, s)}
+    aux = {"load_balance_loss": lb * moe.aux_loss_coef,
+           "router_z_loss": z * moe.router_z_coef,
+           "dropped_slots": drops.sum(), "token_drops": drops.reshape(b, s)}
+    if share:
+        aux["token_held"] = here[0].reshape(b, s)
+    return y.reshape(b, s, d), aux
 
 
 def _sharded(x: torch.Tensor) -> bool:
@@ -235,12 +254,13 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
               w_gate, w_down: torch.Tensor, *, moe: MoEConfig,
               activation: str, first: int, experts: int,
               routing: Optional[SigmoidRouting] = None,
-              bias: Optional[torch.Tensor] = None):
+              bias: Optional[torch.Tensor] = None, count_held: bool = False):
     """The capacity-bounded dispatch of groups ``xg`` (G, T, d) through
     experts ``first .. first + experts - 1`` (the expert weights hold those
     alone): ``(y (G, T, d), top-1 fraction (E,), mean probability (E,),
-    z-loss, dropped slots of each token (G, T))``. Slots routed to other experts contribute
-    nothing to ``y``."""
+    z-loss, dropped slots of each token (G, T))``, and with ``count_held``
+    each token's slots routed to those experts (G, T). Slots routed to
+    other experts contribute nothing to ``y``."""
     g, tg, d = xg.shape
     e, k = moe.num_experts, moe.top_k
     cap = _capacity(tg, moe)
@@ -271,7 +291,8 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
         onehot = F.one_hot(expert, e)
         pos = ((onehot.cumsum(1) - 1) * onehot).sum(-1)  # place in expert
         keep = pos < cap
-        here = keep & (expert >= first) & (expert < first + experts)
+        held = (expert >= first) & (expert < first + experts)
+        here = keep & held
         # row of each kept slot in the (experts, G*width) expert rows (pos
         # < min(cap, tg): the capacity decides drops, the width the
         # layout); dropped slots and other ranks' experts point at one
@@ -299,5 +320,6 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
 
     top1 = F.one_hot(gate_idx[..., 0], e).float()
     z = torch.logsumexp(logits, -1).square().mean()
-    return (y, top1.mean((0, 1)), probs.mean((0, 1)), z,
-            (~keep).view(g, k, tg).sum(1))
+    out = (y, top1.mean((0, 1)), probs.mean((0, 1)), z,
+           (~keep).view(g, k, tg).sum(1))
+    return out + (held.view(g, k, tg).sum(1),) if count_held else out

@@ -99,7 +99,8 @@ from repro_torch import trace
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import (AUDIO, DENSE, HYBRID, MOE, SSM, VLM,
                                       ModelConfig)
-from repro_torch.configs.latent import dense_layers, is_latent
+from repro_torch.configs.latent import (dense_layers, experts_held,
+                                        is_latent, norm_eps)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_decode.ops import paged_decode_attention
 from repro_torch.models import mla
@@ -157,10 +158,10 @@ def param_count(cfg: ModelConfig) -> int:
     attn = 2 * d * q + 2 * d * kv + (q + 2 * kv + d if cfg.use_bias else 0)
     mlp = ((3 if gated(cfg.activation) else 2) * d * f
            + (f + d if cfg.use_bias else 0)) if f else 0
-    if is_latent(cfg):              # router, its bias, gated experts
+    if is_latent(cfg):      # router, its bias, the held gated experts
         e, fe, k = cfg.moe.num_experts, cfg.moe.expert_d_ff, dense_layers(cfg)
         attn = 2 * norm + mla.param_count(cfg)
-        moe_layer = attn + mlp + d * e + e + 3 * e * d * fe
+        moe_layer = attn + mlp + d * e + e + 3 * experts_held(cfg) * d * fe
         dense = attn + 3 * d * cfg.dense_d_ff
         return (2 * cfg.vocab_size * d + norm + k * dense
                 + (L - k) * moe_layer)
@@ -265,7 +266,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                   "attn": mla.init_attn(gen, cfg, dtype, L - k),
                   "mlp": mlp_block(L - k),
                   "moe": init_moe(gen, d, cfg.moe, cfg.activation, dtype,
-                                  L - k, router_bias=biased)}
+                                  L - k, router_bias=biased,
+                                  held=experts_held(cfg))}
     elif cfg.family == SSM:     # attention-free: time-mix, channel-mix
         layers = {"ln1": stacked_norm(), "ln2": stacked_norm(),
                   "tm": rwkv.init_time_mix(gen, cfg, dtype, L),
@@ -503,11 +505,15 @@ def _ffn_residual(lp: Params, x, cfg: ModelConfig, *, per_row: bool):
     ``_ffn``; ``aux`` holds the MoE's losses and dropped slots. ``per_row``
     routes each row as its own MoE dispatch."""
     with trace.span("model.ffn"):
-        xn = apply_norm(lp["ln2"], x, cfg.norm)
+        xn = apply_norm(lp["ln2"], x, cfg.norm, norm_eps(cfg))
         y, aux = 0.0, _NO_AUX
         if "moe" in lp:
+            # a share of the experts is named only where the model holds one
+            share = ({"held": cfg.experts_held}
+                     if getattr(cfg, "experts_held", 0) else {})
             y, aux = apply_moe(lp["moe"], xn, cfg.moe, cfg.activation,
-                               per_row=per_row, routing=routing_of(cfg))
+                               per_row=per_row, routing=routing_of(cfg),
+                               **share)
             y = _residual(y)
             if "mlp" in lp:         # the shared experts
                 with trace.span("moe.shared"):
@@ -538,7 +544,7 @@ def _unembed(params: Params, cfg: ModelConfig, x: torch.Tensor):
 
 def _final(params: Params, cfg: ModelConfig, x: torch.Tensor):
     return _unembed(params, cfg, apply_norm(params["final_norm"], x,
-                                            cfg.norm))
+                                            cfg.norm, norm_eps(cfg)))
 
 
 def _heads_first(x: torch.Tensor) -> torch.Tensor:
@@ -763,7 +769,7 @@ def forward_seq(params: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     auxes = []
     for layer, lp in enumerate(map(gather_fsdp, layer_trees(params))):
         with trace.span("model.layer", layer):
-            xn = apply_norm(lp["ln1"], x, cfg.norm)
+            xn = apply_norm(lp["ln1"], x, cfg.norm, norm_eps(cfg))
             if cfg.family == SSM:
                 x = _rwkv_seq(lp, x, xn, cfg, cache, layer, attn_impl)
                 continue
@@ -925,7 +931,8 @@ def forward_chunk(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             if "latent" in cache:
                 with trace.span("model.attn"):
                     x = x + _attn_proj(lp, mla.chunk_attention(
-                        lp["attn"], apply_norm(lp["ln1"], x, cfg.norm), cfg,
+                        lp["attn"], apply_norm(lp["ln1"], x, cfg.norm,
+                                               norm_eps(cfg)), cfg,
                         positions, cache["latent"][layer], cache["tables"],
                         pos0, kv_len))
                 x, layer_aux = _ffn_residual(lp, x, cfg, per_row=True)
@@ -992,7 +999,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache: Cache,
     auxes = []
     for layer, lp in enumerate(map(gather_fsdp, layer_trees(params))):
         with trace.span("model.layer", layer):
-            xn = apply_norm(lp["ln1"], x, cfg.norm)
+            xn = apply_norm(lp["ln1"], x, cfg.norm, norm_eps(cfg))
             if cfg.family == SSM:
                 x = _rwkv_step(lp, x, xn, cfg, cache, layer, rows)
                 continue

@@ -72,9 +72,10 @@ grid, stages its rows into its shape's inputs, padded with rows that own
 nothing (the all-null table, at position 0 for decode: their K/V lands in
 the null block, whose reads are masked), and runs the step: a replay once
 captured, the step itself on the CPU or before ``warmup``. The step
-returns the logits and each position's MoE drops; sampling and the drop
-count stay outside. Contiguous lanes, continuation chunks, first chunks
-off the grid and the other families run eagerly, unpadded.
+returns the logits, each position's MoE drops and, for a model that holds
+a share of the experts, each position's slots routed to them; sampling
+and the counts stay outside. Contiguous lanes, continuation chunks, first
+chunks off the grid and the other families run eagerly, unpadded.
 
 Prompt handling and completion length follow the reference: prompts are
 hash-tokenized into their bucket, and a request finishes after its
@@ -91,7 +92,7 @@ import torch
 
 from repro_torch import trace
 from repro_torch.configs.base import AUDIO, MOE, ModelConfig
-from repro_torch.configs.latent import dense_layers, is_latent
+from repro_torch.configs.latent import dense_layers, experts_held, is_latent
 from repro_torch.core.predictor.tokenizer import HashTokenizer
 from repro_torch.core.scheduler.request import Request
 from repro_torch.core.scheduler.scheduler import Scheduler
@@ -155,7 +156,7 @@ class CapturedStep:
     ``host_tokens`` where the host gives the tokens (first chunks;
     decode's come from the device). ``forward(step)`` runs the step over
     the static inputs and returns ``(logits (rows, V), token_drops or
-    None)``, calling ``kernel`` once a layer."""
+    None, token_held or None)``, calling ``kernel`` once a layer."""
 
     def __init__(self, forward: Callable, kernel, rows: int, width: int,
                  nb: int, cols: int, null: int, device: torch.device, *,
@@ -323,9 +324,12 @@ class RealBackend:
         self.decode_graph_steps = 0   # decode steps served by a graph replay
         self.decode_pad_rows = 0      # padding rows the decode steps ran
         # MoE expert rows the dispatches' products ran and the real
-        # positions' slots routed to them, summed over MoE layers
+        # positions' slots routed to them, summed over MoE layers; of those
+        # slots, the ones whose expert this chip holds (a device sum where
+        # the model holds a share: read as an int by ``held_slots``)
         self.expert_rows = 0
         self.routed_slots = 0
+        self._held = 0
         self.prefill_graph_dispatches = 0  # first chunks served by a replay
         self.capture_seconds = 0.0    # wall time of warmup's captures
         self.prefill_capture_seconds = 0.0  # the first-chunk graphs' part
@@ -436,7 +440,7 @@ class RealBackend:
         logits, _, aux = tfm.decode_step(
             self.params, self.cfg, {**self._pools(), "pos": step.columns[0],
                                     "tables": step.tables}, step.tokens)
-        return logits, aux.get("token_drops")
+        return logits, aux.get("token_drops"), aux.get("token_held")
 
     def _first_forward(self, step: CapturedStep):
         """``forward_seq`` over a first-chunk shape's static inputs, the
@@ -444,7 +448,7 @@ class RealBackend:
         logits, _, aux = tfm.forward_seq(
             self.params, self.cfg, step.tokens,
             cache={**self._pools(), "tables": step.tables})
-        return logits[:, -1].clone(), aux["token_drops"]
+        return logits[:, -1].clone(), aux["token_drops"], aux.get("token_held")
 
     def _capture(self) -> None:
         """A CUDA graph of every captured step, the first-chunk shapes then
@@ -594,34 +598,45 @@ class RealBackend:
     def _sample(self, logits: torch.Tensor) -> torch.Tensor:
         return sample(logits, self._gen, self._sampler_cfg)
 
+    def _real(self, counts: torch.Tensor, n: int, lengths=None):
+        """The sum of a dispatch's per-position ``counts`` (B, S) at its
+        real positions: those of its first ``n`` rows (a replayed lane is
+        none of them) that lie before each row's length in ``lengths``,
+        where given (every position of a decode step is real)."""
+        counts = counts[:n]
+        if lengths is not None:
+            lengths = torch.as_tensor(lengths, device=self.device)
+            counts = counts * (torch.arange(counts.shape[1],
+                                            device=self.device)
+                               < lengths[:, None])
+        return counts.sum()
+
     def _count_drops(self, drops: Optional[torch.Tensor], n: int,
                      lengths=None) -> None:
         """Add a dispatch's MoE capacity drops (``token_drops``, None for
-        the other families) at its real positions: those of its first ``n``
-        rows (a replayed lane is none of them) that lie before each row's
-        length in ``lengths``, where given (every position of a decode step
-        is real)."""
-        if drops is None:
-            return
-        drops = drops[:n]
-        if lengths is not None:
-            lengths = torch.as_tensor(lengths, device=self.device)
-            drops = drops * (torch.arange(drops.shape[1], device=self.device)
-                             < lengths[:, None])
-        self._dropped = self._dropped + drops.sum()
+        the other families) at its real positions (:meth:`_real`)."""
+        if drops is not None:
+            self._dropped = self._dropped + self._real(drops, n, lengths)
 
-    def _count_rows(self, b: int, s: int, per_row: bool, real: int) -> None:
+    def _count_rows(self, b: int, s: int, per_row: bool, real: int,
+                    held: Optional[torch.Tensor] = None, n: int = 0,
+                    lengths=None) -> None:
         """Add an MoE dispatch of ``b`` rows of ``s`` tokens (padding
         included) to ``expert_rows``, and ``real`` positions' slots to
         ``routed_slots``, in every MoE layer: counted from the shape on the
-        host, since a replay runs no Python."""
+        host, since a replay runs no Python. Its slots routed to a held
+        expert go to ``held_slots``: every routed slot where the model
+        holds every expert, else the real positions' ``token_held``
+        (:meth:`_real` of ``n`` and ``lengths``), summed on the device."""
         moe = self.cfg.moe
         if moe is None:
             return
         layers = self.cfg.num_layers - dense_layers(self.cfg)
         self.expert_rows += layers * expert_rows(
-            *groups_of(b, s, moe, per_row), moe)
+            *groups_of(b, s, moe, per_row), moe, experts_held(self.cfg))
         self.routed_slots += layers * moe.top_k * real
+        self._held = self._held + (layers * moe.top_k * real if held is None
+                                   else self._real(held, n, lengths))
 
     @property
     def dropped_slots(self) -> int:
@@ -629,6 +644,14 @@ class RealBackend:
         expert capacity so far (pad positions' drops left out; reading it
         waits for the device)."""
         return int(self._dropped)
+
+    @property
+    def held_slots(self) -> int:
+        """Of ``routed_slots``, those whose expert this chip holds, drops
+        included (reading it waits for the device where the model holds a
+        share of the experts): over ``routed_slots``, the share of the
+        routing that lands here."""
+        return int(self._held)
 
     # ------------------------------------------------------- prefix caching
     def _store_prefix(self, req: Request) -> None:
@@ -748,14 +771,15 @@ class RealBackend:
                     tokens = torch.as_tensor(tokens, device=self.device)
                     cache = self._cache(group, np.zeros(n, np.int32), nb)
             if step is not None:
-                logits, drops = step.run()
+                logits, drops, held = step.run()
                 self.prefill_graph_dispatches += step.graph is not None
             else:
                 logits, _, aux = tfm.forward_seq(self.params, self.cfg,
                                                  tokens, cache=cache)
-                logits, drops = logits[:, -1], aux.get("token_drops")
+                logits, drops, held = (logits[:, -1], aux.get("token_drops"),
+                                       aux.get("token_held"))
             self._count_drops(drops, n, lengths)
-            self._count_rows(lanes, bucket_len, False, real)
+            self._count_rows(lanes, bucket_len, False, real, held, n, lengths)
             with trace.span("backend.sample"):
                 self.slot_tokens[slots] = self._sample(logits[:n])
             self.prefill_dispatches += 1
@@ -785,7 +809,8 @@ class RealBackend:
             logits, _, aux = tfm.forward_chunk(self.params, self.cfg, tokens,
                                                cache)
             self._count_drops(aux.get("token_drops"), len(group), lengths)
-            self._count_rows(len(group), chunk_len, True, sum(lengths))
+            self._count_rows(len(group), chunk_len, True, sum(lengths),
+                             aux.get("token_held"), len(group), lengths)
             with trace.span("backend.sample"):
                 nxt = self._sample(logits[:, -1])
                 # mid-prompt samples are meaningless: only completing chunks
@@ -850,15 +875,15 @@ class RealBackend:
             else:
                 cache = self._cache(reqs, poss)
         if self.paged:
-            logits, drops = step.run()
+            logits, drops, held = step.run()
             self.decode_graph_steps += step.graph is not None
             self.decode_pad_rows += step.rows - n
         else:
             logits, _, aux = tfm.decode_step(self.params, self.cfg, cache,
                                              tokens)
-            drops = aux.get("token_drops")
+            drops, held = aux.get("token_drops"), aux.get("token_held")
         self._count_drops(drops, n)
-        self._count_rows(step.rows if self.paged else n, 1, True, n)
+        self._count_rows(step.rows if self.paged else n, 1, True, n, held, n)
         with trace.span("backend.sample"):
             self.slot_tokens[active] = self._sample(logits[:n])
         with trace.span("backend.sync"):

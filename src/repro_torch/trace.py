@@ -38,7 +38,8 @@ MoE layer's ``moe.router``, ``moe.dispatch``, ``moe.experts`` and
 ``moe.shared``; latent attention's (MLA's) ``mla.latent`` (the latent rows'
 write, and in decode the latent kernel), ``mla.expand`` (a continuation
 chunk's gathered lane through ``wkv_b``), ``mla.absorb`` and
-``mla.unabsorb`` (decode's query and output folds) inside ``model.attn``;
+``mla.unabsorb`` (decode's query and output folds) and ``mla.q_lora`` (the
+query low-rank path, where the config has one) inside ``model.attn``;
 ``kernels.build`` (root).
 """
 from __future__ import annotations

@@ -657,8 +657,8 @@ def test_decode_graph_replay_is_the_eager_step_bitwise(cuda, arch):
             be.v_pool.copy_(pools[1])
             step = _stage_decode(be, reqs[:n], active[:n], b)
             before = paged_decode_attention.launches
-            logits, drops = (step.forward(step) if how == "eager"
-                             else step.run())
+            logits, drops, _ = (step.forward(step) if how == "eager"
+                                else step.run())
             assert paged_decode_attention.launches == before + cfg.num_layers
             torch.cuda.synchronize()
             out[how] = (logits.clone(),
@@ -819,8 +819,8 @@ def test_latent_decode_graph_replay_is_the_eager_step_bitwise(cuda):
             be.k_pool.copy_(pool)
             step = _stage_decode(be, reqs[:n], active[:n], b)
             before = latent_decode_attention.launches
-            logits, drops = (step.forward(step) if how == "eager"
-                             else step.run())
+            logits, drops, _ = (step.forward(step) if how == "eager"
+                                else step.run())
             assert latent_decode_attention.launches == \
                 before + cfg.num_layers
             torch.cuda.synchronize()
@@ -829,6 +829,138 @@ def test_latent_decode_graph_replay_is_the_eager_step_bitwise(cuda):
         for e, g in zip(out["eager"], out["graph"]):
             assert torch.equal(e, g)
     assert paged_decode_attention.launches == paged
+
+
+# ---------------------------------------------------------------------------
+# Latent attention at 64 heads (Kimi K2's widths)
+# ---------------------------------------------------------------------------
+KIMI_SCALE = 192 ** -0.5 * (0.1 * np.log(32.0) + 1.0) ** 2   # 0.130861
+
+
+def _kimi_rows(rng, dev, b, position, h=64):
+    """``b`` rows at ``position`` over 2,048-position tables (128 entries
+    of 16 rows), each row on shuffled blocks of its own, the rest of its
+    table on the null block (the pool's last)."""
+    used = position // 16 + 1
+    n = b * used
+    pool = _randn(rng, (n + 1, 16, 576), "bfloat16", dev)
+    tables = torch.full((b, 128), n, dtype=torch.int32, device=dev)
+    tables[:, :used] = torch.as_tensor(rng.permutation(n).reshape(b, used),
+                                       dtype=torch.int32, device=dev)
+    q = _randn(rng, (b, h, 576), "bfloat16", dev)
+    lens = torch.full((b,), position + 1, dtype=torch.int32, device=dev)
+    return q, pool, tables, lens
+
+
+@pytest.mark.parametrize("position", [159, 2047])
+@pytest.mark.parametrize("b", [1, 16, 64])
+def test_latent_decode_kernel_at_64_heads_matches_plain(cuda, b, position):
+    """The latent decode kernel's 64-head instance (four M-tiles of 16
+    heads over the same shared rows) at Kimi K2's scale, rows at position
+    159 (three splits' first) and 2,047 (the full table), against its
+    plain version at 2e-2; each M-tile's heads equal the 16-head
+    instance's on those heads' queries bit for bit; a planted fault (the
+    scale without YaRN's mscale^2) falls outside the tolerance."""
+    from repro_torch.kernels.flash_decode.ops import (
+        latent_decode_attention, latent_decode_attention_plain)
+    rng = np.random.default_rng(1000 * b + position)
+    q, pool, tables, lens = _kimi_rows(rng, cuda, b, position)
+    got = latent_decode_attention(q, pool, tables, lens, 512, KIMI_SCALE)
+    want = latent_decode_attention_plain(q, pool, tables, lens, 512,
+                                         KIMI_SCALE)
+    assert got.shape == (b, 64, 512)
+    torch.testing.assert_close(got.float(), want.float(), **TOL["bfloat16"])
+    for mt in range(4):
+        heads = slice(16 * mt, 16 * mt + 16)
+        one = latent_decode_attention(q[:, heads].contiguous(), pool, tables,
+                                      lens, 512, KIMI_SCALE)
+        assert torch.equal(got[:, heads], one)
+    fault = latent_decode_attention_plain(q, pool, tables, lens, 512,
+                                          192 ** -0.5)
+    assert not torch.allclose(got.float(), fault.float(), **TOL["bfloat16"])
+
+
+def test_prefill_kernel_mla_instance_at_64_heads(cuda):
+    """The prefill kernel's (192, 128) instance at 64 heads with YaRN's
+    softmax scale: a first chunk and a continuation over a longer lane
+    against the plain version at the same scale; at the default scale
+    (1/sqrt(192)) the output moves outside the tolerance."""
+    rng = np.random.default_rng(64)
+    b, h, sq, skv = 2, 64, 128, 200
+    q = _randn(rng, (b, h, sq, 192), "bfloat16", cuda)
+    k = _randn(rng, (b, h, skv, 192), "bfloat16", cuda)
+    v = _randn(rng, (b, h, skv, 128), "bfloat16", cuda)
+    qs = torch.as_tensor([0, 72], dtype=torch.int32, device=cuda)
+    kl = torch.as_tensor([128, 200], dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, qs, kl, scale=KIMI_SCALE)
+    want = flash_attention_plain(q, k, v, qs, kl, scale=KIMI_SCALE)
+    torch.testing.assert_close(got.float(), want.float(), **TOL["bfloat16"])
+    plain = flash_attention_plain(q, k, v, qs, kl)
+    assert not torch.allclose(got.float(), plain.float(), **TOL["bfloat16"])
+
+
+def _kimi_card_cfg():
+    """Kimi K2 at its published widths with 2 layers (the dense one and
+    one MoE layer), 64 experts of which 8 are held and a 2,048-token
+    vocabulary, in bf16."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MoEConfig
+    return get_config("kimi_k2_instruct").replace(
+        num_layers=2, vocab_size=2048, dense_d_ff=2048, experts_held=8,
+        moe=MoEConfig(num_experts=64, top_k=8, expert_d_ff=2048))
+
+
+def test_kimi_decode_replay_is_the_eager_step_and_counts_held_slots(cuda):
+    """Kimi's block (query path, YaRN, 64 heads, a share of the experts)
+    in the engine on the card: at every bucket the replayed decode step
+    gives the eager step's logits, drops and held slots bit for bit, one
+    latent kernel call a layer; a served burst's ``held_slots`` lie
+    between 0 and ``routed_slots``, and its tokens equal those of an
+    engine never warmed (eager)."""
+    from repro_torch.kernels.flash_decode.ops import latent_decode_attention
+    cfg = _kimi_card_cfg()
+    params = tfm.init_params(cfg, 0, device=cuda)
+    eng = _graph_engine(cfg, params, cuda)
+    be = eng.backend
+    eng.warmup()
+    assert be.k_pool.shape[-1] == 576
+    eng.submit([Request(i, _words(5 + 4 * i, f"k{i}"), 0.0, 32, 9)
+                for i in range(3)])
+    eng.core.tick()
+    active = [i for i, r in enumerate(be.slot_req) if r is not None]
+    reqs = [be.slot_req[i] for i in active]
+    pool = be.k_pool.clone()
+    for b in decode_buckets(8):
+        n = min(b, len(reqs))
+        out = {}
+        for how in ("eager", "graph"):
+            be.k_pool.copy_(pool)
+            step = _stage_decode(be, reqs[:n], active[:n], b)
+            before = latent_decode_attention.launches
+            logits, drops, held = (step.forward(step) if how == "eager"
+                                   else step.run())
+            assert latent_decode_attention.launches == \
+                before + cfg.num_layers
+            torch.cuda.synchronize()
+            out[how] = (logits.clone(), drops.clone(), held.clone())
+        for e, g in zip(out["eager"], out["graph"]):
+            assert torch.equal(e, g)
+    be.k_pool.copy_(pool)
+
+    def tokens(warm):
+        e = _graph_engine(cfg, params, cuda)
+        if warm:
+            e.warmup()
+        e.submit([Request(i, _words(3 + 5 * i, f"t{i}"), 0.0, 32, 6)
+                  for i in range(5)])
+        done = e.run()
+        return ({r.req_id: r.generated_tokens for r in done},
+                e.backend.held_slots, e.backend.routed_slots)
+    warm, held, routed = tokens(True)
+    cold, _, _ = tokens(False)
+    assert warm == cold
+    print(f"held_slots {held} of routed_slots {routed}")
+    assert 0 < held < routed
 
 
 # ---------------------------------------------------------------------------
@@ -901,7 +1033,7 @@ def test_first_chunk_graph_replay_is_the_eager_forward_bitwise(cuda, arch):
                    [lengths, [be._slot_of[r.req_id] for r in group]], tokens)
         lens, slots = step.columns[:, :n]
         before = flash_attention.launches
-        logits, drops = step.run()
+        logits, drops, _ = step.run()
         assert flash_attention.launches == before + cfg.num_layers
         torch.cuda.synchronize()
         out["graph"] = (logits.clone(), drops.clone())
@@ -1097,8 +1229,8 @@ def test_moe_decode_replay_at_buckets_to_64_is_the_eager_step(
                 p.copy_(saved)
             step = _stage_decode(be, reqs[:b], active[:b], b)
             seen.clear()
-            logits, drops = (step.forward(step) if how == "eager"
-                             else step.run())
+            logits, drops, _ = (step.forward(step) if how == "eager"
+                                else step.run())
             torch.cuda.synchronize()
             assert seen == ([cfg.moe.num_experts * b] * _moe_layers(cfg)
                             if how == "eager" else [])

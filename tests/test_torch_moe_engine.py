@@ -348,7 +348,8 @@ def test_bucketed_step_matches_the_unpadded_step(arch):
     assert be._null_block not in written and written
     for b in (4, 8):
         restore()
-        out, drops = _stage_decode(be, reqs, active, b).run()
+        out, drops, held = _stage_decode(be, reqs, active, b).run()
+        assert held is None            # every expert held
         assert out.shape[0] == b
         torch.testing.assert_close(out[:3], logits, atol=1e-5, rtol=1e-5)
         assert torch.equal(out[:3].argmax(-1), logits.argmax(-1))
