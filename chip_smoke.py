@@ -41,7 +41,12 @@ failed check raises and the script exits non-zero:
    positions 159 and 2,047 (a planted fault, the scale without mscale^2,
    must fall outside), timed at 1, 16 and 64 rows of 160 (row 5a), and
    the prefill kernel's (192, 128) instance at H = KH = 64 with that
-   scale (row 2e's H 64 entry). Times the kernel, the plain version and, where one exists, one PyTorch
+   scale (row 2e's H 64 entry). Each MoE slot's place within its expert
+   (``slot_positions``) bitwise against the one-hot ``cumsum`` at a
+   512-token first chunk of OLMoE (top-8 of 64), Moonlight (top-6 of 64)
+   and Kimi K2 (top-8 of 384) and a 64-row decode step (64 groups of
+   one token), each timed device-only beside the plain expression and its
+   byte bound. Times the kernel, the plain version and, where one exists, one PyTorch
    library call computing the same function (``library_ms``, timed here
    only) as back-to-back calls with CUDA events (``ms``, ``plain_ms``,
    ``library_ms``: L2-warm, and at small times partly the host's), and
@@ -83,7 +88,8 @@ failed check raises and the script exits non-zero:
    burst in two waves (the second hits the first's cached prefixes) with
    every launch count zeroed after the captures, the latent
    decode kernel exactly 27 a decode step, all of them replays, the
-   prefill kernel exactly 27 a prefill or extend dispatch, no other
+   prefill kernel exactly 27 a prefill or extend dispatch, the MoE
+   slot-place kernel exactly 26 a dispatch of either kind, no other
    kernel; then each batch bucket's replayed decode step and the eager
    step timed (rows at position 160), with the expert rows and routed
    slots a step adds, and the replay of a 64-token first chunk. Then
@@ -212,7 +218,7 @@ import numpy as np
 import torch
 
 from benchmarks.torch_timing import (BF16_FLOPS_S, bound, cuda_ms,
-                                     device_times)
+                                     device_ms, device_times)
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -1001,6 +1007,58 @@ def phase_prefill_mla_instance(dev, h=MLA_HEADS, scale=None) -> dict:
                                 f"{key}_timed": timed}}
 
 
+SLOT_SHAPES = ((1, 512, 8, 64), (1, 512, 6, 64), (1, 512, 8, 384),
+               (64, 1, 8, 64))   # (G, T, k, E) of the MoE dispatches
+
+
+def phase_slot_positions_kernel(dev) -> dict:
+    """``slot_positions`` at each (G, T, k, E) of ``SLOT_SHAPES``, read from
+    a view of the router's sorted experts as ``_dispatch`` passes it:
+    bitwise against its plain version (the one-hot ``cumsum``), then timed
+    back to back (``ms``, ``plain_ms``) and device-only from a graph
+    replay (``device_ms``, ``plain_device_ms``) with its inputs in L2, as
+    the router has just written them, beside the byte bound: each slot's
+    expert read and its place written, 8 bytes each."""
+    from repro_torch.kernels.moe_route.ops import (slot_positions,
+                                                   slot_positions_plain)
+
+    rng = np.random.default_rng(SEED)
+    by_shape, calls = {}, {}
+    for g, t, k, e in SLOT_SHAPES:
+        order = torch.from_numpy(np.argsort(rng.random((g, t, e)), -1))
+        gate = order.to(dev)[..., :k]
+        got = slot_positions(gate, e)
+        torch.cuda.synchronize()
+        if not torch.equal(got, slot_positions_plain(gate, e)):
+            raise AssertionError(f"slot_positions at (G, T, k, E) "
+                                 f"{(g, t, k, e)} differs from the plain "
+                                 f"version")
+        kernel = functools.partial(slot_positions, gate, e)
+        plain = functools.partial(slot_positions_plain, gate, e)
+        bound_ms, bound_by = bound(16 * g * t * k, 0)
+        label = f"G{g} T{t} k{k} E{e}"
+        calls[label] = kernel
+        by_shape[label] = row = {
+            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+            "device_ms": device_ms([kernel]),
+            "plain_device_ms": device_ms([plain]),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"  slot_positions {label}: bitwise equal; device-only "
+            f"{row['device_ms']:.5f} ms (plain {row['plain_device_ms']:.5f}"
+            f"), back-to-back {row['ms']:.5f} ms (plain "
+            f"{row['plain_ms']:.5f}); bound {bound_ms:.6f} ms ({bound_by})")
+    first = by_shape["G1 T512 k8 E64"]
+    return {"name": "slot_positions", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_slots.cu",
+            "replaces": "none (the JAX package's one-hot cumsum in "
+                        "apply_moe, left to XLA)",
+            "max_abs_err": 0.0, "ms": first["ms"],
+            "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": None,
+            "device_ms": first["device_ms"], "by_shape": by_shape,
+            "call": calls["G1 T512 k8 E64"]}
+
+
 def phase_ring_decode_kernel(dev):
     from repro_torch.kernels.flash_decode.ops import (
         ring_decode_attention, ring_decode_attention_plain)
@@ -1680,17 +1738,20 @@ def phase_mla_serve(dev, idle, arch="moonlight_16b_a3b") -> dict:
     cached blocks), every launch count set to 0 after the captures and
     read after the run. The latent decode kernel must launch exactly once a layer a
     decode step (every step a replay), the prefill kernel's exactly once a
-    layer a prefill or extend dispatch, and no kernel of ``idle``. Then
+    layer a prefill or extend dispatch, ``slot_positions`` exactly once a
+    MoE layer a dispatch of either kind, and no kernel of ``idle``. Then
     each bucket's replayed step and the eager step, rows at position 160 on
     blocks of their own, timed with CUDA events; a share of the experts
     prints ``held_slots / routed_slots``. Returns the run's launch
     counts."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.latent import dense_layers
     from repro_torch.configs.pars_bert_base import CONFIG as PRED_CONFIG
     from repro_torch.core.predictor.train import RankingPredictor
     from repro_torch.core.scheduler.policies import make_policy
     from repro_torch.kernels.flash_decode.ops import latent_decode_attention
     from repro_torch.kernels.flash_prefill.ops import flash_attention
+    from repro_torch.kernels.moe_route.ops import slot_positions
     from repro_torch.models import transformer as tfm
 
     cfg = get_config(arch)
@@ -1716,7 +1777,7 @@ def phase_mla_serve(dev, idle, arch="moonlight_16b_a3b") -> dict:
         f"{be.capture_seconds:.2f} s: {graphs(be._first_shapes)} first-chunk "
         f"graphs {be.prefill_capture_seconds:.2f} s, "
         f"{graphs(be._decode_shapes)} decode graphs the rest)")
-    kernels = (latent_decode_attention, flash_attention)
+    kernels = (latent_decode_attention, flash_attention, slot_positions)
     for k in (*kernels, *idle):
         k.launches = 0
     # two waves of 8: the second's system prompts hit the first's blocks
@@ -1731,7 +1792,9 @@ def phase_mla_serve(dev, idle, arch="moonlight_16b_a3b") -> dict:
     dispatches = be.prefill_dispatches + be.extend_dispatches
     want = {k.__name__: 0 for k in idle}
     want.update({latent_decode_attention.__name__: layers * be.decode_steps,
-                 flash_attention.__name__: layers * dispatches})
+                 flash_attention.__name__: layers * dispatches,
+                 slot_positions.__name__: (layers - dense_layers(cfg))
+                 * (be.decode_steps + dispatches)})
     tokens = sum(r.true_length for r in fin)
     log(f"  pars: {len(fin)} finished, {tokens} tokens in {wall:.2f} s; "
         f"launches {counts}; prefill {be.prefill_dispatches} + extend "
@@ -2954,6 +3017,7 @@ def main() -> int:
                        *phase_prefill_mla_instance(
                            dev, KIMI_HEADS, KIMI_SCALE).items()):
         next(e for e in entries if e["name"] == name).update(keys)
+    entries.append(phase_slot_positions_kernel(dev))
 
     log(f"== phase 3: parity at full width, 4 layers, f32 "
         f"(at {time.perf_counter() - t_start:.1f} s)")
@@ -2973,6 +3037,7 @@ def main() -> int:
         latent_decode_attention, paged_decode_attention,
         ring_decode_attention)
     from repro_torch.kernels.flash_prefill.ops import flash_attention
+    from repro_torch.kernels.moe_route.ops import slot_positions
     from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
     served = {}
     everything = (paged_decode_attention, flash_attention,
@@ -2984,14 +3049,15 @@ def main() -> int:
             ("hymba_1_5b", (ring_decode_attention, linear_attention,
                             flash_attention), None, ("pars", "fcfs")),
             ("rwkv6_7b", (linear_attention,), None, ("pars", "fcfs")),
-            ("olmoe_1b_7b", paged, None, ("pars", "fcfs")),
+            ("olmoe_1b_7b", (*paged, slot_positions), None,
+             ("pars", "fcfs")),
             ("qwen2_vl_72b", paged, 16, ("pars",))):
         log(f"== phase 4: serving {arch} "
             f"({'full' if depth is None else f'{depth} layers'}) under "
             f"{' and '.join(p.upper() for p in policies)} "
             f"(at {time.perf_counter() - t_start:.1f} s)")
-        idle = tuple(k for k in (*everything, latent_decode_attention)
-                     if k not in kernels)
+        idle = tuple(k for k in (*everything, latent_decode_attention,
+                                 slot_positions) if k not in kernels)
         # only the RWKV path's launcher trains its predictor (phase 6
         # trains the same one): the other paths' launchers serve FCFS
         served[arch] = phase_serve(

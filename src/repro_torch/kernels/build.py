@@ -29,7 +29,7 @@ from repro_torch import trace
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("flash_decode_paged", "flash_prefill", "flash_decode",
-           "rwkv6_chunk", "flash_decode_latent")
+           "rwkv6_chunk", "flash_decode_latent", "moe_slots")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -19,7 +19,9 @@ outputs weighted by their gates. The width is exact: a token's k choices
 are distinct, so a group of ``tg`` tokens sends an expert at most ``tg``
 slots and ``pos < tg`` always (a one-token decode group fills one row per
 expert, not C). These are plain large products, outside any kernel in
-both.
+both. The places themselves are counted on the card by a kernel
+(``kernels/moe_route``: a block a group, a thread a slot), elsewhere by
+the reference's one-hot ``cumsum``.
 
 The router is the reference's softmax over the experts, or, with
 :class:`SigmoidRouting` (DeepSeek-V3's ``noaux_tc`` in one group,
@@ -55,6 +57,7 @@ import torch.nn.functional as F
 
 from repro_torch import trace
 from repro_torch.configs.base import MoEConfig
+from repro_torch.kernels.moe_route.ops import slot_positions
 from repro_torch.models.common import activate, dense_init, gated
 from repro_torch.sharding.annotate import (current_mesh_rules, resolve_spec,
                                            with_sharding)
@@ -288,8 +291,7 @@ def _dispatch(xg: torch.Tensor, router: torch.Tensor, w_up: torch.Tensor,
                                                         routing)
         # slot-major order: (G, k*T), slot j of token t at j*T + t
         expert = gate_idx.transpose(1, 2).reshape(g, k * tg)
-        onehot = F.one_hot(expert, e)
-        pos = ((onehot.cumsum(1) - 1) * onehot).sum(-1)  # place in expert
+        pos = slot_positions(gate_idx, e)                # place in expert
         keep = pos < cap
         held = (expert >= first) & (expert < first + experts)
         here = keep & held

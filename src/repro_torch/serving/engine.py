@@ -101,6 +101,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode.ops import (latent_decode_attention,
                                                   paged_decode_attention)
 from repro_torch.kernels.flash_prefill.ops import flash_attention
+from repro_torch.kernels.moe_route.ops import slot_positions
 from repro_torch.models import transformer as tfm
 from repro_torch.models.moe import expert_rows, groups_of
 from repro_torch.serving.config import ServingConfig, resolve_config
@@ -156,13 +157,15 @@ class CapturedStep:
     ``host_tokens`` where the host gives the tokens (first chunks;
     decode's come from the device). ``forward(step)`` runs the step over
     the static inputs and returns ``(logits (rows, V), token_drops or
-    None, token_held or None)``, calling ``kernel`` once a layer."""
+    None, token_held or None)``, calling the attention kernel once a layer
+    and, for an MoE model, ``slot_positions`` once an MoE layer: the
+    wrappers of ``kernels``, whose launch counts a replay advances."""
 
-    def __init__(self, forward: Callable, kernel, rows: int, width: int,
-                 nb: int, cols: int, null: int, device: torch.device, *,
-                 host_tokens: bool):
+    def __init__(self, forward: Callable, kernels: Tuple, rows: int,
+                 width: int, nb: int, cols: int, null: int,
+                 device: torch.device, *, host_tokens: bool):
         pin = device.type == "cuda"
-        self.forward, self.kernel = forward, kernel
+        self.forward, self.kernels = forward, kernels
         self.rows, self.nb, self.null = rows, nb, null
         self.host = torch.zeros(rows * (nb + cols), dtype=torch.int32,
                                 pin_memory=pin)
@@ -180,7 +183,7 @@ class CapturedStep:
         self.sent = torch.cuda.Event() if pin else None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.out: Optional[Tuple] = None     # the graph's static outputs
-        self.calls = 0                       # its calls of ``kernel``
+        self.calls = (0,) * len(kernels)     # its calls of each kernel
 
     def stage(self, tables: Sequence[Sequence[int]],
               cols: Sequence[Sequence[int]], tokens=None) -> None:
@@ -213,18 +216,20 @@ class CapturedStep:
 
     def capture(self, pool) -> None:
         """Capture the step on the current stream as a CUDA graph whose
-        memory comes from ``pool``. The capture's calls of ``kernel``
-        launch nothing, so its ``launches`` leaves them out; each replay
-        adds them."""
+        memory comes from ``pool``. The capture's kernel calls launch
+        nothing, so their ``launches`` leave them out; each replay adds
+        them."""
         graph = torch.cuda.CUDAGraph()
-        before = self.kernel.launches
+        before = [k.launches for k in self.kernels]
         graph.capture_begin(pool=pool)
         try:
             out = self.forward(self)
         finally:
             graph.capture_end()
-        self.calls = self.kernel.launches - before
-        self.kernel.launches = before
+        self.calls = tuple(k.launches - n
+                           for k, n in zip(self.kernels, before))
+        for k, n in zip(self.kernels, before):
+            k.launches = n
         self.graph, self.out = graph, out
 
     def run(self) -> Tuple:
@@ -234,7 +239,8 @@ class CapturedStep:
             return self.forward(self)
         with trace.span("backend.replay"):
             self.graph.replay()
-        self.kernel.launches += self.calls
+        for k, n in zip(self.kernels, self.calls):
+            k.launches += n
         return self.out
 
 
@@ -416,7 +422,8 @@ class RealBackend:
         decode_kernel = (latent_decode_attention if self.latent
                          else paged_decode_attention)
         self._decode_shapes = {
-            b: CapturedStep(self._decode_forward, decode_kernel, b, 1,
+            b: CapturedStep(self._decode_forward,
+                            (decode_kernel, slot_positions), b, 1,
                             self._lane_blocks, 1, self._null_block,
                             self.device, host_tokens=False)
             for b in reversed(decode_buckets(self.max_batch))}
@@ -425,9 +432,9 @@ class RealBackend:
         for lanes, width in prefill_grid(self.core.prefill_chunk_tokens,
                                          self.bucket_lens(), self.max_batch):
             self._first_shapes[lanes, width] = CapturedStep(
-                self._first_forward, flash_attention, lanes, width,
-                -(-width // alloc.block_size), 2, self._null_block,
-                self.device, host_tokens=True)
+                self._first_forward, (flash_attention, slot_positions),
+                lanes, width, -(-width // alloc.block_size), 2,
+                self._null_block, self.device, host_tokens=True)
 
     def _pools(self) -> tfm.Cache:
         """The pools as a paged cache holds them."""

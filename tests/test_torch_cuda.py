@@ -29,6 +29,10 @@ collection during those captures; an MoE decode step's replay at buckets
 1, 8 and 64 equal to the eager step, whose expert products run one row
 an expert a row, and a served window's ``expert_rows``, ``routed_slots``
 and MoE drops as counted from its shapes and from capacity-wide rows;
+the MoE slot-place kernel equals its plain version bit for bit (decode
+groups, first chunks at OLMoE's, Moonlight's and Kimi's E and k, several
+groups, one expert, 16 tiles), once a MoE layer a dispatch, eager or
+replayed, and never in a capture;
 the prefill kernel without the causal mask and ring decode over
 encoder lanes equal unmasked attention; Whisper through ``build()`` gives
 the CPU's logits with exact launch counts; the hybrid, SSM and
@@ -54,6 +58,8 @@ from repro_torch.kernels.flash_decode.ops import (paged_decode_attention,
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                    flash_attention_plain,
                                                    wgmma_tile_check)
+from repro_torch.kernels.moe_route.ops import (slot_positions,
+                                               slot_positions_plain)
 from repro_torch.kernels.rwkv6_chunk.ops import (linear_attention,
                                                  tf32_tile_check)
 from repro_torch.models.linear_attn import chunked_linear_attention
@@ -386,6 +392,13 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
                         torch.zeros(1, 2, 8, 64, device=cuda),
                         torch.zeros(1, 2, 8, 64, device=cuda),
                         zero.long(), zero + 8)
+    experts = torch.zeros(2, 8, 4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="int64"):
+        slot_positions(experts.int(), 64)
+    with pytest.raises(ValueError, match="num_experts"):
+        slot_positions(experts, 1025)
+    with pytest.raises(ValueError, match="innermost"):
+        slot_positions(experts.transpose(1, 2), 64)
 
 
 def _words(n, tag):
@@ -1315,3 +1328,56 @@ def test_served_window_counts_expert_rows_and_keeps_its_drops(cuda, arch):
     assert be.routed_slots == layers * k * sum(
         len(be._prompt_ids(r)) + r.true_length - 1 for r in fin)
     assert be.dropped_slots == WINDOW_DROPS[arch]
+
+
+def _first_chunk_groups(lanes, width, group_size=2048):
+    """(G, T) of a first chunk's MoE dispatch: its lanes' tokens in groups
+    of ``min(group_size, tokens)``."""
+    tg = min(group_size, lanes * width)
+    return lanes * width // tg, tg
+
+
+@pytest.mark.parametrize("g,t,k,e,one_expert", [
+    (1, 1, 8, 64, False), (64, 1, 8, 64, False),      # decode, B 1 and 64
+    *((*_first_chunk_groups(*shape), k, e, False)
+      for shape in ((1, 512), (8, 64))
+      for k, e in ((8, 64), (6, 64), (8, 384))),       # first chunks
+    (3, 512, 8, 64, False), (1, 512, 8, 64, True), (1, 512, 8, 384, True),
+    (1, 2048, 8, 64, False), (2, 2048, 8, 384, False)])   # 16 tiles a group
+def test_slot_positions_kernel_is_the_plain_version_bitwise(
+        cuda, g, t, k, e, one_expert):
+    """Each slot's place within its expert, from a view of the router's
+    sorted experts (as ``_dispatch`` passes it) and from a contiguous
+    copy, equals the one-hot ``cumsum`` bit for bit."""
+    rng = np.random.default_rng(g * t * k + e)
+    order = torch.from_numpy(np.argsort(rng.random((g, t, e)), -1)).to(cuda)
+    if one_expert:
+        order.zero_()
+    gate_idx = order[..., :k]
+    want = slot_positions_plain(gate_idx, e)
+    for x in (gate_idx, gate_idx.contiguous()):
+        got = slot_positions(x, e)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "moonlight_16b_a3b"])
+def test_slot_positions_launch_once_a_moe_layer_a_dispatch(cuda, arch):
+    """``slot_positions.launches`` grows by one a MoE layer for each eager
+    dispatch (the warm-up's one eager pass of each kind's largest shape
+    among them) and each replay of a first chunk or a decode step; the
+    captures launch nothing."""
+    cfg, params = _first_chunk_model(arch, cuda)
+    eng = _first_chunk_engine(cfg, params, cuda)
+    be = eng.backend
+    layers = _moe_layers(cfg)
+    before = slot_positions.launches
+    eng.warmup()
+    assert slot_positions.launches == before + 2 * layers
+    tokens = torch.randint(1, cfg.vocab_size, (2, 16), device=cuda)
+    for run in (lambda: tfm.forward_seq(be.params, cfg, tokens),
+                be._first_shapes[1, 64].run, be._decode_shapes[1].run):
+        before = slot_positions.launches
+        run()
+        torch.cuda.synchronize()
+        assert slot_positions.launches == before + layers

@@ -33,6 +33,8 @@ from repro_torch.kernels.flash_decode.ops import (NEG_INF,
                                                   split_geometry)
 from repro_torch.kernels.flash_prefill.ops import (flash_attention,
                                                    flash_attention_plain)
+from repro_torch.kernels.moe_route.ops import (slot_positions,
+                                               slot_positions_plain)
 from repro_torch.kernels.rwkv6_chunk.ops import linear_attention
 from repro_torch.models.attention import (attention_naive, gather_lane,
                                           prefill_cache, update_cache,
@@ -701,7 +703,7 @@ def test_linear_attention_rejects_chunks_past_the_decay_contract():
 
 def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
     wrappers = (paged_decode_attention, flash_attention,
-                ring_decode_attention, linear_attention)
+                ring_decode_attention, linear_attention, slot_positions)
     before = [w.launches for w in wrappers]
     q, kp, vp, tables, lengths = _paged_inputs(1, 1, 2, 1, 16, 2, 32)
     a = _port_paged(q, kp, vp, tables, lengths)
@@ -718,7 +720,50 @@ def test_cpu_wrappers_take_the_plain_path_and_count_no_launch():
     linear_attention(torch.ones(1, 1, 8, 4), torch.ones(1, 1, 8, 4),
                      torch.ones(1, 1, 8, 4), -torch.ones(1, 1, 8, 1) / 2,
                      mode="ssd", chunk=32)
+    experts = torch.tensor([[[3, 1], [1, 0], [3, 2]]])
+    assert torch.equal(slot_positions(experts, 4),
+                       slot_positions_plain(experts, 4))
     assert [w.launches for w in wrappers] == before
+
+
+def _places_by_loop(gate_idx: np.ndarray, num_experts: int) -> np.ndarray:
+    """Each slot's place within its expert, counted one slot at a time:
+    every token's first choice in token order, then every second, ..."""
+    g, t, k = gate_idx.shape
+    places = np.zeros((g, k * t), np.int64)
+    for group in range(g):
+        seen = [0] * num_experts
+        for j in range(k):
+            for token in range(t):
+                e = gate_idx[group, token, j]
+                places[group, j * t + token] = seen[e]
+                seen[e] += 1
+    return places
+
+
+SLOT_CASES = [(e, k, t, g, False) for e in (4, 64, 384) for k in (2, 6, 8)
+              if k <= e for t in (1, 7, 64, 512) for g in (1, 3)]
+
+
+@pytest.mark.parametrize("e,k,t,g,one_expert",
+                         SLOT_CASES + [(64, 8, 512, 3, True),
+                                       (4, 2, 7, 1, True)])
+def test_slot_positions_plain_counts_each_expert_in_slot_major_order(
+        e, k, t, g, one_expert):
+    """The one-hot ``cumsum`` gives each slot the number of earlier slots
+    of its group (slot-major) routed to its expert, whether the router's
+    k distinct choices a token (read from a view of its sorted experts, as
+    the router leaves them) or every slot on expert 0; the wrapper on the
+    CPU gives the same."""
+    rng = np.random.default_rng(e * 1000 + k * 100 + t + g)
+    order = np.argsort(rng.random((g, t, e)), -1)
+    if one_expert:
+        order[:] = 0
+    gate_idx = torch.from_numpy(order)[..., :k]
+    want = _places_by_loop(order[..., :k], e)
+    assert np.array_equal(slot_positions_plain(gate_idx, e).numpy(), want)
+    assert torch.equal(slot_positions(gate_idx, e),
+                       slot_positions_plain(gate_idx, e))
 
 
 # The kernels have no backward: a wrapper given an operand that requires
